@@ -1,0 +1,277 @@
+"""Index model interface + device-resident storage primitives (counterpart
+of distributed_faiss_tpu/models/base.py).
+
+- ``DeviceVectorStore``: a flat corpus as one (capacity, ...) device tensor,
+  grown by power-of-two reallocation; rows past ``ntotal`` are masked in
+  every scan.
+- ``PaddedLists``: ``nlist`` inverted lists as rectangular (nlist, cap, ...)
+  device tensors with a per-list fill count. Capacity starts at
+  ``MIN_CAP`` = 64 and doubles when the fullest list would overflow, as in
+  the JAX package, so both packages place every row in the same
+  (list, slot). The ids plane starts at -1, so every never-written slot is
+  masked by ``id < 0`` in the scan. Appends are planned on the host
+  (``plan_append``) and land as one scatter.
+
+The JAX package's write/append bucketing and pow2 query-block padding
+existed to bound XLA recompiles; PyTorch runs eagerly, so they are not
+carried over.
+
+Convention: models speak FAISS-style at their boundary — ``search`` returns
+(D, I) with D ascending for l2 / descending inner products for dot, ids are
+int64, missing results are id -1.
+"""
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from distributed_faiss_tpu_torch.ops import distance
+from distributed_faiss_tpu_torch.utils.device import resolve_device
+
+row_norms_f32 = distance.row_norms_f32
+
+
+def _next_pow2(n: int, minimum: int) -> int:
+    c = minimum
+    while c < n:
+        c *= 2
+    return c
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Host copy of a tensor. bf16 has no numpy dtype: it comes back as the
+    fp32 values it represents exactly."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class DeviceVectorStore:
+    """Growable row store in device memory (rows: vectors or codes)."""
+
+    MIN_CAP = 4096
+
+    def __init__(self, row_shape: Tuple[int, ...], dtype: torch.dtype, device,
+                 min_cap: int = None):
+        self.row_shape = tuple(row_shape)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.min_cap = min_cap or self.MIN_CAP
+        self.cap = 0
+        self.ntotal = 0
+        self.data: Optional[torch.Tensor] = None  # (cap, *row_shape)
+
+    def _ensure(self, needed_rows: int) -> None:
+        target = self.ntotal + needed_rows
+        if self.cap >= target:
+            return
+        newcap = _next_pow2(target, self.min_cap)
+        new = torch.zeros((newcap,) + self.row_shape, dtype=self.dtype, device=self.device)
+        if self.data is not None:
+            new[: self.ntotal] = self.data[: self.ntotal]
+        self.data = new
+        self.cap = newcap
+
+    def add(self, rows) -> Tuple[int, int]:
+        """Append rows (array or tensor); returns the (start, end) id range."""
+        rows = torch.as_tensor(rows)
+        n = rows.shape[0]
+        if n == 0:
+            return self.ntotal, self.ntotal
+        self._ensure(n)
+        start = self.ntotal
+        self.data[start:start + n] = rows.to(device=self.device, dtype=self.dtype)
+        self.ntotal += n
+        return start, self.ntotal
+
+    def rows(self, ids) -> np.ndarray:
+        if self.data is None:
+            return np.zeros((0,) + self.row_shape, np.float32)
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return to_numpy(self.data[idx])
+
+    def all_rows(self) -> np.ndarray:
+        if self.data is None:
+            return np.zeros((0,) + self.row_shape, np.float32)
+        return to_numpy(self.data[: self.ntotal])
+
+
+class PaddedLists:
+    """nlist growable inverted lists as rectangular padded device tensors."""
+
+    MIN_CAP = 64
+
+    def __init__(self, nlist: int, payload_shape: Tuple[int, ...], dtype: torch.dtype,
+                 device, min_cap: int = None):
+        self.nlist = nlist
+        self.payload_shape = tuple(payload_shape)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.cap = min_cap or self.MIN_CAP
+        self.data = torch.zeros((nlist, self.cap) + self.payload_shape, dtype=dtype,
+                                device=self.device)
+        self.ids = torch.full((nlist, self.cap), -1, dtype=torch.int32, device=self.device)
+        self.sizes_host = np.zeros(nlist, np.int64)
+        self.sizes = torch.zeros(nlist, dtype=torch.int32, device=self.device)
+
+    @property
+    def ntotal(self) -> int:
+        return int(self.sizes_host.sum())
+
+    def _grow(self, needed_cap: int) -> None:
+        newcap = _next_pow2(needed_cap, self.cap)
+        if newcap == self.cap:
+            return
+        data = torch.zeros((self.nlist, newcap) + self.payload_shape, dtype=self.dtype,
+                           device=self.device)
+        data[:, : self.cap] = self.data
+        ids = torch.full((self.nlist, newcap), -1, dtype=torch.int32, device=self.device)
+        ids[:, : self.cap] = self.ids
+        self.data, self.ids, self.cap = data, ids, newcap
+
+    @staticmethod
+    def plan_append(list_idx: np.ndarray, nlist: int, cap: int, sizes_host: np.ndarray):
+        """Host-side offset planning: sort the batch by target list and give
+        each row the write position ``list * cap + size + within-batch
+        offset``. Returns (counts, order, pos, within): ``order`` sorts the
+        batch by list (stable), ``pos`` are the flat cell addresses in that
+        sorted order, ``within`` the within-list positions in INPUT order —
+        the id -> (list, slot) map persistence reads rows back through."""
+        n = list_idx.shape[0]
+        counts = np.bincount(list_idx, minlength=nlist)
+        order = np.argsort(list_idx, kind="stable")
+        sorted_li = list_idx[order]
+        group_start = np.zeros(nlist + 1, np.int64)
+        group_start[1:] = np.cumsum(counts)
+        offs = np.arange(n, dtype=np.int64) - group_start[sorted_li]
+        within_sorted = sizes_host[sorted_li] + offs
+        pos = sorted_li.astype(np.int64) * cap + within_sorted
+        within = np.empty(n, np.int32)
+        within[order] = within_sorted.astype(np.int32)
+        return counts, order, pos, within
+
+    def append(self, list_idx: np.ndarray, payload, gids: np.ndarray) -> np.ndarray:
+        """Append payload rows (array or tensor, (n, *payload_shape)) to
+        their lists. list_idx, gids: (n,) host ints. Returns the (n,) int32
+        within-list positions in input order."""
+        list_idx = np.asarray(list_idx, np.int64)
+        if list_idx.shape[0] == 0:
+            return np.zeros(0, np.int32)
+        counts = np.bincount(list_idx, minlength=self.nlist)
+        new_sizes = self.sizes_host + counts
+        if new_sizes.max() > self.cap:
+            self._grow(int(new_sizes.max()))
+        counts, order, pos, within = self.plan_append(
+            list_idx, self.nlist, self.cap, self.sizes_host)
+        payload = torch.as_tensor(payload).to(device=self.device, dtype=self.dtype)
+        order_t = torch.as_tensor(order, device=self.device)
+        pos_t = torch.as_tensor(pos, device=self.device)
+        flat_data = self.data.view((self.nlist * self.cap,) + self.payload_shape)
+        flat_ids = self.ids.view(self.nlist * self.cap)
+        flat_data[pos_t] = payload[order_t]
+        flat_ids[pos_t] = torch.as_tensor(np.asarray(gids)[order].astype(np.int32),
+                                          device=self.device)
+        self.sizes_host = new_sizes
+        self.sizes = torch.as_tensor(new_sizes.astype(np.int32), device=self.device)
+        return within
+
+
+def gather_list_rows(lists: PaddedLists, assign, pos) -> np.ndarray:
+    """Host rows at (list, within-list position) pairs — how persistence
+    reads the payload back from the device lists."""
+    assign = np.asarray(assign, np.int64)
+    if assign.shape[0] == 0:
+        return to_numpy(lists.data.new_zeros((0,) + tuple(lists.payload_shape)))
+    flat = torch.as_tensor(assign * lists.cap + np.asarray(pos, np.int64),
+                           device=lists.device)
+    rows = lists.data.reshape((-1,) + tuple(lists.payload_shape))[flat]
+    return to_numpy(rows)
+
+
+class TorchIndex:
+    """Abstract index model (the FAISS-index-equivalent surface)."""
+
+    def __init__(self, dim: int, metric: str, device="cuda"):
+        if metric not in ("dot", "l2"):
+            raise RuntimeError("Only dot and l2 metrics are supported.")
+        self.dim = dim
+        self.metric = metric
+        self.nprobe = 1
+        self.device = resolve_device(device)
+
+    @property
+    def is_trained(self) -> bool:
+        raise NotImplementedError
+
+    @property
+    def ntotal(self) -> int:
+        raise NotImplementedError
+
+    def train(self, x: np.ndarray) -> None:
+        raise NotImplementedError
+
+    def add(self, x: np.ndarray) -> None:
+        """Append vectors; ids are sequential (positional metadata join)."""
+        raise NotImplementedError
+
+    def search(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError
+
+    def search_batched(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The serving scheduler's launch target (one coalesced window)."""
+        return self.search(q, k)
+
+    def set_nprobe(self, nprobe: int) -> None:
+        self.nprobe = int(nprobe)
+
+    def get_centroids(self) -> Optional[np.ndarray]:
+        return None
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    @classmethod
+    def from_state_dict(cls, state, device="cuda") -> "TorchIndex":
+        raise NotImplementedError
+
+
+def finalize_results(scores: np.ndarray, ids: np.ndarray, metric: str):
+    """ops-convention (bigger-better scores, int32 ids) -> FAISS-style (D, I)."""
+    ids = ids.astype(np.int64)
+    if metric == "l2":
+        return -scores, ids
+    return scores, ids
+
+
+MAX_QUERY_BLOCK = 1024
+# bound on one query block's gathered per-probe payload (the JAX package's
+# 2x-the-group-budget rule, models/ivf.py _GROUP_BYTE_BUDGET)
+_QUERY_PAYLOAD_BUDGET = 256 * 1024 * 1024
+
+
+def pick_query_block(probe_bytes_per_query: int, minimum: int = 256) -> int:
+    """Largest power-of-two query block (<= MAX_QUERY_BLOCK) whose gathered
+    per-probe payload fits the byte budget. Kept from the JAX package so
+    the probe grouping — and with it the top-k merge order — matches."""
+    block = MAX_QUERY_BLOCK
+    while block > minimum and block * probe_bytes_per_query > _QUERY_PAYLOAD_BUDGET:
+        block //= 2
+    return block
+
+
+def blocked_search(q: np.ndarray, k: int, metric: str, fn, device, block: int = 256):
+    """One ``fn`` call per query block: ``fn(q_block_tensor)`` returns
+    bigger-is-better (scores, ids) tensors; results land in host arrays.
+    Query rows are independent, so blocks need no padding."""
+    q = np.asarray(q, np.float32)
+    nq = q.shape[0]
+    out_s = np.empty((nq, k), np.float32)
+    out_i = np.empty((nq, k), np.int64)
+    for s in range(0, nq, block):
+        qb = torch.from_numpy(np.ascontiguousarray(q[s:s + block])).to(device)
+        vals, ids = fn(qb)
+        out_s[s:s + qb.shape[0]] = vals.cpu().numpy()
+        out_i[s:s + qb.shape[0]] = ids.cpu().numpy()
+    return finalize_results(out_s, out_i, metric)

@@ -1,0 +1,389 @@
+"""IVF-Flat: coarse k-means quantizer + padded inverted lists (counterpart of
+distributed_faiss_tpu/models/ivf.py, the ``_IVFBase`` + ``IVFFlatIndex``
+part; ``IVFPQIndex`` belongs to a later slice).
+
+Search: coarse scores (nq, nlist) -> top-nprobe lists -> a loop over probe
+groups; each group's (nq, g, cap) masked score block comes from
+``ops.flat_scan.flat_list_scan`` and merges into a running top-k. On a
+CUDA device that block is always the hand-written kernel
+(``csrc/flat_scan.cu``): the ``use_pallas`` knob (``pallas_flat`` in the
+cfg) is still read, stored in ``state_dict`` and round-tripped so configs
+and snapshots stay compatible, but it selects nothing. On the card a
+kernel fault raises — the JAX package's first-use oracle and
+``pallas_guarded`` demotion ladder are not ported. On the CPU the same
+wrapper runs its plain PyTorch version.
+
+The probe grouping (``probe_group_size`` over ``pick_query_block``'s query
+block) is the JAX package's, so the top-k merges happen in the same order.
+
+Coarse assignment: argmax inner product for metric=dot, argmin L2
+otherwise (reference get_quantizer). Host state is the id -> (list,
+within-list position) map only; the payload lives in the device lists and
+persistence gathers it back through that map.
+"""
+
+import logging
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from distributed_faiss_tpu_torch.models import base
+from distributed_faiss_tpu_torch.ops import distance, flat_scan, kmeans, sq
+
+logger = logging.getLogger()
+
+
+def _coarse_assign(centroids: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
+    return torch.argmax(distance.pairwise_scores(x, centroids, metric), dim=1)
+
+
+def exact_candidate_scores(q: torch.Tensor, rows: torch.Tensor, metric: str) -> torch.Tensor:
+    """Exact (nq, R) bigger-is-better scores of gathered candidate rows:
+    dot = ip, l2 = -(qn - 2 ip + rn), fp32."""
+    q = q.float()
+    rows = rows.float()
+    ip = torch.einsum("qd,qrd->qr", q, rows)
+    if metric == "dot":
+        return ip
+    qn = (q * q).sum(1, keepdim=True)
+    rn = (rows * rows).sum(2)
+    return -(qn - 2.0 * ip + rn)
+
+
+def _rerank_exact(store: torch.Tensor, q: torch.Tensor, cand_ids: torch.Tensor,
+                  k: int, metric: str):
+    """Exact refine of a shortlist: gather the fp16 raw rows of the (nq, R)
+    candidates (-1 padding), rescore in fp32, return the top-k subset."""
+    cand = cand_ids.long()
+    safe = torch.where(cand >= 0, cand, torch.zeros_like(cand))
+    s = exact_candidate_scores(q, store[safe], metric)
+    s = torch.where(cand >= 0, s, torch.full_like(s, distance.NEG_INF))
+    best, pos = torch.topk(s, k, dim=1)
+    return best, torch.gather(cand_ids, 1, pos)
+
+
+# the JAX package's group budget: probe grouping bounds the gathered block
+# a non-kernel scan would materialize
+_GROUP_BYTE_BUDGET = 128 * 1024 * 1024
+
+
+def probe_group_size(nprobe: int, per_probe_bytes: int) -> int:
+    """Largest divisor of nprobe whose group payload fits the byte budget."""
+    g = max(1, min(nprobe, _GROUP_BYTE_BUDGET // max(1, per_probe_bytes)))
+    while nprobe % g:
+        g -= 1
+    return g
+
+
+def _merge_group(carry, s: torch.Tensor, li: torch.Tensor, list_ids: torch.Tensor,
+                 k: int):
+    """Merge one group's (nq, g, cap) scores into the running (nq, k) top-k.
+
+    The JAX package gathers the whole (nq, g, cap) ids block and selects
+    from it; here only the ids of the selected positions are gathered from
+    the list layout (same ids: position p of the flattened group is slot
+    p % cap of list li[:, p // cap])."""
+    nq, g, cap = s.shape
+    cv, pos = distance.segmented_argtopk(s.reshape(nq, g * cap), k)
+    safe = torch.where(pos >= 0, pos, torch.zeros_like(pos))
+    lists = torch.gather(li.long(), 1, safe // cap)
+    cids = list_ids[lists, safe % cap]
+    cids = torch.where(pos >= 0, cids, torch.full_like(cids, -1))
+    return distance.merge_topk(carry[0], carry[1], cv, cids, k)
+
+
+def _ivf_flat_search(centroids, list_data, list_ids, list_sizes, q, k: int,
+                     nprobe: int, g: int, metric: str, codec: str, vmin=None,
+                     span=None, list_norms=None, scan_bf16: bool = False):
+    """IVF-Flat/SQ8 probe scan of one query block -> (scores, ids int32)."""
+    q = q.float()
+    coarse = distance.pairwise_scores(q, centroids, metric)
+    _, probes = distance.segmented_argtopk(coarse, nprobe)  # (nq, nprobe)
+    nq = q.shape[0]
+    groups = probes.reshape(nq, nprobe // g, g).permute(1, 0, 2)  # (ng, nq, g)
+    carry = (torch.full((nq, k), distance.NEG_INF, dtype=torch.float32, device=q.device),
+             torch.full((nq, k), -1, dtype=torch.int32, device=q.device))
+    for li in groups:
+        li = li.to(torch.int32).contiguous()
+        sizes = list_sizes[li.long()].contiguous()
+        s = flat_scan.flat_list_scan(q, list_data, list_ids, li, sizes, list_norms,
+                                     vmin, span, metric=metric, codec=codec,
+                                     scan_bf16=scan_bf16)
+        carry = _merge_group(carry, s, li, list_ids, k)
+    return carry
+
+
+class _IVFBase(base.TorchIndex):
+    """Shared coarse-quantizer + list bookkeeping for IVF variants."""
+
+    def __init__(self, dim: int, nlist: int, metric: str, kmeans_iters: int = 10,
+                 device="cuda"):
+        super().__init__(dim, metric, device)
+        if nlist < 1:
+            raise ValueError("nlist must be >= 1")
+        self.nlist = nlist
+        self.kmeans_iters = kmeans_iters
+        self.centroids: Optional[torch.Tensor] = None  # (nlist, d)
+        self.lists: Optional[base.PaddedLists] = None
+        # id -> (list, within-list position): the only per-row host state
+        self._host_assign = []  # np int32 chunks, list idx in id order
+        self._host_pos = []  # np int32 chunks, within-list slot in id order
+        self._n = 0
+
+    @property
+    def is_trained(self) -> bool:
+        return self.centroids is not None
+
+    @property
+    def ntotal(self) -> int:
+        return self._n
+
+    def get_centroids(self) -> Optional[np.ndarray]:
+        return None if self.centroids is None else base.to_numpy(self.centroids)
+
+    def get_assignments(self) -> np.ndarray:
+        return self._host_assign_array()
+
+    def _assign(self, x: torch.Tensor) -> torch.Tensor:
+        # bound the (chunk, nlist) fp32 score block
+        chunk = kmeans.auto_chunk(self.nlist)
+        return torch.cat([_coarse_assign(self.centroids, x[s:s + chunk], self.metric)
+                          for s in range(0, x.shape[0], chunk)])
+
+    def _train_centroids(self, x: torch.Tensor) -> None:
+        self.centroids = kmeans.kmeans(x, self.nlist, iters=self.kmeans_iters)
+
+    def add(self, x: np.ndarray) -> None:
+        if not self.is_trained:
+            raise RuntimeError("IVF index must be trained before add")
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        if xt.shape[0] == 0:
+            return
+        assign = self._assign(xt).cpu().numpy()
+        rows = self._encode(xt)
+        gids = np.arange(self._n, self._n + xt.shape[0], dtype=np.int64)
+        pos = self.lists.append(assign, rows, gids)
+        self._append_extra(xt, assign, gids, rows)
+        self._host_assign.append(assign.astype(np.int32))
+        self._host_pos.append(pos)
+        self._n += xt.shape[0]
+
+    def _host_assign_array(self) -> np.ndarray:
+        if len(self._host_assign) > 1:
+            self._host_assign = [np.concatenate(self._host_assign)]
+        return self._host_assign[0] if self._host_assign else np.zeros((0,), np.int32)
+
+    def _host_pos_array(self) -> np.ndarray:
+        if len(self._host_pos) > 1:
+            self._host_pos = [np.concatenate(self._host_pos)]
+        return self._host_pos[0] if self._host_pos else np.zeros((0,), np.int32)
+
+    def _rows_in_insertion_order(self, chunk: int = 1 << 20, lists=None) -> np.ndarray:
+        """Stream the stored payload back from the device in id order
+        (persistence); ``lists`` selects a sidecar with the payload lists'
+        layout (the stored norms)."""
+        lists = lists if lists is not None else self.lists
+        assign, pos = self._host_assign_array(), self._host_pos_array()
+        parts = [base.gather_list_rows(lists, assign[s:s + chunk], pos[s:s + chunk])
+                 for s in range(0, self._n, chunk)]
+        if not parts:
+            return base.gather_list_rows(lists, assign[:0], pos[:0])
+        return np.concatenate(parts)
+
+    def _empty_results(self, nq: int, k: int):
+        d = np.full((nq, k), np.inf if self.metric == "l2" else -np.inf, np.float32)
+        return d, np.full((nq, k), -1, np.int64)
+
+    # subclass hooks
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _append_extra(self, x, assign, gids, rows) -> None:
+        """Hook: side-car payloads (raw rows for exact refine, stored norms)."""
+
+
+def clip_f16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> fp16 with clipping: an out-of-range component would store inf
+    and poison that row's refined score forever."""
+    f16max = float(torch.finfo(torch.float16).max)
+    return torch.clamp(x.float(), -f16max, f16max).to(torch.float16)
+
+
+class IVFFlatIndex(_IVFBase):
+    """IVF with raw/fp16/sq8 vector payloads.
+
+    codec 'f32' == ``ivf_simple`` (IndexIVFFlat); 'f16' == ``ivfsq``
+    (IndexIVFScalarQuantizer QT_fp16); 'sq8' == factory "IVF<n>,SQ8".
+    """
+
+    def __init__(self, dim: int, nlist: int, metric: str = "l2", codec: str = "f32",
+                 kmeans_iters: int = 10, refine_k_factor: int = 0,
+                 use_pallas: bool = False, scan_bf16: bool = False, device="cuda"):
+        super().__init__(dim, nlist, metric, kmeans_iters, device)
+        if codec not in flat_scan.CODECS:
+            raise ValueError(f"unknown ivf_flat codec {codec!r}")
+        self.codec = codec
+        self._dtype = flat_scan.CODECS[codec][1]  # the lists' storage dtype
+        self.sq_params = None
+        # exact fp16 rerank of the top k * refine_k_factor: meaningful for
+        # the sq8 codec and under scan_bf16; otherwise the stored lists are
+        # already as precise as the refine store (the JAX package's rule)
+        if refine_k_factor and codec != "sq8" and not scan_bf16:
+            logger.warning("refine_k_factor on the %s codec adds no precision over "
+                           "the stored lists; disabled", codec)
+            refine_k_factor = 0
+        if scan_bf16 and not refine_k_factor:
+            raise ValueError(
+                "scan_bf16 perturbs scan scores (bf16 products) and is only "
+                "legal with refine_k_factor > 0 so the shortlist is rescored exactly")
+        self.refine_k_factor = int(refine_k_factor)
+        self.refine_store = (base.DeviceVectorStore((dim,), torch.float16, self.device)
+                             if self.refine_k_factor else None)
+        # accepted and persisted for compatibility; the CUDA scan is always
+        # the hand kernel (module docstring)
+        self.use_pallas = bool(use_pallas)
+        self.scan_bf16 = bool(scan_bf16)
+        # stored-norms scan is the default; False recomputes ||x||^2 in the scan
+        self.use_stored_norms = True
+        self.norm_lists: Optional[base.PaddedLists] = None  # (nlist, cap) fp32
+
+    def _make_lists(self) -> base.PaddedLists:
+        # exact fp32 ||x||^2 per stored row, appended in lockstep with the
+        # payload (same assign/gids stream -> same layout and growth); only
+        # l2 reads norms, so a dot index keeps no sidecar
+        if self.metric == "l2":
+            self.norm_lists = base.PaddedLists(self.nlist, (), torch.float32, self.device)
+        return base.PaddedLists(self.nlist, (self.dim,), self._dtype,
+                                self.device)
+
+    def train(self, x: np.ndarray) -> None:
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        self._train_centroids(xt)
+        if self.codec == "sq8":
+            self.sq_params = sq.sq8_train(xt)
+        self.lists = self._make_lists()
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        if self.codec == "sq8":
+            return sq.sq8_encode(x, self.sq_params["vmin"], self.sq_params["span"])
+        return x.to(self._dtype)
+
+    def _decode(self, rows: torch.Tensor) -> torch.Tensor:
+        if self.codec == "sq8":
+            return sq.sq8_decode(rows, self.sq_params["vmin"], self.sq_params["span"])
+        return rows.float()
+
+    def _row_norms(self, rows: torch.Tensor, chunk: int = 1 << 20) -> torch.Tensor:
+        """Exact fp32 ||x||^2 of ENCODED rows after decode (the scan's
+        recompute formula), chunked to bound the decode transient."""
+        return torch.cat([base.row_norms_f32(self._decode(rows[s:s + chunk]))
+                          for s in range(0, rows.shape[0], chunk)])
+
+    def _append_extra(self, x, assign, gids, rows) -> None:
+        if self.refine_store is not None:
+            self.refine_store.add(clip_f16(x))
+        if self.norm_lists is not None:
+            self.norm_lists.append(assign, self._row_norms(rows), gids)
+
+    def _scan_norms(self):
+        if not (self.use_stored_norms and self.norm_lists is not None):
+            return None
+        if self.norm_lists.cap != self.lists.cap:
+            raise RuntimeError(
+                f"norm/payload list capacities diverged "
+                f"({self.norm_lists.cap} != {self.lists.cap})")
+        return self.norm_lists.data
+
+    def search(self, q: np.ndarray, k: int):
+        if self._n == 0:
+            return self._empty_results(q.shape[0], k)
+        nprobe = min(self.nprobe, self.nlist)
+        nb = base.pick_query_block(self.lists.cap * self.dim * 4)
+        g = probe_group_size(nprobe, nb * self.lists.cap * self.dim * 4)
+        extra = {}
+        if self.codec == "sq8":
+            extra = dict(vmin=self.sq_params["vmin"], span=self.sq_params["span"])
+        norms = self._scan_norms()
+        scan_k = k * self.refine_k_factor if self.refine_k_factor else k
+
+        def run(qb):
+            vals, ids = _ivf_flat_search(
+                self.centroids, self.lists.data, self.lists.ids, self.lists.sizes,
+                qb, scan_k, nprobe, g, self.metric, self.codec, list_norms=norms,
+                scan_bf16=self.scan_bf16, **extra)
+            if self.refine_k_factor:
+                vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)
+            return vals, ids
+
+        return base.blocked_search(q, k, self.metric, run, self.device, block=nb)
+
+    def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
+        ids = np.asarray(ids, np.int64)
+        rows = base.gather_list_rows(self.lists, self._host_assign_array()[ids],
+                                     self._host_pos_array()[ids])
+        return base.to_numpy(self._decode(torch.as_tensor(rows, device=self.device)))
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        state = {
+            "kind": "ivf_flat",
+            "dim": self.dim,
+            "metric": self.metric,
+            "codec": self.codec,
+            "nlist": self.nlist,
+            "nprobe": self.nprobe,
+            "trained": self.is_trained,
+            "refine_k_factor": self.refine_k_factor,
+            "use_pallas": self.use_pallas,
+            "scan_bf16": self.scan_bf16,
+        }
+        if self.is_trained:
+            state["centroids"] = base.to_numpy(self.centroids)
+            state["rows"] = self._rows_in_insertion_order()
+            state["assign"] = self._host_assign_array()
+            if self._n and self.norm_lists is not None:
+                state["list_norms"] = self._rows_in_insertion_order(lists=self.norm_lists)
+            if self.sq_params is not None:
+                state["sq_vmin"] = base.to_numpy(self.sq_params["vmin"])
+                state["sq_span"] = base.to_numpy(self.sq_params["span"])
+            if self.refine_store is not None:
+                state["refine_rows"] = self.refine_store.all_rows()
+        return state
+
+    @classmethod
+    def from_state_dict(cls, state, device="cuda") -> "IVFFlatIndex":
+        idx = cls(int(state["dim"]), int(state["nlist"]), str(state["metric"]),
+                  str(state["codec"]),
+                  refine_k_factor=int(state.get("refine_k_factor", 0)),
+                  use_pallas=bool(state.get("use_pallas", False)),
+                  scan_bf16=bool(state.get("scan_bf16", False)), device=device)
+        idx.nprobe = int(state["nprobe"])
+        if not bool(state["trained"]):
+            return idx
+        dev = idx.device
+        idx.centroids = torch.as_tensor(np.asarray(state["centroids"], np.float32), device=dev)
+        if "sq_vmin" in state:
+            idx.sq_params = {
+                "vmin": torch.as_tensor(np.asarray(state["sq_vmin"], np.float32), device=dev),
+                "span": torch.as_tensor(np.asarray(state["sq_span"], np.float32), device=dev),
+            }
+        idx.lists = idx._make_lists()
+        rows = np.asarray(state["rows"])
+        assign = np.asarray(state["assign"]).astype(np.int64)
+        if rows.shape[0]:
+            gids = np.arange(rows.shape[0], dtype=np.int64)
+            rows_t = torch.as_tensor(rows, device=dev)
+            pos = idx.lists.append(assign, rows_t, gids)
+            idx._host_assign = [assign.astype(np.int32)]
+            idx._host_pos = [pos]
+            idx._n = rows.shape[0]
+            if idx.norm_lists is not None:
+                # from the snapshot when present, else backfilled from the
+                # decoded rows (the two are bit-identical by construction)
+                norms = (torch.as_tensor(np.asarray(state["list_norms"], np.float32),
+                                         device=dev)
+                         if "list_norms" in state else idx._row_norms(rows_t))
+                idx.norm_lists.append(assign, norms, gids)
+            if idx.refine_store is not None:
+                idx.refine_store.add(np.asarray(state["refine_rows"], np.float16))
+        return idx

@@ -1,0 +1,578 @@
+"""Binary tensor RPC over TCP (counterpart of distributed_faiss_tpu/parallel/rpc.py).
+
+Frame layout (little-endian), the JAX package's ``DFT1`` frames:
+
+  magic b"DFT1" | kind u8 | skel_len u32 | narr u32 | skel bytes |
+  narr x [ dtype_len u8 | dtype utf8 | ndim u8 | dims u64* | data bytes ]
+
+numpy arrays travel as raw buffers; only the object skeleton (method name,
+scalars, metadata lists) is pickled, and unpickled through an allowlist
+(``_RestrictedUnpickler``): numpy reconstruction, a few safe builtins, and
+exact (module, name) pairs of this package — ``IndexCfg``, ``IndexState``
+and ``_TensorRef``. A class of the JAX package is refused like any other
+global, so the two packages do not talk RPC to each other; their parity
+link is the snapshot on disk.
+
+Multiplexing: every CALL from ``Client`` carries ``req_id`` in its trailing
+meta dict (with ``deadline_s`` when the call has a deadline); the server
+answers with the tagged kinds (``KIND_*_MUX``, payload ``({"req_id": n},
+body)``), so many calls are in flight per connection and complete out of
+order. A frame without ``req_id`` is served on the synchronous in-order
+path and answered untagged. The binary skeleton encoding
+(parallel/wire.py) is not ported: the port never advertises it, which is
+the protocol's legal un-negotiated dialect, and every frame here carries a
+pickle skeleton.
+"""
+
+import io
+import itertools
+import os
+import pickle
+import random
+import socket
+import struct
+import threading
+import time
+
+import numpy as np
+
+from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
+
+DEFAULT_PORT = 12032
+
+_jitter_rng = random.Random()  # private: retry jitter never touches the global RNG
+
+_SAFE_BUILTINS = frozenset({"set", "frozenset", "complex", "bytearray", "slice", "range"})
+_SAFE_NUMPY = frozenset({
+    "ndarray", "dtype", "_reconstruct", "scalar", "bool_",
+    "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+    "uint64", "float16", "float32", "float64", "longlong", "ulonglong",
+})
+_PACKAGE = __name__.split(".")[0]
+_SAFE_PACKAGE_GLOBALS = frozenset({
+    (f"{_PACKAGE}.utils.config", "IndexCfg"),
+    (f"{_PACKAGE}.utils.state", "IndexState"),
+    (__name__, "_TensorRef"),
+})
+
+
+def _unsafe_pickle_ok() -> bool:
+    # strictly '1': a security opt-out must not widen to other spellings
+    return os.environ.get("DFT_RPC_UNSAFE_PICKLE") == "1"
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        # a dotted name would getattr-walk past the allowlisted symbol
+        if "." not in name:
+            if module == "builtins" and name in _SAFE_BUILTINS:
+                return super().find_class(module, name)
+            if (module == "numpy" or module.startswith(("numpy.core.", "numpy._core."))) \
+                    and name in _SAFE_NUMPY:
+                return super().find_class(module, name)
+            if (module, name) in _SAFE_PACKAGE_GLOBALS:
+                return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"RPC payload references disallowed global {module}.{name} "
+            "(set DFT_RPC_UNSAFE_PICKLE=1 to trust peers with arbitrary pickles)")
+
+
+def restricted_loads(data) -> object:
+    """``pickle.loads`` for wire bytes, through the allowlisted Unpickler."""
+    if _unsafe_pickle_ok():
+        return pickle.loads(data)
+    return _RestrictedUnpickler(io.BytesIO(bytes(data))).load()
+
+
+MAGIC = b"DFT1"
+KIND_CALL = 0
+KIND_RESULT = 1
+KIND_ERROR = 2
+KIND_CLOSE = 3
+# structured admission-control rejection: {"reason": "queue_full" |
+# "deadline" | "stopping", ...}; retryable load shedding, not an exception
+KIND_BUSY = 4
+# req_id-tagged response variants: payload ({"req_id": n}, body)
+KIND_RESULT_MUX = 5
+KIND_ERROR_MUX = 6
+KIND_BUSY_MUX = 7
+
+MUX_RESPONSE_KINDS = {KIND_RESULT: KIND_RESULT_MUX, KIND_ERROR: KIND_ERROR_MUX,
+                      KIND_BUSY: KIND_BUSY_MUX}
+_MUX_TO_BASE = {v: k for k, v in MUX_RESPONSE_KINDS.items()}
+
+_HDR = struct.Struct("<4sBII")
+
+# kernel-level bound on one zero-progress frame write (SO_SNDTIMEO): a peer
+# that stops draining TCP becomes a transport error instead of a wedged
+# thread holding a write lock
+SEND_TIMEOUT_S = 30.0
+
+
+def bound_send_timeout(sock: socket.socket, seconds: float = SEND_TIMEOUT_S) -> None:
+    try:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO,
+                        struct.pack("ll", int(seconds), 0))
+    except (OSError, struct.error):  # pragma: no cover - exotic platform
+        pass
+
+
+class ClientExit(Exception):
+    """Raised server-side when a client sends a CLOSE frame."""
+
+
+class ServerException(Exception):
+    """A remote exception, carrying the server-side traceback text."""
+
+
+class BusyError(Exception):
+    """The server shed this request (scheduler queue full): retry after
+    backoff; the rank is alive."""
+
+    def __init__(self, message: str, info: dict = None):
+        super().__init__(message)
+        self.info = dict(info or {})
+
+
+class DeadlineExceeded(Exception):
+    """The call's deadline passed. Not retryable."""
+
+
+class FrameError(RuntimeError):
+    """The byte stream violated the frame protocol; the connection that
+    produced it is never reused."""
+
+
+# "the bytes never made it intact / the peer is gone"
+TRANSPORT_ERRORS = (OSError, EOFError, FrameError, pickle.UnpicklingError)
+RETRYABLE_ERRORS = TRANSPORT_ERRORS + (BusyError,)
+
+
+class RetryPolicy:
+    """Bounded exponential backoff with jitter for transport failures and
+    BUSY rejections; application errors propagate at once."""
+
+    def __init__(self, max_attempts: int = 3, base_delay: float = 0.05,
+                 multiplier: float = 2.0, max_delay: float = 2.0, jitter: float = 0.5):
+        if max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        if not 0.0 <= jitter <= 1.0:
+            raise ValueError("jitter must be in [0, 1]")
+        self.max_attempts = max_attempts
+        self.base_delay = base_delay
+        self.multiplier = multiplier
+        self.max_delay = max_delay
+        self.jitter = jitter
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.max_delay, self.base_delay * (self.multiplier ** attempt))
+        if self.jitter:
+            d *= 1.0 + self.jitter * (2.0 * _jitter_rng.random() - 1.0)
+        return max(0.0, d)
+
+    def run(self, fn, *args, **kwargs):
+        return self.run_filtered(RETRYABLE_ERRORS, None, fn, *args, **kwargs)
+
+    def run_filtered(self, retryable, abs_deadline, fn, *args, **kwargs):
+        """``run`` with an explicit retryable tuple and an optional absolute
+        ``time.time()`` deadline no backoff sleep may cross."""
+        for attempt in range(self.max_attempts):
+            try:
+                return fn(*args, **kwargs)
+            except retryable:
+                if attempt + 1 >= self.max_attempts:
+                    raise
+                d = self.delay(attempt)
+                if abs_deadline is not None and time.time() + d >= abs_deadline:
+                    raise
+                time.sleep(d)
+
+
+class _TensorRef:
+    __slots__ = ("idx",)
+
+    def __init__(self, idx: int):
+        self.idx = idx
+
+    def __reduce__(self):
+        return (_TensorRef, (self.idx,))
+
+
+def _extract(obj, arrays):
+    """Replace ndarrays in (nested) containers with _TensorRef placeholders."""
+    if isinstance(obj, np.ndarray):
+        a = np.ascontiguousarray(obj)
+        if a.dtype.hasobject:
+            return obj  # object arrays can't travel as raw buffers
+        arrays.append(a)
+        return _TensorRef(len(arrays) - 1)
+    if type(obj) is list:
+        return [_extract(v, arrays) for v in obj]
+    if type(obj) is tuple:
+        return tuple(_extract(v, arrays) for v in obj)
+    if type(obj) is dict:
+        return {k: _extract(v, arrays) for k, v in obj.items()}
+    return obj
+
+
+def _restore(obj, arrays):
+    if isinstance(obj, _TensorRef):
+        return arrays[obj.idx]
+    if type(obj) is list:
+        return [_restore(v, arrays) for v in obj]
+    if type(obj) is tuple:
+        return tuple(_restore(v, arrays) for v in obj)
+    if type(obj) is dict:
+        return {k: _restore(v, arrays) for k, v in obj.items()}
+    return obj
+
+
+def send_parts(sock: socket.socket, parts) -> None:
+    for p in parts:
+        sock.sendall(p)
+
+
+def pack_frame(kind: int, obj=None):
+    arrays = []
+    skel = pickle.dumps(_extract(obj, arrays), protocol=4)
+    parts = [_HDR.pack(MAGIC, kind, len(skel), len(arrays)), skel]
+    for a in arrays:
+        dt = a.dtype.str.encode()
+        parts.append(struct.pack("<B", len(dt)) + dt + struct.pack("<B", a.ndim)
+                     + struct.pack(f"<{a.ndim}Q", *a.shape))
+        if a.size:  # zero-size arrays can't be cast to a byte view
+            parts.append(memoryview(a).cast("B"))
+    return parts
+
+
+def send_frame(sock: socket.socket, kind: int, obj=None) -> None:
+    send_parts(sock, pack_frame(kind, obj))
+
+
+def pack_tagged_response(base_kind: int, obj, req_id: int):
+    """Frame parts for a req_id-tagged RESULT/ERROR/BUSY response."""
+    return pack_frame(MUX_RESPONSE_KINDS[base_kind], ({"req_id": int(req_id)}, obj))
+
+
+class FrameReader:
+    """Buffered frame reader owning one connection's read side: one
+    ``recv`` usually covers a frame's header, skeleton and plane headers;
+    bulk plane data lands straight in the destination array
+    (``recv_into``)."""
+
+    def __init__(self, sock: socket.socket, bufsize: int = 65536):
+        self._sock = sock
+        self._bufsize = max(0, int(bufsize))
+        self._buf = bytearray()
+        self._pos = 0
+        self._frame_started = False
+
+    def _take(self, n: int) -> memoryview:
+        while len(self._buf) - self._pos < n:
+            if self._pos and self._pos == len(self._buf):
+                self._buf = bytearray()
+                self._pos = 0
+            want = n - (len(self._buf) - self._pos)
+            data = self._sock.recv(max(want, self._bufsize))
+            if not data:
+                raise EOFError("connection closed mid-frame"
+                               if self._frame_started or self._pos < len(self._buf)
+                               else "connection closed")
+            self._buf += data
+        out = memoryview(self._buf)[self._pos:self._pos + n]
+        self._pos += n
+        self._frame_started = True
+        return out
+
+    def _readinto(self, view: memoryview) -> None:
+        n = len(view)
+        got = min(len(self._buf) - self._pos, n)
+        if got:
+            view[:got] = memoryview(self._buf)[self._pos:self._pos + got]
+            self._pos += got
+        while got < n:
+            r = self._sock.recv_into(view[got:], n - got)
+            if r == 0:
+                raise EOFError("connection closed mid-tensor")
+            got += r
+
+    def recv_frame(self):
+        """``(kind, payload)`` for one frame."""
+        self._frame_started = False
+        magic, kind, skel_len, narr = _HDR.unpack(self._take(_HDR.size))
+        if magic != MAGIC:
+            raise FrameError(f"bad frame magic {bytes(magic)!r}")
+        skel_bytes = bytes(self._take(skel_len))
+        arrays = []
+        for _ in range(narr):
+            (dt_len,) = struct.unpack("<B", self._take(1))
+            try:
+                dt = np.dtype(bytes(self._take(dt_len)).decode())
+            except (TypeError, ValueError, UnicodeDecodeError) as e:
+                raise FrameError(f"undecodable tensor plane header: {e}") from e
+            if dt.hasobject:  # raw bytes never decode to Python objects
+                raise FrameError(f"tensor plane of object dtype {dt}")
+            (ndim,) = struct.unpack("<B", self._take(1))
+            dims = struct.unpack(f"<{ndim}Q", self._take(8 * ndim))
+            a = np.empty(dims, dtype=dt)
+            if a.nbytes:
+                self._readinto(memoryview(a).cast("B"))
+            arrays.append(a)
+        if self._pos:
+            # frame boundary: trim the consumed prefix so a long-lived
+            # connection's buffer stays bounded
+            del self._buf[:self._pos]
+            self._pos = 0
+        return kind, _restore(restricted_loads(skel_bytes), arrays)
+
+
+def recv_frame(sock: socket.socket):
+    """One-shot unbuffered read of a single frame (never over-reads)."""
+    return FrameReader(sock, bufsize=0).recv_frame()
+
+
+class _PendingCall:
+    __slots__ = ("req_id", "fname", "event", "kind", "payload", "error", "sent_t")
+
+    def __init__(self, req_id: int, fname: str):
+        self.req_id = req_id
+        self.fname = fname
+        self.event = threading.Event()
+        self.kind = None
+        self.payload = None
+        self.error = None
+        self.sent_t = time.monotonic()
+
+
+class Client:
+    """Dynamic-dispatch RPC stub: any attribute is a remote method. One
+    persistent multiplexed connection: ``_lock`` is held only for the frame
+    write, a demux reader thread routes tagged responses to their calls by
+    ``req_id`` (untagged ones FIFO), and each caller waits on its own slot.
+    A transport failure fails every in-flight call and drops the connection;
+    the next call redials."""
+
+    RECONNECT_TIMEOUT = 2.0
+    REDIAL_COOLDOWN = 2.0
+    # slack on a deadline-derived socket wait, so the server's structured
+    # deadline shed can arrive before the client's own timeout fires
+    DEADLINE_GRACE = 0.5
+
+    def __init__(self, client_id: int, host: str, port: int, v6: bool = False,
+                 connect_timeout: float = 60.0):
+        self.id = client_id
+        self.host = host
+        self.port = port
+        self._fam = socket.AF_INET6 if v6 else socket.AF_INET
+        self._lock = threading.Lock()
+        self._closed = False
+        self._shutdown = False
+        self._next_redial = 0.0
+        self._pending = {}  # req_id -> _PendingCall, insertion order == send order
+        self._last_rx = 0.0
+        self._req_counter = itertools.count()
+        self._epoch = 0  # bumped on every (re)connect and teardown
+        self._reader = None
+        self.stats = LatencyStats()  # wire round-trip latency
+        self._connect(connect_timeout)
+
+    def _connect(self, connect_timeout: float) -> None:
+        # a server may register in the discovery file moments before its
+        # accept loop is up: retry with backoff inside the budget
+        deadline = time.time() + connect_timeout
+        delay = 0.05
+        while True:
+            self.sock = socket.socket(self._fam, socket.SOCK_STREAM)
+            self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            try:
+                self.sock.settimeout(max(0.05, min(connect_timeout, deadline - time.time())))
+                self.sock.connect((self.host, self.port))
+                self.sock.settimeout(None)
+                bound_send_timeout(self.sock)
+                break
+            except OSError:
+                self.sock.close()
+                if time.time() + delay > deadline:
+                    raise
+                time.sleep(delay)
+                delay = min(delay * 1.6, 2.0)
+        self._epoch += 1
+        self._last_rx = time.monotonic()
+        self._reader = threading.Thread(
+            target=self._reader_loop, args=(self.sock, self._epoch),
+            name=f"rpc-demux:{self.host}:{self.port}:c{self.id}", daemon=True)
+        self._reader.start()
+
+    def _reader_loop(self, sock: socket.socket, epoch: int) -> None:
+        try:
+            reader = FrameReader(sock)
+            while True:
+                kind, payload = reader.recv_frame()
+                base = _MUX_TO_BASE.get(kind)
+                if base is not None:
+                    meta, body = payload
+                    rid = meta.get("req_id") if isinstance(meta, dict) else None
+                else:
+                    base, body, rid = kind, payload, None
+                with self._lock:
+                    if epoch != self._epoch:
+                        return  # superseded by a redial/teardown
+                    self._last_rx = time.monotonic()
+                    if rid is None:
+                        rid = next(iter(self._pending), None)
+                    slot = self._pending.pop(rid, None)
+                if slot is None:
+                    continue  # response to an abandoned request
+                slot.kind, slot.payload = base, body
+                slot.event.set()
+        except Exception as e:  # the reader's exit path: fail the window
+            with self._lock:
+                if epoch == self._epoch:
+                    self._fail_locked(e, sock=sock)
+
+    def _fail_locked(self, exc: BaseException, sock=None) -> None:
+        """Tear down the connection (lock held) and fail every in-flight
+        call with its own copy of ``exc``."""
+        self._epoch += 1
+        self._closed = True
+        stranded = list(self._pending.values())
+        self._pending.clear()
+        sock = self.sock if sock is None else sock
+        try:
+            sock.shutdown(socket.SHUT_RDWR)  # wake a reader blocked in recv
+        except OSError:
+            pass
+        sock.close()
+        for slot in stranded:
+            try:
+                err = type(exc)(*exc.args)
+                err.__cause__ = exc
+            except Exception:
+                err = exc
+            slot.error = err
+            slot.event.set()
+
+    def _ensure_connected_locked(self) -> None:
+        if self._shutdown:
+            raise RuntimeError(f"client to {self.host}:{self.port} is closed")
+        if self._closed:
+            if time.time() < self._next_redial:
+                raise ConnectionRefusedError(
+                    f"rank at {self.host}:{self.port} is down (redial cooldown)")
+            try:
+                self._connect(self.RECONNECT_TIMEOUT)
+            except OSError:
+                self._next_redial = time.time() + self.REDIAL_COOLDOWN
+                raise
+            self._closed = False
+
+    def generic_fun(self, fname: str, args=(), kwargs=None, timeout: float = None,
+                    deadline: float = None):
+        """Remote call. ``timeout`` bounds the wait for this call's response;
+        ``deadline`` is an absolute ``time.time()`` instant whose remaining
+        budget rides the frame so the server can shed the request unserved.
+        An already-expired deadline raises without touching the wire."""
+        if deadline is not None and deadline - time.time() <= 0:
+            raise DeadlineExceeded(f"deadline expired before calling {fname}")
+        with self._lock:
+            self._ensure_connected_locked()
+            epoch = self._epoch
+        rid = next(self._req_counter)
+        meta = {"req_id": rid}
+        wait = timeout
+        if deadline is not None:
+            budget = deadline - time.time()
+            if budget <= 0:
+                raise DeadlineExceeded(f"deadline expired before sending {fname}")
+            meta["deadline_s"] = budget
+            w = budget + self.DEADLINE_GRACE
+            wait = w if wait is None else min(wait, w)
+        # pack outside the lock and before touching the socket: a pickling
+        # failure must not tear down a healthy connection
+        parts = pack_frame(KIND_CALL, (fname, tuple(args), kwargs or {}, meta))
+        slot = _PendingCall(rid, fname)
+        t0 = time.perf_counter()
+        with self._lock:
+            if self._shutdown:
+                raise RuntimeError(f"client to {self.host}:{self.port} is closed")
+            if self._closed or epoch != self._epoch:
+                raise ConnectionResetError(
+                    f"connection to {self.host}:{self.port} lost before sending {fname}")
+            self._pending[rid] = slot
+            try:
+                send_parts(self.sock, parts)
+            except BaseException as e:
+                # a torn mid-frame write desyncs the stream for every call
+                self._fail_locked(e)
+                raise
+        if not slot.event.wait(wait):
+            exc = socket.timeout(f"no response to {fname} within {wait:.3f}s")
+            with self._lock:
+                owned = self._pending.pop(rid, None) is not None
+                if owned:
+                    slot.error = exc
+                    # nothing arrived since this call was sent: the peer is
+                    # hung — drop the connection; otherwise only this call
+                    # is slow, and its late response is dropped by req_id
+                    if epoch == self._epoch and self._last_rx < slot.sent_t:
+                        self._fail_locked(exc)
+            if owned:
+                slot.event.set()
+            elif not slot.event.wait(timeout=3.0):
+                raise exc
+        if slot.error is not None:
+            raise slot.error
+        self.stats.record("round_trip_s", time.perf_counter() - t0)
+        return self._interpret(slot.kind, slot.payload, fname)
+
+    def _interpret(self, kind, payload, fname):
+        if kind == KIND_RESULT:
+            return payload
+        if kind == KIND_ERROR:
+            raise ServerException(payload)
+        if kind == KIND_BUSY:
+            info = payload if isinstance(payload, dict) else {}
+            if info.get("reason") == "deadline":
+                raise DeadlineExceeded(f"server shed {fname}: deadline expired before dispatch")
+            raise BusyError(
+                f"server shed {fname}: {info.get('reason', 'busy')} "
+                f"(queue {info.get('queue_depth', '?')}/{info.get('max_queue', '?')})", info)
+        raise RuntimeError(f"unexpected frame kind {kind}")
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+
+        def call(*args, **kwargs):
+            return self.generic_fun(name, args, kwargs)
+
+        call.__name__ = name
+        return call
+
+    def close(self):
+        with self._lock:
+            if self._shutdown:
+                return
+            self._shutdown = True
+            reader = self._reader
+            self._epoch += 1  # any live reader for this socket is now stale
+            stranded = list(self._pending.values())
+            self._pending.clear()
+            if not self._closed:
+                self._closed = True
+                try:
+                    send_frame(self.sock, KIND_CLOSE, None)
+                except OSError:
+                    pass
+                finally:
+                    try:
+                        self.sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                    self.sock.close()
+        for slot in stranded:
+            slot.error = RuntimeError(
+                f"client to {self.host}:{self.port} closed with {slot.fname} in flight")
+            slot.event.set()
+        if reader is not None and reader is not threading.current_thread():
+            reader.join(timeout=5.0)

@@ -1,0 +1,431 @@
+"""Index server runtime: one process = one shard rank, many named indexes
+(counterpart of distributed_faiss_tpu/parallel/server.py).
+
+Multi-index registry guarded by a lock, storage path convention
+``{storage_dir}/{index_id}/{rank}/``, and the RPC surface of this slice:
+create/add/search/sync_train/async_train/get_state/get_ntotal/
+get_aggregated_ntotal/set_nprobe/save/load/drop/ping (plus get_rank and
+get_config_path, which the client's construction and load path use).
+Searches go through the ``SearchScheduler`` unless DFT_SCHEDULER=0.
+
+One serving loop: thread-per-connection (``start_blocking``). Calls whose
+frame meta carries a ``req_id`` are dispatched without blocking the
+connection's reader — searches to the scheduler's async completion path,
+everything else to a small worker pool — and answered with tagged frames
+under a per-connection write lock; frames without ``req_id`` are served in
+order on the reader thread.
+
+Not ported yet: the selector loop, replication membership, anti-entropy,
+mutation ops, shard transfer, tracing export, generation-pinned reads.
+"""
+
+import logging
+import os
+import pathlib
+import socket
+import threading
+import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from distributed_faiss_tpu_torch.engine import Index
+from distributed_faiss_tpu_torch.parallel import rpc
+from distributed_faiss_tpu_torch.serving.scheduler import (
+    DeadlineExpired,
+    SchedulerBusy,
+    SchedulerStopped,
+    SearchScheduler,
+)
+from distributed_faiss_tpu_torch.utils.config import IndexCfg, SchedulerCfg, WireCfg
+from distributed_faiss_tpu_torch.utils.device import resolve_device
+from distributed_faiss_tpu_torch.utils.state import IndexState
+from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
+
+logger = logging.getLogger()
+
+_SEARCH_ARGS = ("index_id", "query_batch", "top_k", "return_embeddings")
+
+
+def rpc_worker_count() -> int:
+    """Worker pool size for mux-dispatched non-search ops and response
+    writes (DFT_RPC_WORKERS overrides)."""
+    raw = os.environ.get("DFT_RPC_WORKERS")
+    if raw:
+        return max(1, int(raw))
+    return min(8, max(2, os.cpu_count() or 4))
+
+
+class IndexServer:
+    def __init__(self, rank: int, index_storage_dir: str,
+                 scheduler_cfg: Optional[SchedulerCfg] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.indexes: Dict[str, Index] = {}
+        self.indexes_lock = threading.Lock()
+        self.rank = rank
+        self.index_storage_dir = index_storage_dir
+        self.socket: Optional[socket.socket] = None
+        self._stopping = threading.Event()
+        self.perf = LatencyStats()  # per-RPC latency
+        self._threads_lock = threading.Lock()
+        self._train_threads: List[threading.Thread] = []
+        # parsed for a fail-fast on bad values; frames stay pickle (rpc.py)
+        self.wire_cfg = WireCfg.from_env()
+        cfg = scheduler_cfg if scheduler_cfg is not None else SchedulerCfg.from_env()
+        self.scheduler: Optional[SearchScheduler] = None
+        if cfg.enabled:
+            self.scheduler = SearchScheduler(self._engine_search_batched, cfg,
+                                             name=f"search-batcher:r{rank}")
+        self._rpc_workers = ThreadPoolExecutor(max_workers=rpc_worker_count(),
+                                               thread_name_prefix=f"rpc-worker:r{rank}")
+
+    # ------------------------------------------------------------ RPC surface
+
+    def create_index(self, index_id: str, cfg: IndexCfg) -> bool:
+        with self.indexes_lock:
+            if index_id in self.indexes:
+                return False
+        storage = self._get_storage_dir(index_id, cfg)
+        cfg.index_storage_dir = storage
+        pathlib.Path(storage).mkdir(parents=True, exist_ok=True)
+        index = Index(cfg, self.device)
+        with self.indexes_lock:
+            if index_id not in self.indexes:
+                self.indexes[index_id] = index
+                logger.info("created index %s (storage %s)", index_id, storage)
+                return True
+        index.retire()
+        return False
+
+    def add_index_data(self, index_id: str, embeddings: np.ndarray, metadata=None,
+                       train_async_if_triggered: bool = True) -> None:
+        self._get_index(index_id).add_batch(embeddings, metadata, train_async_if_triggered)
+
+    def search(self, index_id: str, query_batch: np.ndarray, top_k: int,
+               return_embeddings: bool = False):
+        return self._get_index(index_id).search(query_batch, top_k=top_k,
+                                                return_embeddings=return_embeddings)
+
+    def _engine_search_batched(self, index_id: str, query_batch: np.ndarray, top_k: int,
+                               return_embeddings: bool):
+        """The scheduler's launch target (one coalesced window)."""
+        return self._get_index(index_id).search_batched(
+            query_batch, top_k=top_k, return_embeddings=return_embeddings)
+
+    def sync_train(self, index_id: str) -> None:
+        self._get_index(index_id).train()
+
+    def async_train(self, index_id: str) -> None:
+        index = self._get_index(index_id)
+        t = threading.Thread(target=index.train, name=f"train:{index_id}:r{self.rank}",
+                             daemon=True)
+        with self._threads_lock:
+            self._train_threads = [x for x in self._train_threads
+                                   if x.ident is None or x.is_alive()]
+            self._train_threads.append(t)
+            t.start()  # inside the lock: stop() never joins an unstarted thread
+
+    def get_state(self, index_id: str) -> IndexState:
+        return self._get_index(index_id).get_state()
+
+    def get_ntotal(self, index_id: str) -> int:
+        with self.indexes_lock:
+            index = self.indexes.get(index_id)
+        return 0 if index is None else index.get_idx_data_num()[1]
+
+    def get_aggregated_ntotal(self, index_id: str) -> int:
+        """Buffered, not-yet-indexed rows (the reference's name for it)."""
+        with self.indexes_lock:
+            index = self.indexes.get(index_id)
+        return 0 if index is None else index.get_idx_data_num()[0]
+
+    def save_index(self, index_id: str) -> None:
+        self._get_index(index_id).save()
+
+    def load_index(self, index_id: str = "default", cfg: IndexCfg = None) -> bool:
+        index_dir = self._get_storage_dir(index_id, cfg)
+        if cfg:
+            cfg.index_storage_dir = index_dir
+        with self.indexes_lock:
+            if index_id in self.indexes:
+                if cfg:
+                    self.indexes[index_id].upd_cfg(cfg)
+                return True
+        index = Index.from_storage_dir(index_dir, cfg, ignore_buffer=False, device=self.device)
+        if index is None:
+            return False
+        with self.indexes_lock:
+            self.indexes[index_id] = index
+        return True
+
+    def drop_index(self, index_id: str) -> None:
+        with self.indexes_lock:
+            old = self.indexes.pop(index_id, None)
+        if old is not None:
+            old.retire()
+
+    def set_nprobe(self, index_id: str, nprobe: int) -> None:
+        return self._get_index(index_id).set_nprobe(nprobe)
+
+    def get_rank(self) -> int:
+        return self.rank
+
+    def get_config_path(self, index_id: str) -> str:
+        return os.path.join(self.index_storage_dir, index_id, str(self.rank), "cfg.json")
+
+    def get_perf_stats(self) -> dict:
+        out = self.perf.summary()
+        if self.scheduler is not None:
+            out["scheduler"] = self.scheduler.perf_stats()
+        with self.indexes_lock:
+            snapshot = list(self.indexes.items())
+        out["engine"] = {iid: idx.perf_stats() for iid, idx in snapshot}
+        return out
+
+    def ping(self) -> dict:
+        with self.indexes_lock:
+            snapshot = list(self.indexes.items())
+        return {"rank": self.rank, "device": str(self.device),
+                "indexes": {iid: idx.get_state().name for iid, idx in snapshot}}
+
+    def stop(self) -> None:
+        logger.info("stopping server rank=%d", self.rank)
+        self._stopping.set()
+        if self.socket is not None:
+            try:
+                self.socket.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self.socket.close()
+            self.socket = None
+        if self.scheduler is not None:
+            self.scheduler.stop()
+        self._rpc_workers.shutdown(wait=False)
+        with self._threads_lock:
+            train_threads = list(self._train_threads)
+        for t in train_threads:
+            t.join(timeout=30.0)
+            if t.is_alive():
+                logger.warning("training thread %s still running at stop", t.name)
+        with self.indexes_lock:
+            indexes = list(self.indexes.values())
+        for index in indexes:
+            index.save()
+            index.retire()
+
+    # ------------------------------------------------------------ serving loop
+
+    def bind(self, port: int = rpc.DEFAULT_PORT, v6: bool = False) -> int:
+        """Bind and listen; returns the bound port (pass 0 for a free one)."""
+        s = socket.socket(socket.AF_INET6 if v6 else socket.AF_INET, socket.SOCK_STREAM)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("", port))
+        s.listen(16)
+        self.socket = s
+        return s.getsockname()[1]
+
+    def start_blocking(self, port: int = rpc.DEFAULT_PORT, v6: bool = False,
+                       load_index: bool = False) -> None:
+        """Thread-per-connection accept loop (binds first unless ``bind``
+        already ran)."""
+        if load_index:
+            self.load_index()
+        if self.socket is None:
+            self.bind(port, v6)
+        s = self.socket
+        logger.info("server rank=%d listening on :%d", self.rank, s.getsockname()[1])
+        while not self._stopping.is_set():
+            try:
+                conn, addr = s.accept()
+            except OSError:
+                break
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            rpc.bound_send_timeout(conn)
+            # lifetime is the connection's: exits when the peer closes
+            threading.Thread(target=self._serve_connection, args=(conn, addr),
+                             name=f"conn:r{self.rank}:{addr[0]}:{addr[1]}",
+                             daemon=True).start()
+
+    def _serve_connection(self, conn: socket.socket, addr) -> None:
+        wlock = threading.Lock()  # serializes this connection's response writes
+        reader = rpc.FrameReader(conn)
+        try:
+            while True:
+                self._one_call(conn, reader, wlock)
+        except (rpc.ClientExit, EOFError):
+            pass
+        except OSError as e:
+            logger.info("socket error from %s: %s", addr, e)
+        except Exception as e:
+            # malformed frame / undecodable payload: drop this connection only
+            logger.warning("dropping connection from %s: %s", addr, e)
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _one_call(self, conn, reader: rpc.FrameReader, wlock) -> None:
+        kind, payload = reader.recv_frame()
+        if kind == rpc.KIND_CLOSE:
+            raise rpc.ClientExit("client closed")
+        if kind != rpc.KIND_CALL:
+            raise RuntimeError(f"unexpected frame kind {kind}")
+        fname, args, kwargs = payload[:3]
+        frame_meta = payload[3] if len(payload) > 3 else None
+        deadline = req_id = None
+        if isinstance(frame_meta, dict):
+            if frame_meta.get("deadline_s") is not None:
+                deadline = time.monotonic() + float(frame_meta["deadline_s"])
+            req_id = frame_meta.get("req_id")
+        if fname.startswith("_") or not callable(getattr(self, fname, None)):
+            fname = f"unknown:{fname}"
+        t0 = time.perf_counter()
+        if req_id is None:
+            kind, payload = self._call(fname, args, kwargs, deadline, t0)
+            try:
+                parts = rpc.pack_frame(kind, payload)
+            except Exception:
+                parts = rpc.pack_frame(rpc.KIND_ERROR, traceback.format_exc())
+            with wlock:
+                rpc.send_parts(conn, parts)
+            return
+        if fname == "search" and self.scheduler is not None:
+            self._dispatch_scheduled(conn, wlock, args, kwargs, deadline, req_id, t0)
+        else:
+            self._rpc_workers.submit(self._dispatch_direct, conn, wlock, fname, args,
+                                     kwargs, deadline, req_id, t0)
+
+    def _call(self, fname, args, kwargs, deadline, t0):
+        """Serve one call on this thread -> (response kind, payload)."""
+        try:
+            if fname.startswith("unknown:"):
+                raise AttributeError(f"IndexServer has no RPC op {fname[8:]!r}")
+            if fname == "search" and self.scheduler is not None:
+                vals = dict(zip(_SEARCH_ARGS, args))
+                vals.update(kwargs or {})
+                ret = self.scheduler.submit(
+                    vals["index_id"], vals["query_batch"], vals["top_k"],
+                    bool(vals.get("return_embeddings", False)), deadline=deadline)
+            else:
+                ret = getattr(self, fname)(*args, **(kwargs or {}))
+            self.perf.record(fname, time.perf_counter() - t0)
+            return rpc.KIND_RESULT, ret
+        except Exception as e:
+            busy = self._classify_scheduler_reject(e)
+            if busy is not None:
+                self.perf.record(busy[0], time.perf_counter() - t0)
+                return rpc.KIND_BUSY, busy[1]
+            tb = traceback.format_exc()
+            logger.error("exception in %s: %s", fname, tb)
+            return rpc.KIND_ERROR, tb
+
+    @staticmethod
+    def _classify_scheduler_reject(error):
+        """Scheduler admission/shed error -> (perf name, BUSY payload), or None."""
+        if isinstance(error, SchedulerBusy):
+            return "search:busy", {"reason": "queue_full", "queue_depth": error.queue_depth,
+                                   "max_queue": error.max_queue}
+        if isinstance(error, SchedulerStopped):
+            return "search:busy", {"reason": "stopping"}
+        if isinstance(error, DeadlineExpired):
+            return "search:shed", {"reason": "deadline"}
+        return None
+
+    def _dispatch_scheduled(self, conn, wlock, args, kwargs, deadline, req_id, t0) -> None:
+        """Hand a mux search to the scheduler without blocking the reader;
+        its completion callback queues the tagged response write on the
+        worker pool (never socket I/O on the batcher thread)."""
+
+        def done(result, error):
+            try:
+                self._rpc_workers.submit(self._finish_scheduled, conn, wlock, req_id,
+                                         result, error, t0)
+            except RuntimeError:
+                pass  # pool shut down (server stopping): the client sees the drop
+
+        try:
+            vals = dict(zip(_SEARCH_ARGS, args))
+            vals.update(kwargs or {})
+            self.scheduler.submit_async(
+                vals["index_id"], vals["query_batch"], vals["top_k"],
+                bool(vals.get("return_embeddings", False)), deadline=deadline,
+                callback=done)
+        except Exception as e:
+            # admission rejected or bad args: answered now, never queued
+            self._finish_scheduled(conn, wlock, req_id, None, e, t0)
+
+    def _finish_scheduled(self, conn, wlock, req_id, result, error, t0) -> None:
+        if error is None:
+            self.perf.record("search", time.perf_counter() - t0)
+            self._send_tagged(conn, wlock, rpc.KIND_RESULT, result, req_id)
+            return
+        busy = self._classify_scheduler_reject(error)
+        if busy is not None:
+            self.perf.record(busy[0], time.perf_counter() - t0)
+            self._send_tagged(conn, wlock, rpc.KIND_BUSY, busy[1], req_id)
+            return
+        tb = "".join(traceback.format_exception(type(error), error, error.__traceback__))
+        logger.error("exception in scheduled search: %s", tb)
+        self._send_tagged(conn, wlock, rpc.KIND_ERROR, tb, req_id)
+
+    def _dispatch_direct(self, conn, wlock, fname, args, kwargs, deadline, req_id, t0):
+        """Worker-pool target for mux non-search ops."""
+        kind, payload = self._call(fname, args, kwargs, deadline, t0)
+        self._send_tagged(conn, wlock, kind, payload, req_id)
+
+    @staticmethod
+    def _send_tagged(conn, wlock, base_kind, payload, req_id) -> None:
+        try:
+            try:
+                parts = rpc.pack_tagged_response(base_kind, payload, req_id)
+            except Exception:
+                parts = rpc.pack_tagged_response(rpc.KIND_ERROR, traceback.format_exc(),
+                                                 req_id)
+            with wlock:
+                rpc.send_parts(conn, parts)
+        except OSError as e:
+            logger.info("mux response write failed (req=%s): %s", req_id, e)
+            try:
+                # a partial frame may be on the stream: wake the reader so
+                # the connection is dropped
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    # ------------------------------------------------------------ internals
+
+    def _get_index(self, index_id: str) -> Index:
+        with self.indexes_lock:
+            if index_id not in self.indexes:
+                raise RuntimeError(f"Server has no index with id={index_id}")
+            return self.indexes[index_id]
+
+    def _get_storage_dir(self, index_id: str, cfg: Optional[IndexCfg]) -> str:
+        base = cfg.index_storage_dir if cfg and cfg.index_storage_dir else None
+        if not base:
+            return os.path.join(self.index_storage_dir, index_id, str(self.rank))
+        return os.path.join(base, str(self.rank))
+
+
+def main(argv=None):
+    """Run one index server rank: python -m distributed_faiss_tpu_torch.parallel.server"""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="run one index server rank")
+    parser.add_argument("--port", default=rpc.DEFAULT_PORT, type=int)
+    parser.add_argument("--rank", default=0, type=int)
+    parser.add_argument("--storage-dir", required=True)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--load-index", action="store_true")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(threadName)s] %(asctime)s [%(levelname)s] %(message)s")
+    server = IndexServer(args.rank, args.storage_dir, device=args.device)
+    server.start_blocking(args.port, load_index=args.load_index)
+
+
+if __name__ == "__main__":
+    main()

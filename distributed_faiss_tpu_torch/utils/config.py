@@ -1,0 +1,149 @@
+"""Per-index configuration plus the per-rank serving knobs this slice uses
+(counterpart of distributed_faiss_tpu/utils/config.py).
+
+``IndexCfg`` keeps the reference's field names and defaults
+(distributed_faiss/index_cfg.py:11-64): unknown kwargs land in
+``self.extra`` and the JSON round-trip (``from_json`` /
+``to_json_string``) writes the same text as the JAX package, so a
+``cfg.json`` written by either package loads in the other.
+
+``SchedulerCfg`` and ``WireCfg`` read the same environment variables with
+the same defaults. The other Cfg classes of the JAX package (mesh,
+replication, anti-entropy, mutation, versioning, tracing) belong to
+subsystems this slice does not port.
+"""
+
+import json
+import os
+
+_SUPPORTED_METRICS = ("dot", "l2")
+
+_SCHEMA = {
+    "index_builder_type": None,
+    "faiss_factory": None,
+    "dim": 768,
+    "train_num": 0,
+    "train_ratio": 1.0,
+    "centroids": 0,
+    "metric": "dot",
+    "nprobe": 1,
+    "infer_centroids": False,
+    "buffer_bsz": 50000,
+    "save_interval_sec": -1,
+    "index_storage_dir": None,
+    "custom_meta_id_idx": 0,
+}
+
+
+class IndexCfg:
+    """Keyword-constructed config; unrecognized keys land in ``self.extra``."""
+
+    def __init__(self, **kwargs):
+        for field, default in _SCHEMA.items():
+            setattr(self, field, kwargs.pop(field, default))
+        self.dim = int(self.dim)
+        self.extra = dict(kwargs)
+
+    def get_metric(self) -> str:
+        """Validate and return the metric name ('dot' or 'l2')."""
+        if self.metric not in _SUPPORTED_METRICS:
+            raise RuntimeError("Only dot and l2 metrics are supported.")
+        return self.metric
+
+    @classmethod
+    def from_json(cls, json_path: str) -> "IndexCfg":
+        with open(json_path, "r") as f:
+            kwargs = json.load(f)
+        # round-trip support: a serialized cfg nests unknown keys under "extra"
+        kwargs.update(kwargs.pop("extra", {}))
+        return cls(**kwargs)
+
+    def to_json_string(self) -> str:
+        return json.dumps(self, default=lambda o: o.__dict__, sort_keys=True, indent=4)
+
+    def save(self, json_path: str) -> None:
+        with open(json_path, "w") as f:
+            f.write(self.to_json_string())
+
+    def __repr__(self) -> str:
+        return f"<IndexCfg: {self.__dict__}>"
+
+
+class _EnvCfg:
+    """Keyword construction against a ``{field: (type, ENV_VAR, default)}``
+    schema, unknown-kwarg rejection, ``from_env`` with the one bool
+    convention ('0'/'false'/'' are False) and a ``_validate`` hook."""
+
+    _SCHEMA: dict = {}
+    _KIND = "env"
+
+    def __init__(self, **kwargs):
+        for field, (_, _, default) in self._SCHEMA.items():
+            setattr(self, field, kwargs.pop(field, default))
+        if kwargs:
+            raise TypeError(f"unknown {self._KIND} knobs: {sorted(kwargs)}")
+        self._validate()
+
+    def _validate(self) -> None:
+        pass
+
+    @classmethod
+    def from_env(cls, env=None):
+        env = os.environ if env is None else env
+        kwargs = {}
+        for field, (typ, var, default) in cls._SCHEMA.items():
+            raw = env.get(var)
+            if raw is None:
+                kwargs[field] = default
+            elif typ is bool:
+                kwargs[field] = raw not in ("0", "false", "False", "")
+            else:
+                kwargs[field] = typ(raw)
+        return cls(**kwargs)
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__}: {self.__dict__}>"
+
+
+class SchedulerCfg(_EnvCfg):
+    """Serving-scheduler knobs (queue bound, flush triggers, master switch)."""
+
+    _SCHEMA = {
+        # DFT_SCHEDULER=0 serves every search on its connection thread
+        "enabled": (bool, "DFT_SCHEDULER", True),
+        # flush when the pending compatible rows reach this many queries
+        "max_batch_rows": (int, "DFT_SCHED_MAX_BATCH", 256),
+        # ... or when the oldest queued request has waited this long
+        "max_wait_ms": (float, "DFT_SCHED_MAX_WAIT_MS", 2.0),
+        # admission bound: requests queued beyond this are rejected with BUSY
+        "max_queue": (int, "DFT_SCHED_MAX_QUEUE", 512),
+    }
+    _KIND = "scheduler"
+
+    def _validate(self) -> None:
+        if self.max_batch_rows < 1:
+            raise ValueError("max_batch_rows must be >= 1")
+        if self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if self.max_wait_ms < 0:
+            raise ValueError("max_wait_ms must be >= 0")
+
+
+_WIRE_ENCODINGS = ("binary", "pickle")
+
+
+class WireCfg(_EnvCfg):
+    """RPC wire-encoding knob. The port's frames always carry pickle
+    skeletons — the binary skeletons are not ported yet, and a server that
+    never advertises binary is the legal un-negotiated dialect — but the
+    knob is parsed with the JAX package's rules so a bad value fails fast
+    the same way on both."""
+
+    _SCHEMA = {"encoding": (str, "DFT_RPC_WIRE", "binary")}
+    _KIND = "wire"
+
+    def _validate(self) -> None:
+        if self.encoding not in _WIRE_ENCODINGS:
+            raise ValueError(
+                f"wire encoding must be one of {_WIRE_ENCODINGS}, "
+                f"got {self.encoding!r}")

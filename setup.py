@@ -15,6 +15,8 @@ setup(
     license="MIT",
     python_requires=">=3.10",
     packages=find_packages(exclude=("tests", "scripts")),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"distributed_faiss_tpu_torch": ["csrc/*.cu"]},
     install_requires=[
         "jax",
         "numpy",
@@ -22,5 +24,6 @@ setup(
     extras_require={
         "slurm": ["submitit>=1.1.5"],
         "dev": ["pytest"],
+        "torch": ["torch"],
     },
 )

@@ -1,0 +1,260 @@
+"""The port's serving path on the CPU: an IndexServer and an IndexClient over
+loopback TCP, create -> add -> threshold train -> search -> save -> load,
+and a storage dir written by the JAX engine served by the port's server."""
+
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from distributed_faiss_tpu.engine import Index as JIndex
+from distributed_faiss_tpu.utils.config import IndexCfg as JCfg
+from distributed_faiss_tpu.utils.state import IndexState as JState
+from distributed_faiss_tpu_torch.engine import Index as TIndex
+from distributed_faiss_tpu_torch.parallel.client import IndexClient
+from distributed_faiss_tpu_torch.parallel.server import IndexServer
+from distributed_faiss_tpu_torch.utils.config import IndexCfg
+from distributed_faiss_tpu_torch.utils.state import IndexState
+
+D = 16
+
+
+def wait_until(pred, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+@pytest.fixture
+def cluster(tmp_path):
+    """Start port servers on loopback ports; yields a function that starts
+    ``n`` of them and returns (client, servers). Every server and client is
+    stopped in the fixture's teardown."""
+    servers, clients = [], []
+
+    def start(n=1, storage=None):
+        storage = storage or str(tmp_path / "store")
+        lines = []
+        for rank in range(n):
+            srv = IndexServer(rank, storage, device="cpu")
+            port = srv.bind(0)
+            threading.Thread(target=srv.start_blocking, name=f"test-server-{rank}",
+                             daemon=True).start()
+            servers.append(srv)
+            lines.append(f"localhost,{port}")
+        disc = str(tmp_path / f"discovery{len(clients)}.txt")
+        with open(disc, "w") as f:
+            f.write(f"{n}\n" + "\n".join(lines) + "\n")
+        client = IndexClient(disc)
+        clients.append(client)
+        return client, servers[-n:]
+
+    try:
+        yield start
+    finally:
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+
+
+def indexed(client, iid, n):
+    return (client.get_state(iid) == IndexState.TRAINED
+            and client.get_buffer_depth(iid) == 0 and client.get_ntotal(iid) == n)
+
+
+@pytest.mark.parametrize("builder", ["ivfsq", "flat"])
+def test_create_add_train_search_save_load(rng, cluster, builder):
+    client, _ = cluster(2)
+    x = rng.standard_normal((900, D)).astype(np.float32)
+    cfg = IndexCfg(index_builder_type=builder, dim=D, metric="l2", train_num=300,
+                   centroids=8, nprobe=8, pallas_flat=True)
+    assert client.create_index("idx", cfg) == [True, True]
+    for s in range(0, 900, 100):
+        client.add_index_data("idx", x[s:s + 100], [("m", i) for i in range(s, s + 100)])
+    assert wait_until(lambda: indexed(client, "idx", 900))
+    D1, M1 = client.search(x[:6] + 1e-4, 4, "idx")
+    assert D1.shape == (6, 4) and np.all(np.diff(D1, axis=1) >= 0)
+    # every row's nearest neighbour is itself, wherever it was placed
+    assert [m[0] for m in M1] == [("m", i) for i in range(6)]
+    client.save_index("idx")
+    client.drop_index("idx")
+    assert client.load_index("idx")
+    D2, M2 = client.search(x[:6] + 1e-4, 4, "idx")
+    assert M2 == M1
+    np.testing.assert_array_equal(D2, D1)
+    stats = client.get_perf_stats()
+    assert stats[0]["scheduler"] and "search" in stats[0]
+
+
+def test_jax_storage_dir_served_by_port(rng, cluster, tmp_path):
+    """The JAX engine writes a generation + MANIFEST storage dir; a port
+    server loads it and serves the same ids and metadata as the JAX engine
+    does from that dir."""
+    storage = str(tmp_path / "store")
+    x = rng.standard_normal((600, D)).astype(np.float32)
+    q = x[:8] + 0.01 * rng.standard_normal((8, D)).astype(np.float32)
+    cfg = JCfg(index_builder_type="ivfsq", dim=D, metric="l2", train_num=300,
+               centroids=8, nprobe=4, pallas_flat=True,
+               index_storage_dir=os.path.join(storage, "idx", "0"))
+    jidx = JIndex(cfg)
+    jidx.add_batch(x, [{"doc": i} for i in range(600)], train_async_if_triggered=False)
+    assert wait_until(lambda: jidx.get_state() == JState.TRAINED
+                      and jidx.get_idx_data_num() == (0, 600))
+    assert jidx.save() is True
+    jidx.retire()
+    want_d, want_m, _ = JIndex.from_storage_dir(cfg.index_storage_dir).search(q, 5)
+
+    client, _ = cluster(1, storage)
+    assert client.load_index("idx")
+    assert client.cfg.nprobe == 4 and client.get_ntotal("idx") == 600
+    got_d, got_m = client.search(q, 5, "idx")
+    assert got_m == want_m
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-3, atol=1e-3)
+
+
+def test_engine_refuses_tombstoned_dir(rng, tmp_path):
+    """A JAX-written dir whose tombstone set is not empty is refused:
+    serving it without the deletes would resurrect deleted rows."""
+    storage = str(tmp_path / "shard")
+    x = rng.standard_normal((200, D)).astype(np.float32)
+    cfg = JCfg(index_builder_type="flat", dim=D, metric="l2", train_num=100,
+               index_storage_dir=storage)
+    jidx = JIndex(cfg)
+    jidx.add_batch(x, [(i, "doc") for i in range(200)], train_async_if_triggered=False)
+    assert wait_until(lambda: jidx.get_idx_data_num() == (0, 200))
+    assert jidx.remove_ids([3, 4]) == 2
+    assert jidx.save() is True
+    jidx.retire()
+    with pytest.raises(RuntimeError, match="tombstone"):
+        TIndex.from_storage_dir(storage, device="cpu")
+
+
+def test_port_engine_dir_loads_in_jax(rng, tmp_path):
+    """The port's generation + MANIFEST file set loads in the JAX engine."""
+    storage = str(tmp_path / "shard")
+    x = rng.standard_normal((500, D)).astype(np.float32)
+    cfg = IndexCfg(index_builder_type="ivf_simple", dim=D, metric="dot", train_num=200,
+                   centroids=8, nprobe=8, index_storage_dir=storage)
+    tidx = TIndex(cfg, device="cpu")
+    tidx.add_batch(x, [("r", i) for i in range(500)], train_async_if_triggered=False)
+    assert wait_until(lambda: tidx.get_state() == IndexState.TRAINED
+                      and tidx.get_idx_data_num() == (0, 500))
+    assert tidx.save() is True
+    got_d, got_m, _ = tidx.search(x[:5], 3)
+    want_d, want_m, _ = JIndex.from_storage_dir(storage).search(x[:5], 3)
+    assert got_m == want_m
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-3, atol=1e-3)
+
+
+def test_dft1_frames_match_the_jax_package():
+    """The frame layout and kind codes are the JAX package's: a frame of
+    builtins is byte-identical and each package reads the other's. Tensor
+    planes travel too, but their skeleton placeholder pickles by module
+    path, and each package's restricted unpickler allows only its own."""
+    import pickle
+    import socket
+
+    from distributed_faiss_tpu.parallel import rpc as jrpc
+    from distributed_faiss_tpu_torch.parallel import rpc as trpc
+
+    for name in ("KIND_CALL", "KIND_RESULT", "KIND_ERROR", "KIND_CLOSE", "KIND_BUSY",
+                 "KIND_RESULT_MUX", "KIND_ERROR_MUX", "KIND_BUSY_MUX", "MAGIC"):
+        assert getattr(trpc, name) == getattr(jrpc, name)
+    call = ("get_state", ("idx",), {}, {"req_id": 3, "deadline_s": 1.5})
+    frame = b"".join(bytes(p) for p in trpc.pack_frame(trpc.KIND_CALL, call))
+    assert frame == b"".join(bytes(p) for p in jrpc.pack_frame(jrpc.KIND_CALL, call))
+    a, b = socket.socketpair()
+    try:
+        a.sendall(frame)
+        assert jrpc.recv_frame(b) == (jrpc.KIND_CALL, call)
+        a.sendall(b"".join(bytes(p) for p in jrpc.pack_tagged_response(
+            jrpc.KIND_RESULT, [1, 2], 3)))
+        assert trpc.recv_frame(b) == (trpc.KIND_RESULT_MUX, ({"req_id": 3}, [1, 2]))
+        a.sendall(b"".join(bytes(p) for p in jrpc.pack_frame(
+            jrpc.KIND_RESULT, np.zeros(2, np.float32))))
+        with pytest.raises(pickle.UnpicklingError, match="disallowed global"):
+            trpc.recv_frame(b)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_object_dtype_plane_is_a_frame_error():
+    """A tensor plane header naming an object dtype is refused before any
+    bytes are read into it."""
+    import socket
+    import struct
+
+    from distributed_faiss_tpu_torch.parallel import rpc as trpc
+
+    parts = trpc.pack_frame(trpc.KIND_RESULT, np.zeros(2, np.int64))
+    frame = bytearray(b"".join(bytes(p) for p in parts))
+    plane = frame.index(struct.pack("<B", 3) + b"<i8")
+    frame[plane:plane + 4] = struct.pack("<B", 3) + b"|O8"
+    a, b = socket.socketpair()
+    try:
+        a.sendall(bytes(frame))
+        with pytest.raises(trpc.FrameError, match="object dtype"):
+            trpc.recv_frame(b)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_scheduler_coalesces_and_sheds():
+    """Concurrent searches merge into one window and each caller gets its
+    own rows back; a full queue rejects with SchedulerBusy; an expired
+    deadline is shed before the launch."""
+    from distributed_faiss_tpu_torch.serving.scheduler import (DeadlineExpired,
+                                                                SchedulerBusy,
+                                                                SearchScheduler)
+    from distributed_faiss_tpu_torch.utils.config import SchedulerCfg
+
+    windows = []
+    gate = threading.Event()
+    gate.set()
+
+    def search_fn(index_id, q, k, return_embeddings):
+        windows.append(q.shape[0])
+        gate.wait(10)
+        return q[:, :k] * 2, [[int(v)] for v in q[:, 0]], None
+
+    # the window flushes when 12 rows are pending, long before the wait
+    sched = SearchScheduler(search_fn, SchedulerCfg(max_batch_rows=12, max_wait_ms=10_000,
+                                                    max_queue=3))
+    try:
+        results = {}
+
+        def call(i):
+            results[i] = sched.submit("idx", np.full((4, 3), float(i), np.float32), 2)
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10)
+            assert not t.is_alive()
+        assert windows == [12]
+        for i, (scores, meta, _) in results.items():
+            np.testing.assert_array_equal(scores, np.full((4, 2), 2.0 * i, np.float32))
+            assert meta == [[i]] * 4
+
+        gate.clear()  # hold the batcher inside the next launch
+        sched.submit_async("idx", np.zeros((1, 3), np.float32), 2, eager=True)
+        assert wait_until(lambda: len(windows) == 2)
+        for _ in range(3):
+            sched.submit_async("idx", np.zeros((1, 3), np.float32), 2)
+        with pytest.raises(SchedulerBusy):
+            sched.submit_async("idx", np.zeros((1, 3), np.float32), 2)
+        with pytest.raises(DeadlineExpired):
+            sched.submit_async("idx", np.zeros((1, 3), np.float32), 2,
+                               deadline=time.monotonic() - 1.0)
+    finally:
+        gate.set()
+        sched.stop()
