@@ -3,8 +3,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--seed 0] [--n 1000000] [--nq 10000] [--nprobe-from 1]
-                          [--profile]
+    python3 chip_smoke.py [--seed 0] [--n 1000000] [--nq 10000]
+                          [--nprobe-from 1] [--profile]
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -12,26 +12,50 @@ Phases, in order; any failure raises and the script exits nonzero:
    CUDA versions, and the build of every kernel source under
    ``distributed_faiss_tpu_torch/csrc`` (one nvcc per source, started
    together) with nvcc's register/spill report.
-2. Kernel phase: the flat list-scan kernel (K1, ``csrc/flat_scan.cu``)
-   against its plain PyTorch version on the card, for every variant
-   (f32/f16/sq8 lists x l2 with stored norms, l2 with recomputed norms,
-   dot; plus scan_bf16), at d=128 and d=768, nq=256, g=1..4, cap=2048.
-   The -inf masks must be identical and the finite scores agree within
-   rtol/atol 1e-4 (5e-2/5e-1 for scan_bf16). Both are timed with CUDA
-   events after warm-up.
-3. Main path: one port ``IndexServer(device="cuda")`` on a loopback port
-   and an ``IndexClient`` over a discovery file. create_index with the
-   README Quickstart cfg on the ``ivfsq`` builder, add ``--n`` clustered
-   rows (the generator of bench.py, 1024 centers) with metadata in
-   batches, wait for the threshold training and the add drain, sweep
-   nprobe by doubling from ``--nprobe-from`` until recall@10 >= 0.95
-   against the port's exact FlatIndex on the card, then serve ``--nq`` queries at top-10 from
-   concurrent clients (QPS and p50/p99 request latency), and
-   save -> drop -> load and check the same ids come back. K1's launch
-   count is zeroed just before this phase and read just after it.
-4. K1 at the main path's own shapes (the loaded index's lists and one
-   query block's first probe group): kernel vs plain time, its bound, and
-   the kernels JSON line.
+2. Kernel phase, every kernel against its plain PyTorch version on the
+   card, both timed with CUDA events after warm-up (``time_ms``: back-to-
+   back calls that take copies of the inputs in turn, so many that no call
+   finds its inputs in L2, with the card kept busy while the host issues
+   the timed calls):
+   - the flat list scan (K1, ``csrc/flat_scan.cu``), every variant
+     (f32/f16/sq8 lists x l2 with stored norms, l2 with recomputed norms,
+     dot; plus scan_bf16), at d=128 and d=768, nq=256, g=1..4, cap=2048:
+     identical -inf masks, finite scores within rtol/atol 1e-4
+     (5e-2/5e-1 for scan_bf16);
+   - the ADC scans (``csrc/adc_scan.cu``): K2 at m=4 and 12, K3 at m=8 and
+     64, each with an f32 and a bf16 LUT, P=256 pairs, L=1, 1000 and 2048
+     code rows: scores within rtol/atol 1e-4 (both sides sum the same LUT
+     values in fp32, bf16 tables included).
+3. ``ivfsq`` path (K1): one port ``IndexServer(device="cuda")`` on a
+   loopback port and an ``IndexClient`` over a discovery file.
+   create_index with the README Quickstart cfg on the ``ivfsq`` builder,
+   add ``--n`` clustered rows (the generator of bench.py, 1024 centers)
+   with metadata in batches, wait for the threshold training and the add
+   drain, sweep nprobe by doubling from ``--nprobe-from`` until recall@10
+   >= 0.95 against the port's exact FlatIndex on the card, serve ``--nq``
+   queries at top-10 from concurrent clients (QPS and p50/p99 request
+   latency), and save -> drop -> load and check the same ids come back.
+4. ``knnlm`` path (K3): a second server and client. The ``knnlm`` builder
+   at BASELINE.json config 3's widths (d=768, 4096 centroids, PQ m=64,
+   8-bit) with a bf16 LUT and an exact refine of 8x the shortlist, over
+   ``KNNLM_N`` (500,000) rows of the low-intrinsic-dimension corpus of
+   benchmarks/baseline_configs.py (queries from the same generator): add,
+   wait, sweep nprobe by doubling from ``--nprobe-from`` until recall@10
+   >= 0.95 (failing at nprobe 4096), serve ``--nq`` queries, save -> drop
+   -> load with identical ids and distances.
+5. K2 path: an ``IVF1024,PQ12,RFlat`` index (m=12, so K2's geometry) on
+   the same server over the first ``K2_N`` (100,000) rows of that corpus; a few
+   requests are served and checked, and its recall is logged.
+6. Each kernel at its path's own shapes (the loaded index's lists and one
+   query block's first probe group, built by the model's own helpers):
+   kernel vs plain time, its bound, its max error, and the kernels JSON
+   line; the kernel's time on one set of inputs, which back-to-back calls
+   may find in L2, is logged beside it, labelled.
+
+Before each of phases 3-5 every kernel's launch count is zeroed, and it is
+read after the phase: K1 must have launched on the ivfsq path, K3 on the
+knnlm path (and K2 not: the dispatch is fixed by the geometry), K2 on the
+K2 path.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -39,6 +63,7 @@ printing any result.
 """
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -53,12 +78,33 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and fp32
-# rate outside the tensor cores. K1 does fp32 FMAs on CUDA cores.
+# rate outside the tensor cores. The kernels do fp32 FMAs and adds on
+# CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# at most the SM clock (1.98 GHz boost): a spin of this many cycles per
+# second asked for lasts at least that long at any clock
+SLEEP_CYCLES_PER_S = 2e9
 
 K1_REPLACES = "distributed_faiss_tpu/ops/flat_pallas.py:113"
 K1_SOURCE = "distributed_faiss_tpu_torch/csrc/flat_scan.cu"
+K2_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:139"
+K3_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:209"
+ADC_SOURCE = "distributed_faiss_tpu_torch/csrc/adc_scan.cu"
+
+# the nibble-supported geometry only takes ksub = 256; so do both kernels'
+# phases here
+KSUB = 256
+
+# rows of the knnlm shard (the repo's full-size knnlm row) and of the
+# IVF1024,PQ12,RFlat index (the first rows of the same corpus)
+KNNLM_N = 500_000
+K2_N = 100_000
+
+# H100 L2 is 50 MB: timed calls that read four times that before they take
+# the same inputs again find none of them there, and read them from HBM as
+# their bound assumes
+L2_ROTATE_BYTES = 200 * 1024 * 1024
 
 
 def log(msg: str) -> None:
@@ -72,17 +118,43 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Mean device time of one ``fn()`` call, from CUDA events around
-    ``iters`` back-to-back calls after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
+def l2_copies(args: tuple, nbytes: int) -> list:
+    """``args`` and enough copies of it (tensors cloned) that calls reading
+    ``nbytes`` each and taking the copies in turn read ``L2_ROTATE_BYTES``
+    before a copy comes round again."""
+    n = max(2, -(-L2_ROTATE_BYTES // max(1, nbytes)) + 1)
+    return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                     for _ in range(n - 1)]
+
+
+def time_ms(call, arg_sets: list, warmup: int = 3, iters: int = 20,
+            queued: bool = True) -> float:
+    """Mean time of one ``call(*args)``, from CUDA events around back-to-back
+    calls after ``warmup`` calls, taking ``arg_sets`` in turn for at least
+    one round. Given ``l2_copies`` the calls read their inputs from HBM;
+    given one set, inputs that fit the 50 MB L2 may be read from there.
+
+    ``queued``: the card first spins for longer than the host takes to
+    issue the timed calls, so they run back to back on the card and the
+    events see device time only. Without it the events also see the host's
+    time between launches wherever issuing a call (Python, checks,
+    allocation) takes longer than running it."""
+    n = len(arg_sets)
+    iters = max(iters, n)
+    for i in range(warmup):
+        call(*arg_sets[i % n])
     torch.cuda.synchronize()
+    if queued:
+        t0 = time.perf_counter()
+        call(*arg_sets[0])
+        torch.cuda.synchronize()
+        one_call_s = time.perf_counter() - t0
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * iters * one_call_s + 1e-3)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        call(*arg_sets[i % n])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -110,6 +182,21 @@ def k1_bound(q, list_data, li, list_sizes, stored_norms: bool):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def adc_bound(lut, codes):
+    """(bound_ms, bound_by, bytes, ops) of one K2/K3 call on these inputs.
+    Bytes: every pair's LUT (P * m * ksub * itemsize) and every code row it
+    is given (P * L * m) read once, the (P, L) fp32 scores written once.
+    Operations: one fp32 add per code byte (P * L * m); the table lookups
+    are loads, not arithmetic."""
+    P, m, _ = lut.shape
+    L = codes.shape[1]
+    nbytes = lut.numel() * lut.element_size() + codes.numel() + P * L * 4
+    ops = P * L * m
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
 def compare_scores(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
                    what: str) -> float:
     """Identical -inf masks and allclose finite scores; returns the max
@@ -131,6 +218,20 @@ def compare_scores(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: flo
             f"{what}: scores disagree beyond rtol={rtol} atol={atol}: max abs err "
             f"{float(err.max()):.4g}, worst {float(got[f][i]):.6g} vs {float(want[f][i]):.6g}")
     return float(err.max().item())
+
+
+def launch_counters(flat_scan, adc):
+    """name -> the wrapper that counts that kernel's launches."""
+    return {"K1": flat_scan.flat_list_scan, "K2": adc.adc_scan, "K3": adc.adc_scan_nibble}
+
+
+def zero_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -191,27 +292,82 @@ def kernel_phase(flat_scan, distance, seed: int) -> list:
                     f"{' stored' if stored else (' recompute' if metric == 'l2' else '')}"
                     f"{' bf16' if bf16 else ''} g={g}")
             err = compare_scores(got, want, rtol, atol, f"K1 {name}")
-            ms = time_ms(lambda: flat_scan.flat_list_scan(*args, **kw))
-            plain_ms = time_ms(lambda: flat_scan.flat_list_scan_plain(*args, **kw),
+            bound_ms, bound_by, nbytes, _ = k1_bound(q, data, li, sizes, norms is not None)
+            sets = l2_copies(args, nbytes)
+            ms = time_ms(functools.partial(flat_scan.flat_list_scan, **kw), sets)
+            plain_ms = time_ms(functools.partial(flat_scan.flat_list_scan_plain, **kw), sets,
                                warmup=1, iters=5)
-            bound_ms, bound_by, _, _ = k1_bound(q, data, li, sizes, norms is not None)
             rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
             log(f"K1 {name}: ok max_abs_err={err:.3g} (rtol={rtol} atol={atol}) "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})")
-            del args, got, want, data, ids, norms
+            del args, sets, got, want, data, ids, norms
         torch.cuda.empty_cache()
     return rows
 
 
-# ---------------------------------------------------------------- phase 3
+def adc_kernel_phase(adc, seed: int) -> list:
+    """K2 (m=4, 12) and K3 (m=8, 64) vs the plain version, f32 and bf16
+    LUT, P=256 pairs, L=1, 1000, 2048 code rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    P = 256
+    rows = []
+    for kid, fn, ms_ in (("K2", adc.adc_scan, (4, 12)), ("K3", adc.adc_scan_nibble, (8, 64))):
+        for m in ms_:
+            for dtype in (torch.float32, torch.bfloat16):
+                for L in (1, 1000, 2048):
+                    lut = torch.randn((P, m, KSUB), generator=gen, device="cuda").to(dtype)
+                    codes = torch.randint(0, KSUB, (P, L, m), generator=gen, device="cuda",
+                                          dtype=torch.int32).to(torch.uint8)
+                    got = fn(lut, codes)
+                    want = adc.adc_scan_plain(lut, codes)
+                    torch.cuda.synchronize()
+                    name = f"{kid} m={m} {'bf16' if dtype == torch.bfloat16 else 'f32'} L={L}"
+                    err = compare_scores(got, want, 1e-4, 1e-4, name)
+                    bound_ms, bound_by, nbytes, _ = adc_bound(lut, codes)
+                    sets = l2_copies((lut, codes), nbytes)
+                    ms = time_ms(fn, sets)
+                    plain_ms = time_ms(adc.adc_scan_plain, sets, warmup=1, iters=5)
+                    rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by))
+                    log(f"{name}: ok max_abs_err={err:.3g} (rtol=0.0001 atol=0.0001) "
+                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                        f"({bound_by}: {nbytes} bytes)")
+                    del lut, codes, sets, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phases 3-5
 
 
 def make_corpus(rng, n: int, d: int, centers: np.ndarray) -> np.ndarray:
     """bench.py's generator: points drawn from gaussian-mixture centers."""
     assign = rng.integers(0, centers.shape[0], n)
     return (centers[assign] + rng.standard_normal((n, d)).astype(np.float32)).astype(np.float32)
+
+
+def make_lowrank_corpus(rng, d: int, r: int, n_latent_clusters: int,
+                        ambient_sigma: float = 0.05):
+    """The knnlm corpus of benchmarks/baseline_configs.py (a copy: this
+    script imports nothing of the JAX package): a mixture of
+    ``n_latent_clusters`` gaussians in r dims, embedded by a fixed random
+    orthonormal (r, d) map, plus small isotropic ambient noise. A model's
+    hidden states concentrate on such a low-dimensional manifold; an
+    isotropic 768-d mixture cannot reach recall@10 0.95 under any
+    quantizer. Returns gen(n) -> (n, d) fp32."""
+    W = np.linalg.qr(rng.standard_normal((d, r)))[0].T.astype(np.float32)
+    centers_z = rng.standard_normal((n_latent_clusters, r)).astype(np.float32) * 4.0
+
+    def gen(nn):
+        a = rng.integers(0, centers_z.shape[0], nn)
+        z = centers_z[a] + rng.standard_normal((nn, r)).astype(np.float32)
+        x = z @ W + ambient_sigma * rng.standard_normal((nn, d)).astype(np.float32)
+        return x.astype(np.float32)
+
+    return gen
 
 
 def check_result(D: np.ndarray, meta, nq: int, k: int, what: str) -> None:
@@ -272,127 +428,226 @@ def serve_queries(client, q: np.ndarray, index_id: str, rows_per_request: int,
     return wall, np.asarray(lat), results
 
 
-def main_path(args, flat_scan, card: str) -> dict:
-    from distributed_faiss_tpu_torch.models.flat import FlatIndex
-    from distributed_faiss_tpu_torch.parallel.client import IndexClient
-    from distributed_faiss_tpu_torch.parallel.server import IndexServer
-    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+class Serving:
+    """One port IndexServer on a loopback port, serving from a thread, and
+    an IndexClient over a discovery file under ``work``; closed on exit."""
+
+    def __init__(self, work: str):
+        from distributed_faiss_tpu_torch.parallel.client import IndexClient
+        from distributed_faiss_tpu_torch.parallel.server import IndexServer
+
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        self.work = work
+        self.server = IndexServer(0, os.path.join(work, "store"), device="cuda")
+        port = self.server.bind(0)
+        self.thread = threading.Thread(target=self.server.start_blocking,
+                                       name="smoke-server", daemon=True)
+        self.thread.start()
+        self.client = None
+        try:
+            disc = os.path.join(work, "discovery.txt")
+            with open(disc, "w") as f:
+                f.write(f"1\nlocalhost,{port}\n")
+            self.client = IndexClient(disc)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        if self.client is not None:
+            self.client.close()
+        self.server.stop()
+        self.thread.join(timeout=10)
+        shutil.rmtree(self.work, ignore_errors=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def build_index(client, iid: str, cfg, x: np.ndarray, what: str) -> None:
+    """create_index, add ``x`` with its row numbers as metadata in 50,000-row
+    batches, and wait for the threshold training and the add drain."""
     from distributed_faiss_tpu_torch.utils.state import IndexState
 
-    d, k, n = 128, 10, args.n
+    n = x.shape[0]
+    if client.create_index(iid, cfg) != [True]:
+        raise AssertionError(f"{what}: create_index failed")
+    t0 = time.perf_counter()
+    bsz = 50_000
+    for s in range(0, n, bsz):
+        client.add_index_data(iid, x[s:s + bsz], list(range(s, min(n, s + bsz))))
+    sent_s = time.perf_counter() - t0
+    deadline = time.monotonic() + 900
+    while True:
+        state = client.get_state(iid)
+        if (state == IndexState.TRAINED and client.get_buffer_depth(iid) == 0
+                and client.get_ntotal(iid) == n):
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what}: index not built in time: state {state}, "
+                               f"ntotal {client.get_ntotal(iid)}")
+        time.sleep(0.2)
+    log(f"{what}: added {n} rows in {sent_s:.2f} s of RPC; trained + indexed after "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def exact_ground_truth(x: np.ndarray, q: np.ndarray, k: int, what: str) -> np.ndarray:
+    """Top-k ids of the port's exact FlatIndex on the card."""
+    from distributed_faiss_tpu_torch.models.flat import FlatIndex
+
+    t0 = time.perf_counter()
+    exact = FlatIndex(x.shape[1], "l2", device="cuda")
+    exact.add(x)
+    gt_d, gt_ids = exact.search(q, k)
+    del exact
+    torch.cuda.empty_cache()
+    if not np.isfinite(gt_d).all() or gt_ids.shape != (q.shape[0], k):
+        raise AssertionError(f"{what}: exact FlatIndex returned bad results")
+    log(f"{what}: exact FlatIndex ground truth in {time.perf_counter() - t0:.2f} s")
+    return gt_ids
+
+
+def sweep_nprobe(client, iid: str, q_eval: np.ndarray, gt_ids: np.ndarray, start: int,
+                 nlist: int, what: str):
+    """Double nprobe from ``start`` until recall@10 >= 0.95; fails when
+    nprobe reaches ``nlist`` first. Returns (nprobe, recall)."""
+    nprobe = start
+    while True:
+        client.set_nprobe(iid, nprobe)
+        D, meta = client.search(q_eval, 10, iid)
+        check_result(D, meta, q_eval.shape[0], 10, f"{what} search at nprobe={nprobe}")
+        rec = recall_at_10(meta, gt_ids)
+        log(f"{what}: nprobe={nprobe} recall@10={rec:.4f}")
+        if rec >= 0.95:
+            return nprobe, rec
+        if nprobe >= nlist:
+            raise AssertionError(f"{what}: recall@10 < 0.95 even at nprobe = {nlist}")
+        nprobe = min(2 * nprobe, nlist)
+
+
+def serve_and_report(args, client, iid: str, q_all: np.ndarray, nprobe: int, card: str,
+                     what: str) -> dict:
+    serve_queries(client, q_all[:1000], iid, 100, 8)  # warm
+    wall, lat, results = serve_queries(client, q_all, iid, 100, 8)
+    qps = q_all.shape[0] / wall
+    p50, p99 = (float(np.percentile(lat, p) * 1e3) for p in (50, 99))
+    for D, meta in results:
+        check_result(D, meta, 100, 10, f"{what} served search")
+    log(f"{what}: served {q_all.shape[0]} queries at top-10, nprobe={nprobe}: "
+        f"{qps:.1f} QPS, request p50 {p50:.3f} ms p99 {p99:.3f} ms "
+        f"(100-row requests, 8 concurrent clients) on {card}")
+    if args.profile:
+        profile_window(client, q_all[:2000], iid)
+    return dict(qps=qps, p50_ms=p50, p99_ms=p99)
+
+
+def save_drop_load(client, iid: str, q_eval: np.ndarray, nprobe: int, what: str) -> None:
+    D1, meta1 = client.search(q_eval, 10, iid)
+    client.save_index(iid)
+    client.drop_index(iid)
+    if not client.load_index(iid):
+        raise AssertionError(f"{what}: load_index failed")
+    client.set_nprobe(iid, nprobe)
+    D2, meta2 = client.search(q_eval, 10, iid)
+    if meta1 != meta2:
+        raise AssertionError(f"{what}: ids after save/drop/load differ from before")
+    np.testing.assert_array_equal(D1, D2)
+    log(f"{what}: save -> drop -> load served identical ids and distances")
+
+
+def ivfsq_path(args, counters, card: str) -> dict:
+    """Phase 3: the Quickstart shard on the ivfsq builder (K1)."""
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+    d, n, what = 128, args.n, "ivfsq"
     rng = np.random.default_rng(args.seed)
     centers = rng.standard_normal((1024, d)).astype(np.float32) * 4.0
     t0 = time.perf_counter()
     x = make_corpus(rng, n, d, centers)
     q_all = make_corpus(rng, args.nq, d, centers)
     q_eval = q_all[:1000]
-    log(f"main: made {n} x {d} corpus and {args.nq} queries in "
+    log(f"{what}: made {n} x {d} corpus and {args.nq} queries in "
         f"{time.perf_counter() - t0:.2f} s (seed {args.seed})")
-
-    work = os.path.join(REPO, "build", "chip_smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    server = IndexServer(0, os.path.join(work, "store"), device="cuda")
-    port = server.bind(0)
-    serve = threading.Thread(target=server.start_blocking, name="smoke-server", daemon=True)
-    serve.start()
-    client = None
-    out = {}
-    try:
-        disc = os.path.join(work, "discovery.txt")
-        with open(disc, "w") as f:
-            f.write(f"1\nlocalhost,{port}\n")
-        client = IndexClient(disc)
+    with Serving(os.path.join(REPO, "build", "chip_smoke")) as s:
         iid = "quickstart"
         cfg = IndexCfg(index_builder_type="ivfsq", dim=d, metric="l2", train_num=100_000,
                        centroids=1024, nprobe=32, pallas_flat=True)
-        flat_scan.flat_list_scan.launches = 0
-        if client.create_index(iid, cfg) != [True]:
-            raise AssertionError("create_index failed")
-
-        t0 = time.perf_counter()
-        bsz = 50_000
-        for s in range(0, n, bsz):
-            client.add_index_data(iid, x[s:s + bsz], list(range(s, min(n, s + bsz))))
-        sent_s = time.perf_counter() - t0
-        deadline = time.monotonic() + 900
-        while True:
-            state = client.get_state(iid)
-            if (state == IndexState.TRAINED and client.get_buffer_depth(iid) == 0
-                    and client.get_ntotal(iid) == n):
-                break
-            if time.monotonic() > deadline:
-                raise RuntimeError(f"index not built in time: state {state}, "
-                                   f"ntotal {client.get_ntotal(iid)}")
-            time.sleep(0.2)
-        build_s = time.perf_counter() - t0
-        log(f"main: added {n} rows in {sent_s:.2f} s of RPC; trained + indexed after "
-            f"{build_s:.2f} s")
-
-        t0 = time.perf_counter()
-        exact = FlatIndex(d, "l2", device="cuda")
-        exact.add(x)
-        gt_d, gt_ids = exact.search(q_eval, k)
-        del exact
-        torch.cuda.empty_cache()
-        if not np.isfinite(gt_d).all() or gt_ids.shape != (q_eval.shape[0], k):
-            raise AssertionError("exact FlatIndex returned bad results")
-        log(f"main: exact FlatIndex ground truth in {time.perf_counter() - t0:.2f} s")
-
-        nprobe, rec = args.nprobe_from, 0.0
-        while True:
-            client.set_nprobe(iid, nprobe)
-            D, meta = client.search(q_eval, k, iid)
-            check_result(D, meta, q_eval.shape[0], k, f"search at nprobe={nprobe}")
-            rec = recall_at_10(meta, gt_ids)
-            log(f"main: nprobe={nprobe} recall@10={rec:.4f}")
-            if rec >= 0.95:
-                break
-            if nprobe >= 1024:
-                raise AssertionError("recall@10 < 0.95 even at nprobe = nlist")
-            nprobe = min(2 * nprobe, 1024)
-        sweep_launches = flat_scan.flat_list_scan.launches
-
-        serve_queries(client, q_all[:1000], iid, 100, 8)  # warm
-        wall, lat, results = serve_queries(client, q_all, iid, 100, 8)
-        qps = q_all.shape[0] / wall
-        p50, p99 = (float(np.percentile(lat, p) * 1e3) for p in (50, 99))
-        for D, meta in results:
-            check_result(D, meta, 100, k, "served search")
-        log(f"main: served {q_all.shape[0]} queries at top-{k}, nprobe={nprobe}: "
-            f"{qps:.1f} QPS, request p50 {p50:.3f} ms p99 {p99:.3f} ms "
-            f"(100-row requests, 8 concurrent clients) on {card}")
-        search_launches = flat_scan.flat_list_scan.launches - sweep_launches
-        if search_launches <= 0:
-            raise AssertionError("K1 launch count did not rise during the searches")
-        if args.profile:
-            profile_window(client, q_all[:2000], iid)
-
-        D1, meta1 = client.search(q_eval, k, iid)
-        client.save_index(iid)
-        client.drop_index(iid)
-        if not client.load_index(iid):
-            raise AssertionError("load_index failed")
-        client.set_nprobe(iid, nprobe)
-        D2, meta2 = client.search(q_eval, k, iid)
-        if meta1 != meta2:
-            raise AssertionError("ids after save/drop/load differ from before")
-        np.testing.assert_array_equal(D1, D2)
-        log("main: save -> drop -> load served identical ids and distances")
-        out = dict(launches=flat_scan.flat_list_scan.launches, nprobe=nprobe,
-                   recall=rec, qps=qps, p50_ms=p50, p99_ms=p99)
-
-        # the loaded model's tensors, for timing K1 at the main path's shapes
-        # (read after the launch count above, so these launches do not count)
-        out["model"] = server.indexes[iid].model
-        out["q_block"] = q_all[:256]
-    finally:
-        if client is not None:
-            client.close()
-        server.stop()
-        serve.join(timeout=10)
-        shutil.rmtree(work, ignore_errors=True)
+        zero_counts(counters)
+        build_index(s.client, iid, cfg, x, what)
+        gt_ids = exact_ground_truth(x, q_eval, 10, what)
+        nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_ids, args.nprobe_from, 1024, what)
+        out = serve_and_report(args, s.client, iid, q_all, nprobe, card, what)
+        save_drop_load(s.client, iid, q_eval, nprobe, what)
+        out.update(counts=read_counts(counters), recall=rec)
+        if out["counts"]["K1"] <= 0:
+            raise AssertionError(f"{what}: K1 was not launched on this path")
+        # the loaded model's tensors, for timing K1 at the path's shapes
+        # (read after the counts above, so those launches do not count)
+        out["model"] = s.server.indexes[iid].model
+    out["q_block"] = q_all[:256]
+    log(f"{what}: launches {out['counts']}")
     return out
+
+
+def knnlm_path(args, counters, card: str) -> tuple:
+    """Phases 4 and 5: the knnlm shard (K3), then IVF1024,PQ12,RFlat (K2)
+    on the same server."""
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+    d, n, what = 768, KNNLM_N, "knnlm"
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    gen = make_lowrank_corpus(rng, d, r=64, n_latent_clusters=8192)
+    x = gen(n)
+    q_all = gen(args.nq)
+    q_eval = q_all[:1000]
+    log(f"{what}: made {n} x {d} low-rank corpus and {args.nq} queries in "
+        f"{time.perf_counter() - t0:.2f} s (seed {args.seed})")
+    with Serving(os.path.join(REPO, "build", "chip_smoke_pq")) as s:
+        iid = "knnlm"
+        cfg = IndexCfg(index_builder_type="knnlm", dim=d, metric="l2", centroids=4096,
+                       train_num=100_000, nprobe=32, code_size=64, pallas_adc=True,
+                       adc_lut_bf16=True, refine_k_factor=8)
+        zero_counts(counters)
+        build_index(s.client, iid, cfg, x, what)
+        gt_ids = exact_ground_truth(x, q_eval, 10, what)
+        nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_ids, args.nprobe_from, 4096,
+                                   what)
+        pq_out = serve_and_report(args, s.client, iid, q_all, nprobe, card, what)
+        save_drop_load(s.client, iid, q_eval, nprobe, what)
+        pq_out.update(counts=read_counts(counters), recall=rec)
+        log(f"{what}: launches {pq_out['counts']}")
+        if pq_out["counts"]["K3"] <= 0:
+            raise AssertionError(f"{what}: K3 was not launched on this path")
+        if pq_out["counts"]["K2"] != 0:
+            raise AssertionError(f"{what}: K2 launched on a path whose geometry is K3's")
+        pq_out["model"] = s.server.indexes[iid].model
+        pq_out["q_block"] = q_all[:256]
+
+        what, iid, n2 = "IVF1024,PQ12,RFlat", "k2", K2_N
+        cfg = IndexCfg(faiss_factory="IVF1024,PQ12,RFlat", dim=d, metric="l2",
+                       train_num=50_000, nprobe=32)
+        zero_counts(counters)
+        build_index(s.client, iid, cfg, x[:n2], what)
+        for r in range(4):
+            D, meta = s.client.search(q_all[r * 100:(r + 1) * 100], 10, iid)
+            check_result(D, meta, 100, 10, f"{what} request {r}")
+        D, meta = s.client.search(q_eval, 10, iid)
+        check_result(D, meta, q_eval.shape[0], 10, f"{what} recall request")
+        k2_out = dict(counts=read_counts(counters))
+        log(f"{what}: launches {k2_out['counts']}")
+        if k2_out["counts"]["K2"] <= 0:
+            raise AssertionError(f"{what}: K2 was not launched on this path")
+        gt_ids = exact_ground_truth(x[:n2], q_eval, 10, what)
+        k2_out["recall"] = recall_at_10(meta, gt_ids)
+        log(f"{what}: recall@10={k2_out['recall']:.4f} at nprobe=32 (logged, not gated)")
+        k2_out["model"] = s.server.indexes[iid].model
+        k2_out["q_block"] = q_all[:256]
+    return pq_out, k2_out
 
 
 def host_stats(client) -> dict:
@@ -429,10 +684,10 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
             mean = (total - total0) / (n - n0)
             counts = name.endswith(("_rows", "_requests", "_depth"))
             value = f"{mean:.1f}" if counts else f"{mean * 1e3:.3f} ms"
-            log(f"profile: host {name}: {n - n0} x mean {value}")
+            log(f"profile[{index_id}]: host {name}: {n - n0} x mean {value}")
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log("profile: the profiler recorded no device activity: not measured")
+        log(f"profile[{index_id}]: the profiler recorded no device activity: not measured")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, (cur_s, cur_e) = 0.0, spans[0]
@@ -448,42 +703,82 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     total_us = sum(t for _, t in by_name.values())
-    log(f"profile: {q.shape[0]} queries in {wall * 1e3:.3f} ms of host time; device busy "
-        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.1f}% of the window), "
-        f"{len(kernels)} kernel launches")
+    log(f"profile[{index_id}]: {q.shape[0]} queries in {wall * 1e3:.3f} ms of host time; "
+        f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.1f}% of the "
+        f"window), {len(kernels)} kernel launches")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        log(f"profile:   {t / 1e3:9.3f} ms {100 * t / total_us:5.1f}% {n:6d}x {name[:90]}")
+        log(f"profile[{index_id}]:   {t / 1e3:9.3f} ms {100 * t / total_us:5.1f}% {n:6d}x "
+            f"{name[:90]}")
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 6
 
 
-def k1_main_shape(flat_scan, distance, ivf, base, model, q_block: np.ndarray,
-                  nprobe: int) -> dict:
-    """K1 and its plain version on the main path's own inputs: the loaded
-    index's lists and the first probe group of one query block."""
-    cap = model.lists.cap
-    nb = base.pick_query_block(cap * model.dim * 4)
-    g = ivf.probe_group_size(nprobe, nb * cap * model.dim * 4)
+def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray) -> dict:
+    """K1 and its plain version on the ivfsq path's own inputs: the loaded
+    index's lists and the first probe group of one query block, built by
+    the model's own helpers."""
+    nprobe, nb, g = model._search_plan()
     q = torch.from_numpy(np.ascontiguousarray(q_block[:nb])).cuda()
-    coarse = distance.pairwise_scores(q, model.centroids, model.metric)
-    _, probes = distance.segmented_argtopk(coarse, nprobe)
-    li = probes[:, :g].to(torch.int32).contiguous()
+    li = ivf._probe_groups(model.centroids, q, nprobe, g, model.metric)[0].contiguous()
     sizes_g = model.lists.sizes[li.long()].contiguous()
-    norms = model._scan_norms()
-    args = (q, model.lists.data, model.lists.ids, li, sizes_g, norms)
-    kw = dict(metric=model.metric, codec=model.codec, scan_bf16=model.scan_bf16)
+    opts = model._scan_options()
+    args = (q, model.lists.data, model.lists.ids, li, sizes_g, opts["list_norms"],
+            opts.get("vmin"), opts.get("span"))
+    kw = dict(metric=model.metric, codec=model.codec, scan_bf16=opts["scan_bf16"])
     got = flat_scan.flat_list_scan(*args, **kw)
     want = flat_scan.flat_list_scan_plain(*args, **kw)
     err = compare_scores(got, want, 1e-4, 1e-4, "K1 main-path shape")
-    ms = time_ms(lambda: flat_scan.flat_list_scan(*args, **kw), iters=50)
-    plain_ms = time_ms(lambda: flat_scan.flat_list_scan_plain(*args, **kw), iters=10)
-    bound_ms, bound_by, nbytes, flops = k1_bound(q, model.lists.data, li,
-                                                 model.lists.sizes, norms is not None)
-    log(f"K1 main-path shape: nq={q.shape[0]} g={g} cap={cap} d={model.dim} "
-        f"codec={model.codec} live rows={int(sizes_g.sum())}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, "
-        f"{flops} flops), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+    bound_ms, bound_by, nbytes, flops = k1_bound(q, model.lists.data, li, model.lists.sizes,
+                                                 opts["list_norms"] is not None)
+    sets = l2_copies(args, nbytes)
+    kernel = functools.partial(flat_scan.flat_list_scan, **kw)
+    ms = time_ms(kernel, sets, iters=50)
+    warm_ms = time_ms(kernel, [args], iters=50)
+    call_ms = time_ms(kernel, [args], iters=50, queued=False)
+    plain_ms = time_ms(functools.partial(flat_scan.flat_list_scan_plain, **kw), sets,
+                       iters=10)
+    del sets
+    cap = model.lists.cap
+    log(f"K1 ivfsq-path shape: nq={q.shape[0]} g={g} cap={cap} d={model.dim} "
+        f"codec={model.codec} live rows={int(sizes_g.sum())}: kernel {ms:.4f} ms "
+        f"(L2-warm back to back {warm_ms:.4f} ms; {call_ms:.4f} ms a call when the host "
+        f"issues them), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes} bytes, {flops} flops), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+        f"max_abs_err {err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def adc_main_shape(adc, ivf, model, q_block: np.ndarray, what: str) -> dict:
+    """The ADC kernel the model dispatches to, and the plain version, on
+    the path's own inputs: the first probe group of one query block, its
+    LUT and gathered code rows built by the model's own helpers."""
+    nprobe, nb, g = model._search_plan()
+    q = torch.from_numpy(np.ascontiguousarray(q_block[:nb])).cuda()
+    li = ivf._probe_groups(model.centroids, q, nprobe, g, model.metric)[0].contiguous()
+    lut, codes = ivf._pq_group_inputs(model.centroids, model.codebooks, model.lists.data, q,
+                                      li, model.metric, model.lut_bf16)
+    P, m, ksub = lut.shape
+    nibble = adc.nibble_supported(m, ksub)
+    fn = adc.adc_scan_nibble if nibble else adc.adc_scan
+    kid = "K3" if nibble else "K2"
+    got = fn(lut, codes)
+    want = adc.adc_scan_plain(lut, codes)
+    err = compare_scores(got, want, 1e-4, 1e-4, f"{kid} {what}-path shape")
+    bound_ms, bound_by, nbytes, ops = adc_bound(lut, codes)
+    sets = l2_copies((lut, codes), nbytes)
+    ms = time_ms(fn, sets, iters=50)
+    warm_ms = time_ms(fn, [(lut, codes)], iters=50)
+    call_ms = time_ms(fn, [(lut, codes)], iters=50, queued=False)
+    plain_ms = time_ms(adc.adc_scan_plain, sets, iters=10)
+    del sets
+    log(f"{kid} {what}-path shape: P={P} (nq={q.shape[0]} g={g}) L={codes.shape[1]} m={m} "
+        f"lut={'bf16' if model.lut_bf16 else 'f32'} "
+        f"live rows={int(model.lists.sizes[li.long()].sum())}: kernel {ms:.4f} ms "
+        f"(L2-warm back to back {warm_ms:.4f} ms; {call_ms:.4f} ms a call when the host "
+        f"issues them), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes} bytes, {ops} adds), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
         f"max_abs_err {err:.3g}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -492,18 +787,19 @@ def k1_main_shape(flat_scan, distance, ivf, base, model, q_block: np.ndarray,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n", type=int, default=1_000_000, help="rows in the main-path index")
-    ap.add_argument("--nq", type=int, default=10_000, help="queries served on the main path")
+    ap.add_argument("--n", type=int, default=1_000_000, help="rows in the ivfsq index")
+    ap.add_argument("--nq", type=int, default=10_000, help="queries served on each path")
     ap.add_argument("--nprobe-from", type=int, default=1,
-                    help="first nprobe of the recall sweep (the Quickstart cfg says 32)")
+                    help="first nprobe of the ivfsq and knnlm recall sweeps (both cfgs "
+                         "say 32)")
     ap.add_argument("--profile", action="store_true",
-                    help="also serve 2000 queries under torch.profiler and print where the "
-                         "device time goes")
+                    help="also serve 2000 queries on the ivfsq and knnlm paths under "
+                         "torch.profiler and print where the device time goes")
     args = ap.parse_args(argv)
     if args.nq < 1000:
-        ap.error("--nq must be >= 1000 (the recall sweep uses the first 1000)")
+        ap.error("--nq must be >= 1000 (the recall sweeps use the first 1000)")
     if not 1 <= args.nprobe_from <= 1024:
-        ap.error("--nprobe-from must be in 1..1024 (the index has 1024 lists)")
+        ap.error("--nprobe-from must be in 1..1024 (the ivfsq index has 1024 lists)")
     if not os.path.isdir(os.path.join(REPO, "distributed_faiss_tpu_torch", "csrc")):
         print(f"chip_smoke: {REPO} is not a checkout of the repo (no "
               "distributed_faiss_tpu_torch/csrc beside this script)", file=sys.stderr)
@@ -513,8 +809,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from distributed_faiss_tpu_torch.models import base, ivf
-    from distributed_faiss_tpu_torch.ops import cuda_build, distance, flat_scan
+    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.ops import adc_scan, cuda_build, distance, flat_scan
     from distributed_faiss_tpu_torch.utils.device import resolve_device
 
     t_start = time.perf_counter()
@@ -534,20 +830,30 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     variants = kernel_phase(flat_scan, distance, args.seed)
-    log(f"kernel phase: {len(variants)} K1 variants agree with the plain version "
-        f"({time.perf_counter() - t0:.1f} s)")
+    adc_variants = adc_kernel_phase(adc_scan, args.seed)
+    log(f"kernel phase: {len(variants)} K1 variants and {len(adc_variants)} K2/K3 cases agree "
+        f"with the plain version ({time.perf_counter() - t0:.1f} s)")
 
+    counters = launch_counters(flat_scan, adc_scan)
     t0 = time.perf_counter()
-    mp = main_path(args, flat_scan, card)
-    log(f"main path: {time.perf_counter() - t0:.1f} s, K1 launches {mp['launches']}")
+    sq_out = ivfsq_path(args, counters, card)
+    log(f"ivfsq path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pq_out, k2_out = knnlm_path(args, counters, card)
+    log(f"knnlm and IVF1024,PQ12,RFlat paths: {time.perf_counter() - t0:.1f} s")
 
-    shape = k1_main_shape(flat_scan, distance, ivf, base, mp["model"], mp["q_block"],
-                          mp["nprobe"])
-    kernels = [dict(name="flat_list_scan", route="cuda", source=K1_SOURCE,
-                    replaces=K1_REPLACES, launches=mp["launches"],
-                    max_abs_err=shape["max_abs_err"], ms=shape["ms"],
-                    plain_ms=shape["plain_ms"], bound_ms=shape["bound_ms"],
-                    bound_by=shape["bound_by"], library_ms=None, status="ok")]
+    k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])
+    k3 = adc_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"], "knnlm")
+    k2 = adc_main_shape(adc_scan, ivf, k2_out["model"], k2_out["q_block"],
+                        "IVF1024,PQ12,RFlat")
+    kernels = [
+        dict(name="flat_list_scan", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
+             launches=sq_out["counts"]["K1"], **k1, library_ms=None),
+        dict(name="adc_scan", route="cuda", source=ADC_SOURCE, replaces=K2_REPLACES,
+             launches=k2_out["counts"]["K2"], **k2, library_ms=None),
+        dict(name="adc_scan_nibble", route="cuda", source=ADC_SOURCE, replaces=K3_REPLACES,
+             launches=pq_out["counts"]["K3"], **k3, library_ms=None),
+    ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,9 @@
 A model ``state_dict`` in either package is a flat dict of numpy arrays and
 json-able scalars with the same keys (IVF-Flat: rows in insertion order +
 the coarse assignment vector + optional stored norms / sq8 params / refine
-rows; flat: the stored rows), so it does not depend on either package's
+rows; IVF-PQ: the uint8 codes in insertion order + the assignment vector,
+the coarse centroids, the PQ codebooks, optional refine rows and the
+knobs; flat: the stored rows), so it does not depend on either package's
 device layout. ``from_jax_state`` turns such a dict — arrays may be any
 array-like, e.g. device arrays — into the port's index on ``device``;
 ``to_state_dict`` writes the port's index back to the same keys. The npz

@@ -1,1 +1,2 @@
-"""Index models: exact flat scan and IVF-Flat, plus the builder registry."""
+"""Index models: exact flat scan, IVF-Flat and IVF-PQ, plus the builder
+registry."""

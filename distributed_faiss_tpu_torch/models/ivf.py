@@ -1,23 +1,29 @@
-"""IVF-Flat: coarse k-means quantizer + padded inverted lists (counterpart of
-distributed_faiss_tpu/models/ivf.py, the ``_IVFBase`` + ``IVFFlatIndex``
-part; ``IVFPQIndex`` belongs to a later slice).
+"""IVF index family: coarse k-means quantizer + padded inverted lists
+(counterpart of distributed_faiss_tpu/models/ivf.py: ``_IVFBase``,
+``IVFFlatIndex`` and ``IVFPQIndex``; the multi-block fused searches are not
+ported).
 
 Search: coarse scores (nq, nlist) -> top-nprobe lists -> a loop over probe
-groups; each group's (nq, g, cap) masked score block comes from
-``ops.flat_scan.flat_list_scan`` and merges into a running top-k. On a
-CUDA device that block is always the hand-written kernel
-(``csrc/flat_scan.cu``): the ``use_pallas`` knob (``pallas_flat`` in the
-cfg) is still read, stored in ``state_dict`` and round-tripped so configs
-and snapshots stay compatible, but it selects nothing. On the card a
-kernel fault raises — the JAX package's first-use oracle and
-``pallas_guarded`` demotion ladder are not ported. On the CPU the same
-wrapper runs its plain PyTorch version.
+groups; each group's (nq, g, cap) masked score block merges into a running
+top-k. IVF-Flat scores a group with ``ops.flat_scan.flat_list_scan``,
+IVF-PQ with a per-(query, probe) ADC lookup table and
+``ops.adc_scan.adc_scan_auto``. On a CUDA device those blocks always come
+from the hand-written kernels (``csrc/flat_scan.cu``,
+``csrc/adc_scan.cu``): the ``use_pallas`` knob (``pallas_flat`` /
+``pallas_adc`` in the cfg) is still read, stored in ``state_dict`` and
+round-tripped so configs and snapshots stay compatible; for IVF-PQ it
+still selects the bf16 LUT together with ``adc_lut_bf16``, as in the JAX
+package, so one cfg computes one function in both. On the card a kernel
+fault raises — the JAX package's first-use oracle and ``pallas_guarded``
+demotion ladder are not ported. On the CPU the same wrappers run their
+plain PyTorch versions.
 
 The probe grouping (``probe_group_size`` over ``pick_query_block``'s query
 block) is the JAX package's, so the top-k merges happen in the same order.
 
 Coarse assignment: argmax inner product for metric=dot, argmin L2
-otherwise (reference get_quantizer). Host state is the id -> (list,
+otherwise (reference get_quantizer). PQ encoding is residual for l2 (FAISS
+IVFPQ by_residual) and raw for dot. Host state is the id -> (list,
 within-list position) map only; the payload lives in the device lists and
 persistence gathers it back through that map.
 """
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from distributed_faiss_tpu_torch.models import base
-from distributed_faiss_tpu_torch.ops import distance, flat_scan, kmeans, sq
+from distributed_faiss_tpu_torch.ops import adc_scan, distance, flat_scan, kmeans, pq, sq
 
 logger = logging.getLogger()
 
@@ -76,6 +82,13 @@ def probe_group_size(nprobe: int, per_probe_bytes: int) -> int:
     return g
 
 
+def pq_probe_payload_bytes(cap: int, m: int, ksub: int = 256, nq_block: int = 256) -> int:
+    """Per-probed-list payload for the ADC group sizing (the JAX package's
+    formula): gathered codes + ids for an ``nq_block``-query block plus the
+    per-probe LUT block."""
+    return nq_block * cap * (m + 8) + nq_block * m * ksub * 4
+
+
 def _merge_group(carry, s: torch.Tensor, li: torch.Tensor, list_ids: torch.Tensor,
                  k: int):
     """Merge one group's (nq, g, cap) scores into the running (nq, k) top-k.
@@ -93,23 +106,81 @@ def _merge_group(carry, s: torch.Tensor, li: torch.Tensor, list_ids: torch.Tenso
     return distance.merge_topk(carry[0], carry[1], cv, cids, k)
 
 
+def _probe_groups(centroids, q: torch.Tensor, nprobe: int, g: int,
+                  metric: str) -> torch.Tensor:
+    """(nprobe // g, nq, g) int32: the top-nprobe lists of each query of a
+    block, in the groups of g a search scans them in."""
+    coarse = distance.pairwise_scores(q, centroids, metric)
+    _, probes = distance.segmented_argtopk(coarse, nprobe)  # (nq, nprobe)
+    nq = q.shape[0]
+    return probes.to(torch.int32).reshape(nq, nprobe // g, g).permute(1, 0, 2)
+
+
+def _pq_group_inputs(centroids, codebooks, list_codes, q: torch.Tensor, li: torch.Tensor,
+                     metric: str, lut_bf16: bool, shared_lut=None):
+    """The ADC scan's inputs for one probe group ``li`` (nq, g): its (nq*g,
+    m, ksub) LUT, one per (query, probe) pair (l2: of the query's residual
+    to the probed centroid; dot: the query's own, ``shared_lut`` when given,
+    repeated over its probes), cast to bf16 with ``lut_bf16``; and the
+    probed lists' (nq*g, cap, m) code rows."""
+    nq, g = li.shape
+    m, ksub, _ = codebooks.shape
+    idx = li.long()
+    codes = list_codes[idx].reshape(nq * g, list_codes.shape[1], m)
+    if metric == "l2":
+        r = q[:, None, :] - centroids[idx]  # (nq, g, d) residuals
+        lut = pq.adc_lut(r.reshape(nq * g, -1), codebooks, metric="l2")
+    else:
+        if shared_lut is None:
+            shared_lut = pq.adc_lut(q, codebooks, metric=metric)  # (nq, m, ksub)
+        lut = shared_lut[:, None].expand(nq, g, m, ksub).reshape(nq * g, m, ksub)
+    lut = lut.to(torch.bfloat16 if lut_bf16 else torch.float32).contiguous()
+    return lut, codes
+
+
 def _ivf_flat_search(centroids, list_data, list_ids, list_sizes, q, k: int,
                      nprobe: int, g: int, metric: str, codec: str, vmin=None,
                      span=None, list_norms=None, scan_bf16: bool = False):
     """IVF-Flat/SQ8 probe scan of one query block -> (scores, ids int32)."""
     q = q.float()
-    coarse = distance.pairwise_scores(q, centroids, metric)
-    _, probes = distance.segmented_argtopk(coarse, nprobe)  # (nq, nprobe)
     nq = q.shape[0]
-    groups = probes.reshape(nq, nprobe // g, g).permute(1, 0, 2)  # (ng, nq, g)
     carry = (torch.full((nq, k), distance.NEG_INF, dtype=torch.float32, device=q.device),
              torch.full((nq, k), -1, dtype=torch.int32, device=q.device))
-    for li in groups:
-        li = li.to(torch.int32).contiguous()
+    for li in _probe_groups(centroids, q, nprobe, g, metric):
+        li = li.contiguous()
         sizes = list_sizes[li.long()].contiguous()
         s = flat_scan.flat_list_scan(q, list_data, list_ids, li, sizes, list_norms,
                                      vmin, span, metric=metric, codec=codec,
                                      scan_bf16=scan_bf16)
+        carry = _merge_group(carry, s, li, list_ids, k)
+    return carry
+
+
+def _ivf_pq_search(centroids, codebooks, list_codes, list_ids, list_sizes, q, k: int,
+                   nprobe: int, g: int, metric: str, lut_bf16: bool = False):
+    """IVF-PQ probe scan of one query block -> (scores, ids int32).
+
+    Per probe group: the probed lists' code rows are gathered (nq, g, cap,
+    m), each (query, probe) pair gets its LUT (l2: of the query's residual
+    to the probed centroid; dot: the query's own LUT, shared by its
+    probes), cast to bf16 with ``lut_bf16``, and ``adc_scan_auto`` scores
+    the pairs. The validity mask (pos < size, id >= 0) is applied here,
+    outside the kernel, as in the JAX package."""
+    q = q.float()
+    nq = q.shape[0]
+    cap = list_codes.shape[1]
+    shared_lut = None if metric == "l2" else pq.adc_lut(q, codebooks, metric=metric)
+    pos = torch.arange(cap, device=q.device)
+    carry = (torch.full((nq, k), distance.NEG_INF, dtype=torch.float32, device=q.device),
+             torch.full((nq, k), -1, dtype=torch.int32, device=q.device))
+    for li in _probe_groups(centroids, q, nprobe, g, metric):
+        li = li.contiguous()
+        idx = li.long()
+        lut, codes = _pq_group_inputs(centroids, codebooks, list_codes, q, li, metric,
+                                      lut_bf16, shared_lut)
+        s = adc_scan.adc_scan_auto(lut, codes).reshape(nq, g, cap)
+        valid = (pos[None, None, :] < list_sizes[idx][:, :, None]) & (list_ids[idx] >= 0)
+        s = torch.where(valid, s, torch.full_like(s, distance.NEG_INF))
         carry = _merge_group(carry, s, li, list_ids, k)
     return carry
 
@@ -160,8 +231,9 @@ class _IVFBase(base.TorchIndex):
         xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         if xt.shape[0] == 0:
             return
-        assign = self._assign(xt).cpu().numpy()
-        rows = self._encode(xt)
+        assign_t = self._assign(xt)
+        assign = assign_t.cpu().numpy()
+        rows = self._encode(xt, assign_t)
         gids = np.arange(self._n, self._n + xt.shape[0], dtype=np.int64)
         pos = self.lists.append(assign, rows, gids)
         self._append_extra(xt, assign, gids, rows)
@@ -196,7 +268,7 @@ class _IVFBase(base.TorchIndex):
         return d, np.full((nq, k), -1, np.int64)
 
     # subclass hooks
-    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+    def _encode(self, x: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def _append_extra(self, x, assign, gids, rows) -> None:
@@ -264,7 +336,7 @@ class IVFFlatIndex(_IVFBase):
             self.sq_params = sq.sq8_train(xt)
         self.lists = self._make_lists()
 
-    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+    def _encode(self, x: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
         if self.codec == "sq8":
             return sq.sq8_encode(x, self.sq_params["vmin"], self.sq_params["span"])
         return x.to(self._dtype)
@@ -295,23 +367,31 @@ class IVFFlatIndex(_IVFBase):
                 f"({self.norm_lists.cap} != {self.lists.cap})")
         return self.norm_lists.data
 
+    def _search_plan(self):
+        """(nprobe, query block, probe group size) of a search."""
+        nprobe = min(self.nprobe, self.nlist)
+        nb = base.pick_query_block(self.lists.cap * self.dim * 4)
+        return nprobe, nb, probe_group_size(nprobe, nb * self.lists.cap * self.dim * 4)
+
+    def _scan_options(self) -> dict:
+        """``flat_list_scan``'s inputs that come from the index: stored
+        norms, the SQ8 decode parameters, the bf16 scan."""
+        opts = dict(list_norms=self._scan_norms(), scan_bf16=self.scan_bf16)
+        if self.codec == "sq8":
+            opts.update(vmin=self.sq_params["vmin"], span=self.sq_params["span"])
+        return opts
+
     def search(self, q: np.ndarray, k: int):
         if self._n == 0:
             return self._empty_results(q.shape[0], k)
-        nprobe = min(self.nprobe, self.nlist)
-        nb = base.pick_query_block(self.lists.cap * self.dim * 4)
-        g = probe_group_size(nprobe, nb * self.lists.cap * self.dim * 4)
-        extra = {}
-        if self.codec == "sq8":
-            extra = dict(vmin=self.sq_params["vmin"], span=self.sq_params["span"])
-        norms = self._scan_norms()
+        nprobe, nb, g = self._search_plan()
+        opts = self._scan_options()
         scan_k = k * self.refine_k_factor if self.refine_k_factor else k
 
         def run(qb):
             vals, ids = _ivf_flat_search(
                 self.centroids, self.lists.data, self.lists.ids, self.lists.sizes,
-                qb, scan_k, nprobe, g, self.metric, self.codec, list_norms=norms,
-                scan_bf16=self.scan_bf16, **extra)
+                qb, scan_k, nprobe, g, self.metric, self.codec, **opts)
             if self.refine_k_factor:
                 vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)
             return vals, ids
@@ -386,4 +466,152 @@ class IVFFlatIndex(_IVFBase):
                 idx.norm_lists.append(assign, norms, gids)
             if idx.refine_store is not None:
                 idx.refine_store.add(np.asarray(state["refine_rows"], np.float16))
+        return idx
+
+
+class IVFPQIndex(_IVFBase):
+    """IVF-PQ: inverted lists of m uint8 codes per vector, ADC search.
+
+    Parity target: the reference ``knnlm`` builder (IndexIVFPQ with
+    code_size=m, nbits=8). ``refine_k_factor`` > 0 keeps fp16 raw rows and
+    rescores the top k * refine_k_factor ADC candidates exactly.
+    """
+
+    def __init__(self, dim: int, nlist: int, m: int = 64, nbits: int = 8,
+                 metric: str = "l2", kmeans_iters: int = 10, pq_iters: int = 15,
+                 use_pallas: bool = False, refine_k_factor: int = 0,
+                 adc_lut_bf16: bool = False, device="cuda"):
+        super().__init__(dim, nlist, metric, kmeans_iters, device)
+        if dim % m != 0:
+            raise ValueError(f"dim {dim} not divisible by PQ m={m}")
+        if nbits != 8:
+            raise ValueError("only 8-bit PQ codes supported (uint8 storage)")
+        if int(refine_k_factor) != refine_k_factor or int(refine_k_factor) < 0:
+            raise ValueError(
+                f"refine_k_factor must be a non-negative int, got {refine_k_factor!r}")
+        self.m = m
+        self.nbits = nbits
+        self.pq_iters = pq_iters
+        # accepted and persisted; with adc_lut_bf16 it selects the bf16 LUT
+        # (module docstring); the CUDA scan is always the hand kernel
+        self.use_pallas = bool(use_pallas)
+        self.adc_lut_bf16 = bool(adc_lut_bf16)
+        self.refine_k_factor = int(refine_k_factor)
+        self.refine_store = (base.DeviceVectorStore((dim,), torch.float16, self.device)
+                             if self.refine_k_factor else None)
+        self.codebooks: Optional[torch.Tensor] = None  # (m, 256, dsub)
+
+    @property
+    def is_trained(self) -> bool:
+        return self.centroids is not None and self.codebooks is not None
+
+    def _make_lists(self) -> base.PaddedLists:
+        return base.PaddedLists(self.nlist, (self.m,), torch.uint8, self.device)
+
+    def train(self, x: np.ndarray) -> None:
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        self._train_centroids(xt)
+        if self.metric == "l2":
+            train_vecs = xt - self.centroids[self._assign(xt)]
+        else:
+            train_vecs = xt
+        self.codebooks = pq.pq_train(train_vecs, self.m, iters=self.pq_iters)
+        self.lists = self._make_lists()
+
+    def _encode(self, x: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
+        if self.metric == "l2":
+            x = x - self.centroids[assign]
+        return pq.pq_encode(x, self.codebooks)
+
+    def _append_extra(self, x, assign, gids, rows) -> None:
+        if self.refine_store is not None:
+            self.refine_store.add(clip_f16(x))
+
+    @property
+    def lut_bf16(self) -> bool:
+        """The ADC LUT's dtype, chosen as in the JAX package (``ivf.py:1019``)."""
+        return self.use_pallas and self.adc_lut_bf16
+
+    def _search_plan(self):
+        """(nprobe, query block, probe group size) of a search."""
+        nprobe = min(self.nprobe, self.nlist)
+        cap = self.lists.cap
+        nb = base.pick_query_block(cap * (self.m + 8) + self.m * 256 * 4)
+        return nprobe, nb, probe_group_size(nprobe,
+                                            pq_probe_payload_bytes(cap, self.m, nq_block=nb))
+
+    def search(self, q: np.ndarray, k: int):
+        if self._n == 0:
+            return self._empty_results(q.shape[0], k)
+        nprobe, nb, g = self._search_plan()
+        adc_k = k * self.refine_k_factor if self.refine_k_factor else k
+
+        def run(qb):
+            vals, ids = _ivf_pq_search(
+                self.centroids, self.codebooks, self.lists.data, self.lists.ids,
+                self.lists.sizes, qb, adc_k, nprobe, g, self.metric,
+                lut_bf16=self.lut_bf16)
+            if self.refine_k_factor:
+                vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)
+            return vals, ids
+
+        return base.blocked_search(q, k, self.metric, run, self.device, block=nb)
+
+    def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
+        ids = np.asarray(ids, np.int64)
+        assign = self._host_assign_array()[ids]
+        codes = base.gather_list_rows(self.lists, assign, self._host_pos_array()[ids])
+        rec = pq.pq_decode(torch.as_tensor(codes, device=self.device), self.codebooks)
+        if self.metric == "l2":
+            rec = rec + self.centroids[torch.as_tensor(assign.astype(np.int64),
+                                                       device=self.device)]
+        return base.to_numpy(rec)
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        state = {
+            "kind": "ivf_pq",
+            "dim": self.dim,
+            "metric": self.metric,
+            "nlist": self.nlist,
+            "m": self.m,
+            "nbits": self.nbits,
+            "nprobe": self.nprobe,
+            "trained": self.is_trained,
+            "refine_k_factor": self.refine_k_factor,
+            "use_pallas": self.use_pallas,
+            "adc_lut_bf16": self.adc_lut_bf16,
+        }
+        if self.is_trained:
+            state["centroids"] = base.to_numpy(self.centroids)
+            state["codebooks"] = base.to_numpy(self.codebooks)
+            state["rows"] = self._rows_in_insertion_order()
+            state["assign"] = self._host_assign_array()
+            if self.refine_store is not None:
+                state["refine_rows"] = self.refine_store.all_rows()
+        return state
+
+    @classmethod
+    def from_state_dict(cls, state, device="cuda") -> "IVFPQIndex":
+        idx = cls(int(state["dim"]), int(state["nlist"]), int(state["m"]),
+                  int(state["nbits"]), str(state["metric"]),
+                  use_pallas=bool(state.get("use_pallas", False)),
+                  refine_k_factor=int(state.get("refine_k_factor", 0)),
+                  adc_lut_bf16=bool(state.get("adc_lut_bf16", False)), device=device)
+        idx.nprobe = int(state["nprobe"])
+        if not bool(state["trained"]):
+            return idx
+        dev = idx.device
+        idx.centroids = torch.as_tensor(np.asarray(state["centroids"], np.float32), device=dev)
+        idx.codebooks = torch.as_tensor(np.asarray(state["codebooks"], np.float32), device=dev)
+        idx.lists = idx._make_lists()
+        rows = np.asarray(state["rows"], np.uint8)
+        assign = np.asarray(state["assign"]).astype(np.int64)
+        if rows.shape[0]:
+            pos = idx.lists.append(assign, torch.as_tensor(rows, device=dev),
+                                   np.arange(rows.shape[0], dtype=np.int64))
+            idx._host_assign = [assign.astype(np.int32)]
+            idx._host_pos = [pos]
+            idx._n = rows.shape[0]
+        if idx.refine_store is not None and "refine_rows" in state:
+            idx.refine_store.add(np.asarray(state["refine_rows"], np.float16))
         return idx

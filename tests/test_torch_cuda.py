@@ -8,17 +8,20 @@ jax; ``tests/conftest.py`` imports jax, so skip it there:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 ``chip_smoke.py`` holds the kernels at the main path's widths; these cases
-add the ragged ones: rows that are no multiple of 16 bytes (element loads
-instead of 16-byte loads), a capacity that is no multiple of the kernel's
-256-row tile, empty and full lists, and -1 ids.
+add the ragged ones. The flat scan (K1): rows that are no multiple of 16
+bytes (element loads instead of 16-byte loads), a capacity that is no
+multiple of the kernel's 256-row tile, empty and full lists, and -1 ids.
+The ADC scans (K2, K3): list lengths of 1, of one row either side of a
+128-row boundary and past the 256-row tile, m that is no power of two,
+both LUT dtypes, and a code buffer that starts off a 16-byte boundary.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex
-from distributed_faiss_tpu_torch.ops import flat_scan
+from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
+from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -141,6 +144,121 @@ def test_ivf_flat_on_card_matches_cpu(card, codec):
     before = flat_scan.flat_list_scan.launches
     d_card, i_card = on_card.search(q, 10)
     assert flat_scan.flat_list_scan.launches > before
+    d_cpu, i_cpu = cpu.search(q, 10)
+    np.testing.assert_array_equal(i_card, i_cpu)
+    np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+
+
+def adc_inputs(seed, P, L, m, lut_dtype, ksub=256):
+    rng = np.random.default_rng(seed)
+    lut = torch.as_tensor(rng.standard_normal((P, m, ksub)).astype(np.float32)).to(lut_dtype)
+    codes = torch.as_tensor(rng.integers(0, ksub, (P, L, m)).astype(np.uint8))
+    return lut, codes
+
+
+# (wrapper, m): K2 at m = 4 and 12 (no power of two), K3 at m = 8 and 64
+ADC_CASES = [("adc_scan", 4), ("adc_scan", 12), ("adc_scan_nibble", 8),
+             ("adc_scan_nibble", 64)]
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", [1, 127, 129, 520])
+@pytest.mark.parametrize("wrapper,m", ADC_CASES, ids=[f"{w}-m{m}" for w, m in ADC_CASES])
+def test_adc_kernel_matches_plain(card, wrapper, m, L, lut_dtype):
+    """Scores within rtol/atol 1e-4 (tests/test_adc_pallas.py:46): both sides
+    sum the same LUT values in fp32, bf16 tables included. One launch."""
+    fn = getattr(adc_scan, wrapper)
+    lut, codes = [t.to(card) for t in adc_inputs(L + m, 7, L, m, lut_dtype)]
+    before = fn.launches
+    got = fn(lut, codes)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = adc_scan.adc_scan_plain(lut, codes)
+    assert got.shape == (7, L)
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
+
+
+def test_adc_k2_reads_an_unaligned_code_buffer(card):
+    """K2 stages each tile's bytes with 16-byte loads for the aligned
+    interior and byte loads at the ends: a code buffer that starts 3 bytes
+    past a 16-byte boundary scores the same."""
+    lut, codes = [t.to(card) for t in adc_inputs(3, 5, 300, 12, torch.float32)]
+    raw = torch.zeros(codes.numel() + 3, dtype=torch.uint8, device=card)
+    raw[3:] = codes.reshape(-1)
+    shifted = raw[3:].view(codes.shape)
+    assert shifted.data_ptr() % 16 == 3 and shifted.is_contiguous()
+    got = adc_scan.adc_scan(lut, shifted)
+    torch.testing.assert_close(got.cpu(), adc_scan.adc_scan_plain(lut, codes).cpu(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_adc_wrappers_refuse_bad_inputs(card):
+    """Device, dtype, shape, contiguity, alignment and geometry are checked
+    before the kernel gets a pointer; nothing launches when they fail."""
+    lut, codes = [t.to(card) for t in adc_inputs(0, 4, 64, 8, torch.float32)]
+    before = (adc_scan.adc_scan.launches, adc_scan.adc_scan_nibble.launches)
+    k2, k3 = adc_scan.adc_scan, adc_scan.adc_scan_nibble
+    raw = torch.zeros(codes.numel() + 1, dtype=torch.uint8, device=card)
+    cases = [
+        (k2, (lut.half(), codes), "must be torch.float32 or torch.bfloat16"),
+        (k3, (lut, codes.int()), "must be torch.uint8"),
+        (k2, (lut, codes.transpose(1, 2).contiguous().transpose(1, 2)), "contiguous"),
+        (k2, (lut, codes.cpu()), "is on cpu"),
+        (k3, (lut, codes[:, :, :4].contiguous()), "shape"),
+        (k3, (lut[:, :4].contiguous(), codes[:, :, :4].contiguous()), "m % 8 == 0"),
+        (k3, (lut, raw[1:].view(codes.shape)), "8-byte aligned"),
+    ]
+    for fn, args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fn(*args)
+    assert (adc_scan.adc_scan.launches, adc_scan.adc_scan_nibble.launches) == before
+
+
+# (wrapper, LUT dtype, largest m whose LUT fits a block's shared memory)
+SMEM_EDGES = [("adc_scan_nibble", torch.float32, 224), ("adc_scan_nibble", torch.bfloat16, 448),
+              ("adc_scan", torch.float32, 181), ("adc_scan", torch.bfloat16, 302)]
+
+
+@pytest.mark.parametrize("wrapper,lut_dtype,m", SMEM_EDGES,
+                         ids=[f"{w}-{str(t)[6:]}-m{m}" for w, t, m in SMEM_EDGES])
+def test_adc_kernel_at_the_shared_memory_limit(card, wrapper, lut_dtype, m):
+    """At the largest m whose staged LUT fits Hopper's 227 KB a block the
+    kernel launches and agrees with the plain version; one step of m above
+    it the wrapper refuses before any launch."""
+    fn = getattr(adc_scan, wrapper)
+    lut, codes = [t.to(card) for t in adc_inputs(m, 3, 300, m, lut_dtype)]
+    got = fn(lut, codes)
+    torch.testing.assert_close(got.cpu(), adc_scan.adc_scan_plain(lut, codes).cpu(),
+                               rtol=1e-4, atol=1e-4)
+    step = 8 if wrapper == "adc_scan_nibble" else 1
+    lut, codes = [t.to(card) for t in adc_inputs(m, 3, 300, m + step, lut_dtype)]
+    before = fn.launches
+    with pytest.raises(ValueError, match="too large for the shared-memory LUT"):
+        fn(lut, codes)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("metric,m,kw", [("l2", 8, {"use_pallas": True, "adc_lut_bf16": True,
+                                                    "refine_k_factor": 4}),
+                                         ("dot", 8, {}), ("l2", 4, {})])
+def test_ivf_pq_on_card_matches_cpu(card, metric, m, kw):
+    """The same IVF-PQ state served on the card (through K2 or K3) and on
+    the CPU (through the plain version): same ids, distances within 1e-3."""
+    rng = np.random.default_rng(2)
+    d, nlist = 32, 16
+    centers = rng.standard_normal((nlist, d)).astype(np.float32) * 3.0
+    x = centers[rng.integers(0, nlist, 3000)] + rng.standard_normal((3000, d)).astype(np.float32)
+    q = centers[rng.integers(0, nlist, 40)] + rng.standard_normal((40, d)).astype(np.float32)
+    cpu = IVFPQIndex(d, nlist, m=m, metric=metric, kmeans_iters=4, pq_iters=4,
+                     device="cpu", **kw)
+    cpu.train(x[:1000])
+    cpu.add(x)
+    cpu.set_nprobe(4)
+    on_card = IVFPQIndex.from_state_dict(cpu.state_dict(), device=card)
+    fn = adc_scan.adc_scan_nibble if adc_scan.nibble_supported(m, 256) else adc_scan.adc_scan
+    before = fn.launches
+    d_card, i_card = on_card.search(q, 10)
+    assert fn.launches > before
     d_cpu, i_cpu = cpu.search(q, 10)
     np.testing.assert_array_equal(i_card, i_cpu)
     np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)

@@ -58,16 +58,17 @@ def test_default_device_raises_without_cuda(tmp_path):
     from distributed_faiss_tpu_torch.engine import Index
     from distributed_faiss_tpu_torch.models.factory import build_index
     from distributed_faiss_tpu_torch.models.flat import FlatIndex
-    from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex
+    from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
     from distributed_faiss_tpu_torch.parallel.server import IndexServer
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
     from distributed_faiss_tpu_torch.utils.device import resolve_device
 
     _no_cuda()
     cfg = IndexCfg(index_builder_type="ivfsq", dim=8, centroids=4)
-    for make in (lambda: FlatIndex(8), lambda: IVFFlatIndex(8, 4), lambda: Index(cfg),
-                 lambda: build_index(cfg), lambda: IndexServer(0, str(tmp_path)),
-                 resolve_device):
+    pq_cfg = IndexCfg(index_builder_type="knnlm", dim=8, centroids=4, code_size=4)
+    for make in (lambda: FlatIndex(8), lambda: IVFFlatIndex(8, 4), lambda: IVFPQIndex(8, 4, m=4),
+                 lambda: Index(cfg), lambda: build_index(cfg), lambda: build_index(pq_cfg),
+                 lambda: IndexServer(0, str(tmp_path)), resolve_device):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     with pytest.raises(RuntimeError, match="unsupported device"):
@@ -89,10 +90,11 @@ def test_kernel_sources_and_build_dir():
     under a name that carries a hash of the source."""
     from distributed_faiss_tpu_torch.ops import cuda_build
 
-    assert cuda_build.sources() == ["flat_scan"]
-    path = cuda_build.library_path("flat_scan")
-    assert path.parent == REPO / "build" / "torch_kernels"
-    assert re.fullmatch(r"libflat_scan-[0-9a-f]{12}\.so", path.name)
+    assert cuda_build.sources() == ["adc_scan", "flat_scan"]
+    for name in cuda_build.sources():
+        path = cuda_build.library_path(name)
+        assert path.parent == REPO / "build" / "torch_kernels"
+        assert re.fullmatch(rf"lib{name}-[0-9a-f]{{12}}\.so", path.name)
     assert "-gencode" in cuda_build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 

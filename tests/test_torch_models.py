@@ -135,10 +135,11 @@ def test_port_snapshot_loads_in_jax(data, tmp_path, spec):
 def test_factory_refuses_unported(data):
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
-    for cfg in (IndexCfg(index_builder_type="knnlm", dim=D, centroids=4),
-                IndexCfg(faiss_factory="IVF8,PQ4", dim=D),
+    for cfg in (IndexCfg(index_builder_type="hnswsq", dim=D),
+                IndexCfg(index_builder_type="knnlm", dim=D, centroids=4, opq=True),
+                IndexCfg(faiss_factory="OPQ4,IVF8,PQ4", dim=D),
                 IndexCfg(faiss_factory="HNSW32", dim=D)):
         with pytest.raises(RuntimeError, match="not yet ported"):
             tfactory.build_index(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="not yet ported"):
-        tfactory.index_from_state_dict({"kind": "ivf_pq"}, device="cpu")
+        tfactory.index_from_state_dict({"kind": "sharded_ivf_pq"}, device="cpu")

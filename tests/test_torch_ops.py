@@ -148,21 +148,35 @@ def _inertia(x, cent):
     return d2.min(1).sum()
 
 
-def test_kmeans_inertia_bound(rng):
+def test_kmeans_inertia_bound():
     """End to end the two packages draw different seeds (torch.Generator vs
     PRNGKey), so their centroids differ; with the default (k-means++)
     seeding both reach an inertia close to the generating centers' on
-    well-separated blobs."""
+    well-separated blobs, except on draws where k-means++ puts two seeds in
+    one blob, which Lloyd steps cannot undo. On this data that happens for
+    the last seed with probability about 0.2 (7 covered blobs of ~100
+    points at ~32 squared distance from their seed, against ~100 uncovered
+    points at ~500-1400), so over 20 draws sound seeding stays within 5%
+    of the reference on at least 12 (it misses 9 or more with probability
+    about 1%). On these 20 draws the port misses 3 and the JAX package 7
+    (ROADMAP.md). Each draw comes from a generator of its own, not from the
+    run-wide ``rng`` fixture."""
     k, d = 8, 16
-    centers = rng.standard_normal((k, d)).astype(np.float32) * 8.0
-    x = (centers[rng.integers(0, k, 800)]
-         + rng.standard_normal((800, d)).astype(np.float32))
-    ref = _inertia(x, centers)
-    t_cent = tkm.kmeans(T(x), k, iters=10).numpy()
-    j_cent = N(jkm.kmeans(x, k, iters=10))
-    assert t_cent.shape == (k, d) and t_cent.dtype == np.float32
-    assert _inertia(x, t_cent) <= 1.05 * ref
-    assert _inertia(x, j_cent) <= 1.05 * ref
+    misses = {"port": [], "jax": []}
+    for seed in range(20):
+        rng = np.random.default_rng(seed)
+        centers = rng.standard_normal((k, d)).astype(np.float32) * 8.0
+        x = (centers[rng.integers(0, k, 800)]
+             + rng.standard_normal((800, d)).astype(np.float32))
+        ref = _inertia(x, centers)
+        t_cent = tkm.kmeans(T(x), k, iters=10).numpy()
+        j_cent = N(jkm.kmeans(x, k, iters=10))
+        assert t_cent.shape == (k, d) and t_cent.dtype == np.float32
+        if _inertia(x, t_cent) > 1.05 * ref:
+            misses["port"].append(seed)
+        if _inertia(x, j_cent) > 1.05 * ref:
+            misses["jax"].append(seed)
+    assert len(misses["port"]) <= 8 and len(misses["jax"]) <= 8, misses
 
 
 def test_kmeans_seeded_generator_is_deterministic(rng):
