@@ -24,8 +24,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      (5e-2/5e-1 for scan_bf16);
    - the ADC scans (``csrc/adc_scan.cu``): K2 at m=4 and 12, K3 at m=8 and
      64, each with an f32 and a bf16 LUT, P=256 pairs, L=1, 1000 and 2048
-     code rows: scores within rtol/atol 1e-4 (both sides sum the same LUT
-     values in fp32, bf16 tables included).
+     code rows; the shared-list scan K4 at m=16 and 64, f32 and bf16 LUT,
+     nq=4 and 256 queries, L=13, 5000 and 65536 rows: scores within
+     rtol/atol 1e-4 (both sides sum the same LUT values in fp32, bf16
+     tables included).
 3. ``ivfsq`` path (K1): one port ``IndexServer(device="cuda")`` on a
    loopback port and an ``IndexClient`` over a discovery file.
    create_index with the README Quickstart cfg on the ``ivfsq`` builder,
@@ -46,16 +48,28 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. K2 path: an ``IVF1024,PQ12,RFlat`` index (m=12, so K2's geometry) on
    the same server over the first ``K2_N`` (100,000) rows of that corpus; a few
    requests are served and checked, and its recall is logged.
-6. Each kernel at its path's own shapes (the loaded index's lists and one
-   query block's first probe group, built by the model's own helpers):
-   kernel vs plain time, its bound, its max error, and the kernels JSON
-   line; the kernel's time on one set of inputs, which back-to-back calls
-   may find in L2, is logged beside it, labelled.
+6. Flat-PQ path (K4): a ``PQ64,RFlat`` index (one list, config 3's PQ
+   widths, the factory's 8x exact refine, train_num 100,000) on the same
+   server over phase 4's rows, queries and ground truth: recall@10 >= 0.95
+   on the 1000 eval queries, ``--nq`` queries served, save -> drop -> load
+   identical.
+7. Pre-transform path: an ``OPQ64,PQ64,RFlat`` index over phase 5's rows
+   (train_num 50,000): a few requests checked, recall@10 logged, save ->
+   drop -> load identical (the ``pretransform`` snapshot kind).
+8. Each kernel at its path's own shapes (the loaded index's lists and one
+   query block's first probe group, or for K4 its LUT and first chunk of
+   the list, built by the model's own helpers): kernel vs plain time, its
+   bound, its max error, and the kernels JSON line; the kernel's time on
+   one set of inputs, which back-to-back calls may find in L2, is logged
+   beside it, labelled. For K4 one PyTorch call that computes the same
+   sums (``embedding_bag``) is timed as a yardstick (``library_ms``); the
+   port never calls it.
 
-Before each of phases 3-5 every kernel's launch count is zeroed, and it is
+Before each of phases 3-7 every kernel's launch count is zeroed, and it is
 read after the phase: K1 must have launched on the ivfsq path, K3 on the
-knnlm path (and K2 not: the dispatch is fixed by the geometry), K2 on the
-K2 path.
+knnlm path (and neither K2 nor K4: the dispatch is fixed by the geometry),
+K2 on the K2 path, K4 on the flat-PQ path (and neither K2 nor K3) and on
+the pre-transform path.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -90,6 +104,7 @@ K1_REPLACES = "distributed_faiss_tpu/ops/flat_pallas.py:113"
 K1_SOURCE = "distributed_faiss_tpu_torch/csrc/flat_scan.cu"
 K2_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:139"
 K3_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:209"
+K4_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:110"
 ADC_SOURCE = "distributed_faiss_tpu_torch/csrc/adc_scan.cu"
 
 # the nibble-supported geometry only takes ksub = 256; so do both kernels'
@@ -197,6 +212,19 @@ def adc_bound(lut, codes):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def shared_bound(lut, codes):
+    """(bound_ms, bound_by, bytes, ops) of one K4 call on these inputs.
+    Bytes: the (L, m) codes, the (nq, m, ksub) LUTs and the (nq, L) fp32
+    scores, each once. Operations: one fp32 add per (query, code byte)."""
+    nq, m, _ = lut.shape
+    L = codes.shape[0]
+    nbytes = codes.numel() + lut.numel() * lut.element_size() + nq * L * 4
+    ops = nq * L * m
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
 def compare_scores(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
                    what: str) -> float:
     """Identical -inf masks and allclose finite scores; returns the max
@@ -222,7 +250,8 @@ def compare_scores(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: flo
 
 def launch_counters(flat_scan, adc):
     """name -> the wrapper that counts that kernel's launches."""
-    return {"K1": flat_scan.flat_list_scan, "K2": adc.adc_scan, "K3": adc.adc_scan_nibble}
+    return {"K1": flat_scan.flat_list_scan, "K2": adc.adc_scan, "K3": adc.adc_scan_nibble,
+            "K4": adc.adc_scan_shared}
 
 
 def zero_counts(counters) -> None:
@@ -340,7 +369,44 @@ def adc_kernel_phase(adc, seed: int) -> list:
     return rows
 
 
-# ---------------------------------------------------------------- phases 3-5
+def shared_kernel_phase(adc, seed: int) -> list:
+    """K4 vs its plain version at tpu_validate.py's shared geometries: m=16
+    and 64, f32 and bf16 LUT, nq=4 and 256 queries, L=13, 5000 and 65536
+    code rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2)
+    rows = []
+    for m in (16, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            for nq in (4, 256):
+                for L in (13, 5000, 65536):
+                    lut = torch.randn((nq, m, KSUB), generator=gen, device="cuda").to(dtype)
+                    codes = torch.randint(0, KSUB, (L, m), generator=gen, device="cuda",
+                                          dtype=torch.int32).to(torch.uint8)
+                    got = adc.adc_scan_shared(lut, codes)
+                    want = adc.adc_scan_shared_plain(lut, codes)
+                    torch.cuda.synchronize()
+                    name = (f"K4 m={m} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                            f"nq={nq} L={L}")
+                    err = compare_scores(got, want, 1e-4, 1e-4, name)
+                    bound_ms, bound_by, nbytes, _ = shared_bound(lut, codes)
+                    sets = l2_copies((lut, codes), nbytes)
+                    ms = time_ms(adc.adc_scan_shared, sets)
+                    # the plain version's time on a few of the copies: at
+                    # small inputs a whole rotation would be thousands of
+                    # host-paced calls
+                    plain_ms = time_ms(adc.adc_scan_shared_plain, sets[:8], warmup=1, iters=5)
+                    rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by))
+                    log(f"{name}: ok max_abs_err={err:.3g} (rtol=0.0001 atol=0.0001) "
+                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                        f"({bound_by}: {nbytes} bytes)")
+                    del lut, codes, sets, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phases 3-7
 
 
 def make_corpus(rng, n: int, d: int, centers: np.ndarray) -> np.ndarray:
@@ -593,9 +659,17 @@ def ivfsq_path(args, counters, card: str) -> dict:
     return out
 
 
-def knnlm_path(args, counters, card: str) -> tuple:
-    """Phases 4 and 5: the knnlm shard (K3), then IVF1024,PQ12,RFlat (K2)
-    on the same server."""
+def check_requests(client, iid: str, q_all: np.ndarray, what: str) -> None:
+    """Four 100-row requests, each (100, 10) finite ascending distances."""
+    for r in range(4):
+        D, meta = client.search(q_all[r * 100:(r + 1) * 100], 10, iid)
+        check_result(D, meta, 100, 10, f"{what} request {r}")
+
+
+def knnlm_path(args, counters, card: str) -> dict:
+    """Phases 4-7 on one server over the low-rank corpus: the knnlm shard
+    (K3), IVF1024,PQ12,RFlat (K2), flat PQ64,RFlat (K4) and
+    OPQ64,PQ64,RFlat (K4 behind the OPQ rotation)."""
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
     d, n, what = 768, KNNLM_N, "knnlm"
@@ -607,6 +681,7 @@ def knnlm_path(args, counters, card: str) -> tuple:
     q_eval = q_all[:1000]
     log(f"{what}: made {n} x {d} low-rank corpus and {args.nq} queries in "
         f"{time.perf_counter() - t0:.2f} s (seed {args.seed})")
+    out = {}
     with Serving(os.path.join(REPO, "build", "chip_smoke_pq")) as s:
         iid = "knnlm"
         cfg = IndexCfg(index_builder_type="knnlm", dim=d, metric="l2", centroids=4096,
@@ -614,8 +689,8 @@ def knnlm_path(args, counters, card: str) -> tuple:
                        adc_lut_bf16=True, refine_k_factor=8)
         zero_counts(counters)
         build_index(s.client, iid, cfg, x, what)
-        gt_ids = exact_ground_truth(x, q_eval, 10, what)
-        nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_ids, args.nprobe_from, 4096,
+        gt_full = exact_ground_truth(x, q_eval, 10, what)
+        nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_full, args.nprobe_from, 4096,
                                    what)
         pq_out = serve_and_report(args, s.client, iid, q_all, nprobe, card, what)
         save_drop_load(s.client, iid, q_eval, nprobe, what)
@@ -623,31 +698,70 @@ def knnlm_path(args, counters, card: str) -> tuple:
         log(f"{what}: launches {pq_out['counts']}")
         if pq_out["counts"]["K3"] <= 0:
             raise AssertionError(f"{what}: K3 was not launched on this path")
-        if pq_out["counts"]["K2"] != 0:
-            raise AssertionError(f"{what}: K2 launched on a path whose geometry is K3's")
-        pq_out["model"] = s.server.indexes[iid].model
-        pq_out["q_block"] = q_all[:256]
+        if pq_out["counts"]["K2"] != 0 or pq_out["counts"]["K4"] != 0:
+            raise AssertionError(f"{what}: K2 or K4 launched on a path whose geometry is K3's")
+        pq_out.update(model=s.server.indexes[iid].model, q_block=q_all[:256])
+        out["knnlm"] = pq_out
 
         what, iid, n2 = "IVF1024,PQ12,RFlat", "k2", K2_N
         cfg = IndexCfg(faiss_factory="IVF1024,PQ12,RFlat", dim=d, metric="l2",
                        train_num=50_000, nprobe=32)
         zero_counts(counters)
         build_index(s.client, iid, cfg, x[:n2], what)
-        for r in range(4):
-            D, meta = s.client.search(q_all[r * 100:(r + 1) * 100], 10, iid)
-            check_result(D, meta, 100, 10, f"{what} request {r}")
+        check_requests(s.client, iid, q_all, what)
         D, meta = s.client.search(q_eval, 10, iid)
         check_result(D, meta, q_eval.shape[0], 10, f"{what} recall request")
         k2_out = dict(counts=read_counts(counters))
         log(f"{what}: launches {k2_out['counts']}")
         if k2_out["counts"]["K2"] <= 0:
             raise AssertionError(f"{what}: K2 was not launched on this path")
-        gt_ids = exact_ground_truth(x[:n2], q_eval, 10, what)
-        k2_out["recall"] = recall_at_10(meta, gt_ids)
+        gt_head = exact_ground_truth(x[:n2], q_eval, 10, what)
+        k2_out["recall"] = recall_at_10(meta, gt_head)
         log(f"{what}: recall@10={k2_out['recall']:.4f} at nprobe=32 (logged, not gated)")
-        k2_out["model"] = s.server.indexes[iid].model
-        k2_out["q_block"] = q_all[:256]
-    return pq_out, k2_out
+        k2_out.update(model=s.server.indexes[iid].model, q_block=q_all[:256])
+        out["k2"] = k2_out
+
+        # phase 6: flat PQ (K4) over the whole corpus, phase 4's queries and
+        # ground truth
+        what, iid = "PQ64,RFlat", "flatpq"
+        cfg = IndexCfg(faiss_factory="PQ64,RFlat", dim=d, metric="l2", train_num=100_000)
+        zero_counts(counters)
+        build_index(s.client, iid, cfg, x, what)
+        D, meta = s.client.search(q_eval, 10, iid)
+        check_result(D, meta, q_eval.shape[0], 10, f"{what} recall request")
+        rec = recall_at_10(meta, gt_full)
+        log(f"{what}: recall@10={rec:.4f} (one list, every row scored)")
+        if rec < 0.95:
+            raise AssertionError(f"{what}: recall@10 {rec:.4f} < 0.95")
+        flat_out = serve_and_report(args, s.client, iid, q_all, 1, card, what)
+        save_drop_load(s.client, iid, q_eval, 1, what)
+        flat_out.update(counts=read_counts(counters), recall=rec)
+        log(f"{what}: launches {flat_out['counts']}")
+        if flat_out["counts"]["K4"] <= 0:
+            raise AssertionError(f"{what}: K4 was not launched on this path")
+        if flat_out["counts"]["K2"] != 0 or flat_out["counts"]["K3"] != 0:
+            raise AssertionError(f"{what}: K2 or K3 launched on the one-list path")
+        flat_out.update(model=s.server.indexes[iid].model, q_block=q_all[:256])
+        out["flatpq"] = flat_out
+
+        # phase 7: the OPQ rotation in front of flat PQ, over the K2 path's
+        # rows and ground truth
+        what, iid = "OPQ64,PQ64,RFlat", "opq"
+        cfg = IndexCfg(faiss_factory="OPQ64,PQ64,RFlat", dim=d, metric="l2",
+                       train_num=50_000)
+        zero_counts(counters)
+        build_index(s.client, iid, cfg, x[:n2], what)
+        check_requests(s.client, iid, q_all, what)
+        D, meta = s.client.search(q_eval, 10, iid)
+        check_result(D, meta, q_eval.shape[0], 10, f"{what} recall request")
+        save_drop_load(s.client, iid, q_eval, 1, what)
+        opq_out = dict(counts=read_counts(counters), recall=recall_at_10(meta, gt_head))
+        log(f"{what}: recall@10={opq_out['recall']:.4f} (logged, not gated); "
+            f"launches {opq_out['counts']}")
+        if opq_out["counts"]["K4"] <= 0:
+            raise AssertionError(f"{what}: K4 was not launched on this path")
+        out["opq"] = opq_out
+    return out
 
 
 def host_stats(client) -> dict:
@@ -673,11 +787,16 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
     device's busy share of the window and its kernel time by name."""
     from torch.profiler import ProfilerActivity, profile
 
-    before = host_stats(client)
+    from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+
+    counters = launch_counters(flat_scan, adc_scan)
+    before, launched = host_stats(client), read_counts(counters)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _, _ = serve_queries(client, q, index_id, 100, 8)
         torch.cuda.synchronize()
     after = host_stats(client)
+    launched = {k: n - launched[k] for k, n in read_counts(counters).items() if n > launched[k]}
+    log(f"profile[{index_id}]: wrapper launches in the window {launched}")
     for name, (n, total) in after.items():
         n0, total0 = before.get(name, (0, 0.0))
         if n > n0:
@@ -711,7 +830,7 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
             f"{name[:90]}")
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 8
 
 
 def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray) -> dict:
@@ -784,6 +903,46 @@ def adc_main_shape(adc, ivf, model, q_block: np.ndarray, what: str) -> dict:
                 bound_by=bound_by)
 
 
+def shared_main_shape(adc, ivf, model, q_block: np.ndarray) -> dict:
+    """K4, its plain version and the library yardstick on the flat-PQ
+    path's own inputs: one query block's LUT and the first chunk of the
+    list, built by the model's own helpers."""
+    _, nb, _ = model._search_plan()
+    q = torch.from_numpy(np.ascontiguousarray(q_block[:nb])).cuda()
+    lut, codes = ivf._pq_shared_inputs(model.centroids, model.codebooks, model.lists.data,
+                                       int(model.lists.sizes_host[0]), q, model.metric,
+                                       model.lut_bf16)
+    codes = codes[:ivf.shared_chunk_rows(nb)]
+    got = adc.adc_scan_shared(lut, codes)
+    want = adc.adc_scan_shared_plain(lut, codes)
+    err = compare_scores(got, want, 1e-4, 1e-4, "K4 flat-PQ-path shape")
+    bound_ms, bound_by, nbytes, ops = shared_bound(lut, codes)
+    sets = l2_copies((lut, codes), nbytes)
+    ms = time_ms(adc.adc_scan_shared, sets)
+    warm_ms = time_ms(adc.adc_scan_shared, [(lut, codes)])
+    plain_ms = time_ms(adc.adc_scan_shared_plain, sets, warmup=1, iters=5)
+    del sets
+    # the yardstick: one PyTorch call computing the same sums, (L, nq),
+    # its index and table built beforehand, in f32; used nowhere in the port
+    nq, m, ksub = lut.shape
+    index = codes.long() + torch.arange(m, device=codes.device) * ksub
+    table = lut.float().reshape(nq, m * ksub).T.contiguous()
+    bag = functools.partial(torch.nn.functional.embedding_bag, mode="sum")
+    lib_err = compare_scores(bag(index, table).T, want, 1e-4, 1e-4, "embedding_bag")
+    lib_bytes = index.numel() * 8 + table.numel() * 4 + nq * codes.shape[0] * 4
+    lib_sets = l2_copies((index, table), lib_bytes)
+    library_ms = time_ms(bag, lib_sets)
+    del lib_sets, index, table
+    log(f"K4 flat-PQ-path shape: nq={nq} L={codes.shape[0]} m={m} "
+        f"lut={'bf16' if model.lut_bf16 else 'f32'}: kernel {ms:.4f} ms (L2-warm back to "
+        f"back {warm_ms:.4f} ms), plain {plain_ms:.4f} ms, embedding_bag {library_ms:.4f} ms "
+        f"(max_abs_err {lib_err:.3g}), bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, "
+        f"{ops} adds), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+        f"{ops / (ms * 1e-3) / 1e9:.1f} G lookups/s, max_abs_err {err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -793,8 +952,8 @@ def main(argv=None) -> int:
                     help="first nprobe of the ivfsq and knnlm recall sweeps (both cfgs "
                          "say 32)")
     ap.add_argument("--profile", action="store_true",
-                    help="also serve 2000 queries on the ivfsq and knnlm paths under "
-                         "torch.profiler and print where the device time goes")
+                    help="also serve 2000 queries on the ivfsq, knnlm and flat-PQ paths "
+                         "under torch.profiler and print where the device time goes")
     args = ap.parse_args(argv)
     if args.nq < 1000:
         ap.error("--nq must be >= 1000 (the recall sweeps use the first 1000)")
@@ -831,21 +990,26 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     variants = kernel_phase(flat_scan, distance, args.seed)
     adc_variants = adc_kernel_phase(adc_scan, args.seed)
-    log(f"kernel phase: {len(variants)} K1 variants and {len(adc_variants)} K2/K3 cases agree "
-        f"with the plain version ({time.perf_counter() - t0:.1f} s)")
+    shared_variants = shared_kernel_phase(adc_scan, args.seed)
+    log(f"kernel phase: {len(variants)} K1 variants, {len(adc_variants)} K2/K3 cases and "
+        f"{len(shared_variants)} K4 cases agree with the plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     counters = launch_counters(flat_scan, adc_scan)
     t0 = time.perf_counter()
     sq_out = ivfsq_path(args, counters, card)
     log(f"ivfsq path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    pq_out, k2_out = knnlm_path(args, counters, card)
-    log(f"knnlm and IVF1024,PQ12,RFlat paths: {time.perf_counter() - t0:.1f} s")
+    outs = knnlm_path(args, counters, card)
+    pq_out, k2_out, flat_out = outs["knnlm"], outs["k2"], outs["flatpq"]
+    log(f"knnlm, IVF1024,PQ12,RFlat, PQ64,RFlat and OPQ64,PQ64,RFlat paths: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])
     k3 = adc_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"], "knnlm")
     k2 = adc_main_shape(adc_scan, ivf, k2_out["model"], k2_out["q_block"],
                         "IVF1024,PQ12,RFlat")
+    k4 = shared_main_shape(adc_scan, ivf, flat_out["model"], flat_out["q_block"])
     kernels = [
         dict(name="flat_list_scan", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
              launches=sq_out["counts"]["K1"], **k1, library_ms=None),
@@ -853,6 +1017,8 @@ def main(argv=None) -> int:
              launches=k2_out["counts"]["K2"], **k2, library_ms=None),
         dict(name="adc_scan_nibble", route="cuda", source=ADC_SOURCE, replaces=K3_REPLACES,
              launches=pq_out["counts"]["K3"], **k3, library_ms=None),
+        dict(name="adc_scan_shared", route="cuda", source=ADC_SOURCE, replaces=K4_REPLACES,
+             launches=flat_out["counts"]["K4"], **k4),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

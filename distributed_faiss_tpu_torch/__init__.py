@@ -8,10 +8,11 @@ explicit ``device`` on models, the engine and ``IndexServer``, and explicit
 ``torch.Generator``s. Entry points default to ``device="cuda"`` and raise
 when CUDA is absent; tests pass ``device="cpu"``.
 
-The IVF-Flat list scan and the IVF-PQ ADC scan run as hand-written CUDA
-kernels for ``sm_90a`` (``csrc/flat_scan.cu``, ``csrc/adc_scan.cu``,
-built with nvcc at first use into ``build/torch_kernels/``). On CPU
-tensors the same wrappers run their plain PyTorch versions.
+The IVF-Flat list scan and the ADC scans of IVF-PQ and flat PQ run as
+hand-written CUDA kernels for ``sm_90a`` (``csrc/flat_scan.cu``,
+``csrc/adc_scan.cu``, built with nvcc at first use into
+``build/torch_kernels/``). On CPU tensors the same wrappers run their
+plain PyTorch versions.
 
 Nothing here imports jax or the JAX package. Imports are lazy (PEP 562).
 """

@@ -1,12 +1,16 @@
-// PQ asymmetric-distance (ADC) scans for Hopper (sm_90a): K2 and K3.
+// PQ asymmetric-distance (ADC) scans for Hopper (sm_90a): K2, K3 and K4.
 //
-// Replaces two TPU kernels of distributed_faiss_tpu/ops/adc_pallas.py that
-// compute one function:
+// Replaces three TPU kernels of distributed_faiss_tpu/ops/adc_pallas.py.
+// K2 and K3 compute one function over per-pair code lists:
 //
 //   K2  adc_scan_pallas         (adc_pallas.py:139)  any m, ksub <= 256
 //   K3  adc_scan_pallas_nibble  (adc_pallas.py:209)  ksub == 256, m % 8 == 0
 //
 //   out[p, c] = sum_{j < m} lut[p, j, codes[p, c, j]]      fp32 accumulation
+//
+// K4 (adc_scan_shared_pallas, adc_pallas.py:110) scores one code list that
+// every query shares (flat PQ: an IVF-PQ index with one list); it is
+// described at its kernel below.
 //
 // lut (P, m, ksub) f32 or bf16 (a bf16 entry enters the sum as the fp32
 // value it represents); codes (P, L, m) u8, row c of pair p holding the m
@@ -184,27 +188,133 @@ adc_scan_nibble_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ co
   }
 }
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory, opting in
-// above the default 48 KB. Returns the launch's cudaGetLastError().
+// K4: one code list (L, m) shared by all nq queries; out (nq, L).
+//
+//   out[q, c] = sum_{j < m} lut[q, j, codes[c, j]]          fp32 accumulation
+//
+// What bounds it. Read once, the inputs are small beside the output: at
+// the flat-PQ path's shape (nq = 256 queries, a 262,144-row chunk of the
+// list, m = 64, f32 LUT) the codes are 16 MB, the LUTs 16 MB and the
+// (nq, L) fp32 scores 256 MB, so by bytes the output sets the bound. The
+// work is nq * L * m table lookups, each a shared-memory load at a
+// data-dependent bank, and one fp32 add each; the lookups, not the bytes,
+// are what a simple kernel spends its time on.
+//
+// What the design does about it.
+//   * A block owns a tile of kSharedTile code rows (kSharedRowsPerThread
+//     per thread) and a group of up to kSharedQueries queries. The tile is
+//     staged into shared memory once, transposed into 32-bit words (word w
+//     of every row, then word w + 1, ...) with a one-word pad per word
+//     column, so each thread reads its rows' codes 4 at a time without bank
+//     conflicts, and the staging's byte stores land on distinct banks. The
+//     global reads of the staging are byte loads by consecutive threads of
+//     consecutive bytes: coalesced, at any alignment and any m, never
+//     outside (L, m).
+//   * For each query of the group the block stages that query's LUT into
+//     shared memory (16-byte loads, in its own dtype) and every thread sums
+//     the m lookups of each of its rows in fp32, in j order (the order of
+//     the plain version), writing out[q, row] coalesced along the rows.
+//     The code tile is read from global memory once per query group, not
+//     once per query; each LUT once per tile.
+//   * The LUT buffer and the code tile share the block's shared memory:
+//     the wrapper refuses an m whose two do not fit Hopper's 227 KB.
+//   * Blocks carry nothing across each other and run in any order.
+constexpr int kSharedRowsPerThread = 4;
+constexpr int kSharedTile = kThreads * kSharedRowsPerThread;  // code rows a block owns
+constexpr int kSharedStride = kSharedTile + 1;  // words per staged word column (+1 pad)
+constexpr int kSharedQueries = 32;              // queries a block walks over its tile
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+adc_scan_shared_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
+                       float* __restrict__ out, int nq, int L, int m, int ksub) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lut_n = m * ksub;
+  T* lut_s = reinterpret_cast<T*>(smem);
+  uint32_t* words_s = reinterpret_cast<uint32_t*>(
+      smem + ((lut_n * static_cast<int>(sizeof(T)) + 15) & ~15));
+  uint8_t* word_bytes = reinterpret_cast<uint8_t*>(words_s);
+
+  const int r0 = blockIdx.x * kSharedTile;
+  const int rows = min(kSharedTile, L - r0);
+  const uint8_t* tile = codes + static_cast<size_t>(r0) * m;
+  const int tile_bytes = rows * m;
+  for (int i = threadIdx.x; i < tile_bytes; i += kThreads) {
+    const int r = i / m;
+    const int j = i - r * m;
+    word_bytes[((j >> 2) * kSharedStride + r) * 4 + (j & 3)] = __ldg(tile + i);
+  }
+
+  const int full_words = m >> 2;
+  const int tail = m & 3;
+  const int q_end = min(nq, static_cast<int>(blockIdx.y + 1) * kSharedQueries);
+  for (int q = blockIdx.y * kSharedQueries; q < q_end; ++q) {
+    __syncthreads();  // the code tile is staged / the previous LUT is consumed
+    stage_lut(lut + static_cast<size_t>(q) * lut_n, lut_s, lut_n);
+    __syncthreads();
+    float acc[kSharedRowsPerThread];
+#pragma unroll
+    for (int i = 0; i < kSharedRowsPerThread; ++i) acc[i] = 0.f;
+    for (int w = 0; w < full_words; ++w) {
+      const T* sub = lut_s + w * 4 * ksub;  // subspaces 4w .. 4w+3
+      const uint32_t* col = words_s + w * kSharedStride + threadIdx.x;
+#pragma unroll
+      for (int i = 0; i < kSharedRowsPerThread; ++i) {
+        const uint32_t word = col[i * kThreads];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i] += lut_value(sub, e * ksub + ((word >> (8 * e)) & 0xffu));
+        }
+      }
+    }
+    if (tail) {
+      const T* sub = lut_s + full_words * 4 * ksub;
+      const uint32_t* col = words_s + full_words * kSharedStride + threadIdx.x;
+#pragma unroll
+      for (int i = 0; i < kSharedRowsPerThread; ++i) {
+        const uint32_t word = col[i * kThreads];
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          if (e < tail) acc[i] += lut_value(sub, e * ksub + ((word >> (8 * e)) & 0xffu));
+        }
+      }
+    }
+    float* q_out = out + static_cast<size_t>(q) * L + r0;
+#pragma unroll
+    for (int i = 0; i < kSharedRowsPerThread; ++i) {
+      const int r = threadIdx.x + i * kThreads;
+      if (r < rows) q_out[r] = acc[i];
+    }
+  }
+}
+
+// Launch `kernel` on `grid` with `smem` bytes of dynamic shared memory,
+// opting in above the default 48 KB. Returns the launch's
+// cudaGetLastError().
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int P, int L, size_t smem, cudaStream_t stream,
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
                    Args... args) {
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(static_cast<unsigned>(P),
-                  static_cast<unsigned>((L + kBlockRows - 1) / kBlockRows));
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// K2/K3's grid: one block per (pair, kBlockRows rows).
+dim3 pair_grid(int P, int L) {
+  return dim3(static_cast<unsigned>(P),
+              static_cast<unsigned>((L + kBlockRows - 1) / kBlockRows));
 }
 
 }  // namespace
 
 // Plain-C entries (loaded with ctypes). Pointers are device pointers of
 // contiguous tensors: lut (P, m, ksub) f32 (lut_bf16 = 0) or bf16
-// (lut_bf16 = 1); codes (P, L, m) u8; out (P, L) f32. Each launches on
+// (lut_bf16 = 1); codes (P, L, m) u8; out (P, L) f32 (K4: lut (nq, m,
+// ksub), codes (L, m), out (nq, L)). Each launches on
 // `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a geometry it does not take; it never
 // synchronises.
@@ -222,11 +332,11 @@ extern "C" int dft_adc_scan(const void* lut, const void* codes, void* out, int P
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (lut_bf16) {
-    err = launch(adc_scan_kernel<__nv_bfloat16>, P, L, smem, st,
+    err = launch(adc_scan_kernel<__nv_bfloat16>, pair_grid(P, L), smem, st,
                  static_cast<const __nv_bfloat16*>(lut), c, o, L, m, ksub);
   } else {
-    err = launch(adc_scan_kernel<float>, P, L, smem, st, static_cast<const float*>(lut),
-                 c, o, L, m, ksub);
+    err = launch(adc_scan_kernel<float>, pair_grid(P, L), smem, st,
+                 static_cast<const float*>(lut), c, o, L, m, ksub);
   }
   return static_cast<int>(err);
 }
@@ -245,11 +355,35 @@ extern "C" int dft_adc_scan_nibble(const void* lut, const void* codes, void* out
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (lut_bf16) {
-    err = launch(adc_scan_nibble_kernel<__nv_bfloat16>, P, L, smem, st,
+    err = launch(adc_scan_nibble_kernel<__nv_bfloat16>, pair_grid(P, L), smem, st,
                  static_cast<const __nv_bfloat16*>(lut), c, o, L, m);
   } else {
-    err = launch(adc_scan_nibble_kernel<float>, P, L, smem, st,
+    err = launch(adc_scan_nibble_kernel<float>, pair_grid(P, L), smem, st,
                  static_cast<const float*>(lut), c, o, L, m);
+  }
+  return static_cast<int>(err);
+}
+
+// K4: codes (L, m) shared by the nq queries, at any byte offset.
+extern "C" int dft_adc_scan_shared(const void* lut, const void* codes, void* out, int nq,
+                                   int L, int m, int ksub, int lut_bf16, void* stream) {
+  if (nq <= 0 || L <= 0) return 0;
+  if (m <= 0 || ksub <= 0 || ksub > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t item = lut_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const size_t smem = ((static_cast<size_t>(m) * ksub * item + 15) & ~size_t{15}) +
+                      static_cast<size_t>((m + 3) / 4) * kSharedStride * 4;
+  const dim3 grid(static_cast<unsigned>((L + kSharedTile - 1) / kSharedTile),
+                  static_cast<unsigned>((nq + kSharedQueries - 1) / kSharedQueries));
+  const auto* c = static_cast<const uint8_t*>(codes);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (lut_bf16) {
+    err = launch(adc_scan_shared_kernel<__nv_bfloat16>, grid, smem, st,
+                 static_cast<const __nv_bfloat16*>(lut), c, o, nq, L, m, ksub);
+  } else {
+    err = launch(adc_scan_shared_kernel<float>, grid, smem, st,
+                 static_cast<const float*>(lut), c, o, nq, L, m, ksub);
   }
   return static_cast<int>(err);
 }

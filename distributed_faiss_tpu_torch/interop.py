@@ -5,9 +5,11 @@ json-able scalars with the same keys (IVF-Flat: rows in insertion order +
 the coarse assignment vector + optional stored norms / sq8 params / refine
 rows; IVF-PQ: the uint8 codes in insertion order + the assignment vector,
 the coarse centroids, the PQ codebooks, optional refine rows and the
-knobs; flat: the stored rows), so it does not depend on either package's
-device layout. ``from_jax_state`` turns such a dict — arrays may be any
-array-like, e.g. device arrays — into the port's index on ``device``;
+knobs; flat: the stored rows; pre-transform: the matrix, the mean and the
+fit flags beside the inner index's own keys under ``inner.``), so it does
+not depend on either package's device layout. ``from_jax_state`` turns
+such a dict — arrays may be any array-like, e.g. device arrays, scalars
+Python or numpy scalars — into the port's index on ``device``;
 ``to_state_dict`` writes the port's index back to the same keys. The npz
 files written by ``utils.serialization.save_state`` in either package load
 in the other through ``index_from_state_dict``.

@@ -1,2 +1,2 @@
-"""Index models: exact flat scan, IVF-Flat and IVF-PQ, plus the builder
-registry."""
+"""Index models: exact flat scan, IVF-Flat, IVF-PQ (flat PQ is IVF-PQ with
+one list), the OPQ/PCA pre-transform wrapper, plus the builder registry."""

@@ -7,32 +7,38 @@ Ported builders (same names as the reference and the JAX package):
 - ivfsq      — IVF + fp16 lists (IndexIVFScalarQuantizer QT_fp16);
 - knnlm      — IVF-PQ, m = cfg.extra['code_size'] (default 64), 8-bit codes
                (IndexIVFPQ), with the pallas_adc, adc_lut_bf16,
-               refine_k_factor and kmeans_iters knobs; its opq=True and
-               shard_lists=True variants are not ported and raise.
+               refine_k_factor and kmeans_iters knobs; opq=True puts an OPQ
+               rotation in front (opq_iters, default 8); its
+               shard_lists=True variant is not ported and raises.
 
-Factory strings: ``Flat | SQ8 | SQfp16 | PQ<m>[x8]`` and
-``IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])``, each with an optional
-``,RFlat`` / ``,Refine(Flat)`` suffix (``{centroids}`` templating as in the
-reference). ``index_from_state_dict`` rebuilds the kinds ``flat``,
-``ivf_flat`` and ``ivf_pq`` — the npz state written by either package loads
-here.
+Factory strings: ``[OPQ<m>[_<dout>],|PCA<dout>,|PCAR<dout>,] core
+[,RFlat|,Refine(Flat)]`` with core ``Flat | SQ8 | SQfp16 | PQ<m>[x8]`` or
+``IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])`` (``{centroids}`` templating as in
+the reference). ``index_from_state_dict`` rebuilds the kinds ``flat``,
+``ivf_flat``, ``ivf_pq`` and ``pretransform`` — the npz state written by
+either package loads here.
 
-Everything else (hnswsq, ivf_tpu, HNSW/OPQ/PCA specs, the sharded and
-pretransform kinds) raises a "not yet ported" error.
+Everything else (hnswsq, ivf_tpu, HNSW specs, the sharded kinds) raises a
+"not yet ported" error.
 """
 
+import logging
 import re
 
 from distributed_faiss_tpu_torch.models.flat import FlatIndex
 from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
+from distributed_faiss_tpu_torch.models.pretransform import PreTransformIndex
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+logger = logging.getLogger()
 
 
 def _not_ported(what: str):
     return RuntimeError(f"{what} is not yet ported to distributed_faiss_tpu_torch "
                         "(ported: the flat, ivf_simple, ivfsq and knnlm builders; "
                         "the Flat, SQ8, SQfp16 and PQ<m> factory specs, alone or "
-                        "under IVF<n>, with an optional RFlat)")
+                        "under IVF<n>, with an optional RFlat and an optional "
+                        "OPQ<m>[_<d>], PCA<d> or PCAR<d> prefix)")
 
 
 def _centroids(cfg: IndexCfg) -> int:
@@ -76,18 +82,26 @@ def _build_ivfsq(cfg: IndexCfg, device) -> IVFFlatIndex:
                         **_flat_scan_knobs(cfg))
 
 
-def _build_knnlm(cfg: IndexCfg, device) -> IVFPQIndex:
-    if cfg.extra.get("opq"):
-        raise _not_ported("the knnlm builder's opq=True (OPQ rotation in front of IVF-PQ)")
+def _opq_iters(cfg: IndexCfg) -> int:
+    return int(cfg.extra.get("opq_iters", 8))
+
+
+def _build_knnlm(cfg: IndexCfg, device):
     if cfg.extra.get("shard_lists"):
         raise _not_ported("the knnlm builder's shard_lists=True (mesh-sharded lists)")
-    return IVFPQIndex(cfg.dim, _centroids(cfg), m=int(cfg.extra.get("code_size", 64)),
-                      nbits=int(cfg.extra.get("nbits", 8)), metric=cfg.get_metric(),
-                      kmeans_iters=_kmeans_iters(cfg),
-                      use_pallas=bool(cfg.extra.get("pallas_adc", False)),
-                      refine_k_factor=int(cfg.extra.get("refine_k_factor", 0)),
-                      adc_lut_bf16=bool(cfg.extra.get("adc_lut_bf16", False)),
-                      device=device)
+    m = int(cfg.extra.get("code_size", 64))
+    inner = IVFPQIndex(cfg.dim, _centroids(cfg), m=m,
+                       nbits=int(cfg.extra.get("nbits", 8)), metric=cfg.get_metric(),
+                       kmeans_iters=_kmeans_iters(cfg),
+                       use_pallas=bool(cfg.extra.get("pallas_adc", False)),
+                       refine_k_factor=int(cfg.extra.get("refine_k_factor", 0)),
+                       adc_lut_bf16=bool(cfg.extra.get("adc_lut_bf16", False)),
+                       device=device)
+    if cfg.extra.get("opq"):
+        # FAISS "OPQ<m>,IVF<n>,PQ<m>": the rotation is fit on the train
+        # sample, then the inner index trains on rotated rows
+        return PreTransformIndex(inner, cfg.dim, opq_m=m, opq_iters=_opq_iters(cfg))
+    return inner
 
 
 INDEX_BUILDERS = {
@@ -118,12 +132,47 @@ def _is_pq(token: str) -> bool:
     return bool(re.fullmatch(r"PQ\d+(x\d+)?", token))
 
 
+_OPQ_RE = re.compile(r"^OPQ(\d+)(?:_(\d+))?$")
+_PCA_RE = re.compile(r"^PCAR?(\d+)$")
+
+
+def _build_core(parts, dim: int, metric: str, refine_k: int, cfg: IndexCfg, device, spec):
+    """The index a spec names after its pre-transform prefix."""
+    if len(parts) == 1 and parts[0] in _FLAT_CODECS:
+        return FlatIndex(dim, metric, codec=_FLAT_CODECS[parts[0]], device=device)
+    if len(parts) == 1 and _is_pq(parts[0]):
+        # flat PQ == IVF-PQ with a single list, always probed
+        idx = IVFPQIndex(dim, 1, m=_parse_pq_m(parts[0]), metric=metric,
+                         refine_k_factor=refine_k, device=device)
+        idx.set_nprobe(1)
+        return idx
+    if len(parts) == 2 and parts[0].startswith("IVF") and parts[0][3:].isdigit():
+        nlist = int(parts[0][3:])
+        if _is_pq(parts[1]):
+            return IVFPQIndex(dim, nlist, m=_parse_pq_m(parts[1]), metric=metric,
+                              kmeans_iters=_kmeans_iters(cfg), refine_k_factor=refine_k,
+                              device=device)
+        if parts[1] in _IVF_CODECS:
+            knobs = _flat_scan_knobs(cfg)
+            knobs.pop("refine_k_factor")
+            return IVFFlatIndex(dim, nlist, metric, _IVF_CODECS[parts[1]],
+                                kmeans_iters=_kmeans_iters(cfg), refine_k_factor=refine_k,
+                                device=device, **knobs)
+    raise _not_ported(f"factory spec {spec!r}")
+
+
 def parse_factory(cfg: IndexCfg, device):
     """Build from a FAISS-style factory spec (the ported subset of the JAX
-    package's grammar): ``(Flat|SQ8|SQfp16|PQ<m>[x8])`` or
-    ``IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])``, with an optional
-    ``,RFlat|,Refine(Flat)`` suffix. A flat ``PQ<m>`` is IVF-PQ with one
-    list, always probed."""
+    package's grammar):
+
+      [OPQ<m>[_<dout>],|PCA<dout>,|PCAR<dout>,] core [,RFlat|,Refine(Flat)]
+      core := Flat | SQ8 | SQfp16 | PQ<m>[x8]
+            | IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])
+
+    A flat ``PQ<m>`` is IVF-PQ with one list, always probed. As in the JAX
+    package, PCAR's random rotation is folded into the PCA basis, and RFlat
+    under a dim-reducing transform reranks in the reduced space (a warning
+    says so)."""
     spec = cfg.faiss_factory
     if "{centroids}" in spec:
         spec = spec.format(centroids=int(cfg.centroids))
@@ -133,26 +182,30 @@ def parse_factory(cfg: IndexCfg, device):
     if parts and parts[-1] in ("RFlat", "Refine(Flat)"):
         refine_k = int(cfg.extra.get("refine_k_factor", 8))
         parts = parts[:-1]
-    if len(parts) == 1 and parts[0] in _FLAT_CODECS:
-        return FlatIndex(cfg.dim, metric, codec=_FLAT_CODECS[parts[0]], device=device)
-    if len(parts) == 1 and _is_pq(parts[0]):
-        idx = IVFPQIndex(cfg.dim, 1, m=_parse_pq_m(parts[0]), metric=metric,
-                         refine_k_factor=refine_k, device=device)
-        idx.set_nprobe(1)
-        return idx
-    if (len(parts) == 2 and parts[0].startswith("IVF") and parts[0][3:].isdigit()
-            and _is_pq(parts[1])):
-        return IVFPQIndex(cfg.dim, int(parts[0][3:]), m=_parse_pq_m(parts[1]), metric=metric,
-                          kmeans_iters=_kmeans_iters(cfg), refine_k_factor=refine_k,
-                          device=device)
-    if (len(parts) == 2 and parts[0].startswith("IVF") and parts[0][3:].isdigit()
-            and parts[1] in _IVF_CODECS):
-        knobs = _flat_scan_knobs(cfg)
-        knobs.pop("refine_k_factor")
-        return IVFFlatIndex(cfg.dim, int(parts[0][3:]), metric, _IVF_CODECS[parts[1]],
-                            kmeans_iters=_kmeans_iters(cfg), refine_k_factor=refine_k,
-                            device=device, **knobs)
-    raise _not_ported(f"factory spec {spec!r}")
+    pre = None  # (kind, opq m, d_out)
+    if parts:
+        m_opq, m_pca = _OPQ_RE.match(parts[0]), _PCA_RE.match(parts[0])
+        if m_opq:
+            pre = ("opq", int(m_opq.group(1)),
+                   int(m_opq.group(2)) if m_opq.group(2) else cfg.dim)
+        elif m_pca:
+            pre = ("pca", None, int(m_pca.group(1)))
+        if pre is not None:
+            parts = parts[1:]
+            if pre[2] > cfg.dim:
+                raise RuntimeError(
+                    f"pre-transform output dim {pre[2]} > input dim {cfg.dim} in {spec!r}")
+    core = _build_core(parts, pre[2] if pre else cfg.dim, metric, refine_k, cfg, device, spec)
+    if pre is None:
+        return core
+    kind, opq_m, d_out = pre
+    if refine_k and d_out < cfg.dim and getattr(core, "refine_k_factor", 0):
+        logger.warning("RFlat under a dim-reducing pre-transform (%r): rerank happens in "
+                       "the reduced %d-dim space and cannot recover projection error "
+                       "(FAISS IndexRefineFlat reranks full-dim rows)", spec, d_out)
+    if kind == "opq":
+        return PreTransformIndex(core, cfg.dim, opq_m=opq_m, opq_iters=_opq_iters(cfg))
+    return PreTransformIndex(core, cfg.dim, pca=True)
 
 
 def build_index(cfg: IndexCfg, device="cuda"):
@@ -171,9 +224,9 @@ def build_index(cfg: IndexCfg, device="cuda"):
         "Either faiss_factory or valid index_builder_type should be specified to initialize index")
 
 
-_STATE_KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex}
-_PENDING_KINDS = ("sharded_flat", "sharded_ivf_flat", "sharded_ivf_pq",
-                  "hnswsq", "pretransform")
+_STATE_KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
+                "pretransform": PreTransformIndex}
+_PENDING_KINDS = ("sharded_flat", "sharded_ivf_flat", "sharded_ivf_pq", "hnswsq")
 
 
 def index_from_state_dict(state, device="cuda"):

@@ -7,13 +7,18 @@ Search: coarse scores (nq, nlist) -> top-nprobe lists -> a loop over probe
 groups; each group's (nq, g, cap) masked score block merges into a running
 top-k. IVF-Flat scores a group with ``ops.flat_scan.flat_list_scan``,
 IVF-PQ with a per-(query, probe) ADC lookup table and
-``ops.adc_scan.adc_scan_auto``. On a CUDA device those blocks always come
-from the hand-written kernels (``csrc/flat_scan.cu``,
-``csrc/adc_scan.cu``): the ``use_pallas`` knob (``pallas_flat`` /
-``pallas_adc`` in the cfg) is still read, stored in ``state_dict`` and
-round-tripped so configs and snapshots stay compatible; for IVF-PQ it
-still selects the bf16 LUT together with ``adc_lut_bf16``, as in the JAX
-package, so one cfg computes one function in both. On the card a kernel
+``ops.adc_scan.adc_scan_auto``. An IVF-PQ index with one list (flat PQ,
+the factory's ``PQ<m>``) takes ``_pq_shared_search`` instead: one LUT per
+query and ``ops.adc_scan.adc_scan_shared`` over chunks of the one list that
+every query shares, with no per-query copy of the codes; it computes the
+function the JAX package computes for a one-list IVF-PQ. On a CUDA device
+those blocks always come from the hand-written kernels
+(``csrc/flat_scan.cu``, ``csrc/adc_scan.cu``): the ``use_pallas`` knob
+(``pallas_flat`` / ``pallas_adc`` in the cfg) is still read, stored in
+``state_dict`` and round-tripped so configs and snapshots stay
+compatible; for IVF-PQ it still selects the bf16 LUT together with
+``adc_lut_bf16``, as in the JAX package, so one cfg computes one function
+in both. On the card a kernel
 fault raises — the JAX package's first-use oracle and ``pallas_guarded``
 demotion ladder are not ported. On the CPU the same wrappers run their
 plain PyTorch versions.
@@ -136,6 +141,50 @@ def _pq_group_inputs(centroids, codebooks, list_codes, q: torch.Tensor, li: torc
         lut = shared_lut[:, None].expand(nq, g, m, ksub).reshape(nq * g, m, ksub)
     lut = lut.to(torch.bfloat16 if lut_bf16 else torch.float32).contiguous()
     return lut, codes
+
+
+def shared_chunk_rows(nb: int) -> int:
+    """Rows of the shared list one K4 launch scores for an ``nb``-query
+    block: its (nb, rows) fp32 score block fits the query block's payload
+    budget (262,144 rows at nb = 256)."""
+    return max(1, base._QUERY_PAYLOAD_BUDGET // (4 * nb))
+
+
+def _pq_shared_inputs(centroids, codebooks, list_codes, size: int, q: torch.Tensor,
+                      metric: str, lut_bf16: bool):
+    """The shared ADC scan's inputs for a query block of a one-list index:
+    its (nq, m, ksub) LUT (l2: of the query's residual to the one centroid;
+    dot: the query's own), cast to bf16 with ``lut_bf16``; and the list's
+    ``size`` live (size, m) code rows, a view of the list."""
+    r = q - centroids[0] if metric == "l2" else q
+    lut = pq.adc_lut(r, codebooks, metric=metric)
+    lut = lut.to(torch.bfloat16 if lut_bf16 else torch.float32).contiguous()
+    return lut, list_codes[0, :size]
+
+
+def _pq_shared_search(centroids, codebooks, list_codes, list_ids, size: int, q, k: int,
+                      chunk: int, metric: str, lut_bf16: bool = False):
+    """Flat-PQ scan of one query block -> (scores, ids int32): K4 over the
+    live rows of the one list in chunks of ``chunk`` rows, each chunk's
+    top-k (rows with id < 0 masked) merged into the running top-k."""
+    q = q.float()
+    nq = q.shape[0]
+    lut, codes = _pq_shared_inputs(centroids, codebooks, list_codes, size, q, metric,
+                                   lut_bf16)
+    ids0 = list_ids[0]
+    carry = (torch.full((nq, k), distance.NEG_INF, dtype=torch.float32, device=q.device),
+             torch.full((nq, k), -1, dtype=torch.int32, device=q.device))
+    for s in range(0, size, chunk):
+        e = min(size, s + chunk)
+        sc = adc_scan.adc_scan_shared(lut, codes[s:e])
+        chunk_ids = ids0[s:e]
+        sc.masked_fill_((chunk_ids < 0)[None, :], distance.NEG_INF)
+        cv, pos = distance.segmented_argtopk(sc, k)
+        safe = torch.where(pos >= 0, pos, torch.zeros_like(pos))
+        cids = chunk_ids[safe]
+        cids = torch.where(pos >= 0, cids, torch.full_like(cids, -1))
+        carry = distance.merge_topk(carry[0], carry[1], cv, cids, k)
+    return carry
 
 
 def _ivf_flat_search(centroids, list_data, list_ids, list_sizes, q, k: int,
@@ -547,10 +596,16 @@ class IVFPQIndex(_IVFBase):
         adc_k = k * self.refine_k_factor if self.refine_k_factor else k
 
         def run(qb):
-            vals, ids = _ivf_pq_search(
-                self.centroids, self.codebooks, self.lists.data, self.lists.ids,
-                self.lists.sizes, qb, adc_k, nprobe, g, self.metric,
-                lut_bf16=self.lut_bf16)
+            if self.nlist == 1:
+                vals, ids = _pq_shared_search(
+                    self.centroids, self.codebooks, self.lists.data, self.lists.ids,
+                    int(self.lists.sizes_host[0]), qb, adc_k, shared_chunk_rows(nb),
+                    self.metric, lut_bf16=self.lut_bf16)
+            else:
+                vals, ids = _ivf_pq_search(
+                    self.centroids, self.codebooks, self.lists.data, self.lists.ids,
+                    self.lists.sizes, qb, adc_k, nprobe, g, self.metric,
+                    lut_bf16=self.lut_bf16)
             if self.refine_k_factor:
                 vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)
             return vals, ids

@@ -1,9 +1,9 @@
-"""PQ asymmetric-distance (ADC) scan over per-pair code lists: the CUDA
-kernels' wrappers and their plain PyTorch version (counterpart of
-distributed_faiss_tpu/ops/adc_pallas.py, the per-query-list kernels).
+"""PQ asymmetric-distance (ADC) scans: the CUDA kernels' wrappers and their
+plain PyTorch versions (counterpart of distributed_faiss_tpu/ops/adc_pallas.py).
 
-All three compute ``out[p, c] = sum_m lut[p, m, codes[p, c, m]]`` with an
-fp32 sum, for lut (P, m, ksub) fp32 or bf16 and codes (P, L, m) uint8:
+Over per-pair code lists (the IVF probe path) all three compute
+``out[p, c] = sum_m lut[p, m, codes[p, c, m]]`` with an fp32 sum, for lut
+(P, m, ksub) fp32 or bf16 and codes (P, L, m) uint8:
 
 - ``adc_scan_plain``: the gather-sum in PyTorch. A bf16 LUT is summed as
   the fp32 values it represents, so it sums exactly the entries a kernel
@@ -16,14 +16,24 @@ fp32 sum, for lut (P, m, ksub) fp32 or bf16 and codes (P, L, m) uint8:
 - ``adc_scan_auto``: K3 when ``nibble_supported``, else K2, fixed by the
   geometry: on the card nothing demotes.
 
+Over one code list shared by every query (flat PQ),
+``out[q, c] = sum_m lut[q, m, codes[c, m]]`` for lut (nq, m, ksub) and codes
+(L, m) at any byte offset:
+
+- ``adc_scan_shared_plain``: the same sum in PyTorch, over chunks of L and
+  one subspace at a time, so its transient stays near two 256 MiB fp32
+  blocks whatever L is;
+- ``adc_scan_shared`` (K4, the port of ``adc_scan_shared_pallas``).
+
 For tensors on the CPU each wrapper runs the plain version; for CUDA
 tensors it launches its hand-written kernel in ``csrc/adc_scan.cu`` or
-raises: there is no fallback. Both kernels stage a pair's whole LUT in
-shared memory, so on the card m is bounded by Hopper's 227 KB a block
-(``smem_bytes``): K3 takes m <= 224 with an f32 LUT and m <= 448 with a
-bf16 one, K2 at ksub = 256 m <= 181 and m <= 302; a larger m raises. Each launch adds one to the wrapper's
-``launches``. The JAX package's ``USE_NIBBLE`` switch and demotion state
-are not ported.
+raises: there is no fallback. Each kernel stages a whole LUT in shared
+memory, so on the card m is bounded by Hopper's 227 KB a block
+(``smem_bytes``, ``shared_smem_bytes``): at ksub = 256, K3 takes m <= 224
+with an f32 LUT and m <= 448 with a bf16 one, K2 m <= 181 and m <= 302,
+K4 (whose block also holds a 1024-row code tile) m <= 112 and m <= 149; a
+larger m raises. Each launch adds one to the wrapper's ``launches``. The
+JAX package's ``USE_NIBBLE`` switch and demotion state are not ported.
 """
 
 import ctypes
@@ -36,9 +46,16 @@ from distributed_faiss_tpu_torch.ops import cuda_build
 LUT_DTYPES = (torch.float32, torch.bfloat16)
 
 # Hopper's opt-in shared memory per block (the kernels are built for sm_90a
-# only), and K2's tile of staged code rows (kTileRows in csrc/adc_scan.cu)
+# only), K2's tile of staged code rows (kTileRows in csrc/adc_scan.cu) and
+# K4's, staged as a column of 32-bit words per 4 subspaces with one pad
+# word (kSharedTile, kSharedStride)
 MAX_SMEM_BYTES = 227 * 1024
 _K2_TILE_ROWS = 256
+_K4_TILE_STRIDE = 1024 + 1
+
+# the plain shared scan's chunk of L: one (nq, chunk) fp32 block of at most
+# this many bytes
+_SHARED_PLAIN_BYTES = 256 * 1024 * 1024
 
 _counter_lock = threading.Lock()
 
@@ -57,6 +74,12 @@ def smem_bytes(m: int, ksub: int, itemsize: int, nibble: bool) -> int:
     return ((lut + 15) & ~15) + _K2_TILE_ROWS * m + 16
 
 
+def shared_smem_bytes(m: int, ksub: int, itemsize: int) -> int:
+    """K4's dynamic shared memory a block, as ``csrc/adc_scan.cu`` sizes it:
+    the LUT of one query, 16-byte aligned, then the transposed code tile."""
+    return ((m * ksub * itemsize + 15) & ~15) + ((m + 3) // 4) * _K4_TILE_STRIDE * 4
+
+
 def adc_scan_plain(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """The kernels' function in plain PyTorch: one gather of the (P, L, m)
     LUT entries the codes select, summed over m in fp32."""
@@ -65,6 +88,24 @@ def adc_scan_plain(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     flat = lut.float().reshape(P, m * ksub)
     idx = codes.long() + torch.arange(m, device=codes.device) * ksub  # (P, L, m)
     return torch.gather(flat, 1, idx.reshape(P, L * m)).reshape(P, L, m).sum(2)
+
+
+def adc_scan_shared_plain(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """K4's function in plain PyTorch: per chunk of L rows, the m lookups of
+    each (query, row) summed in fp32 one subspace at a time, in subspace
+    order."""
+    nq, m, ksub = lut.shape
+    L = codes.shape[0]
+    flat = lut.float().reshape(nq, m * ksub)
+    out = torch.empty((nq, L), dtype=torch.float32, device=lut.device)
+    step = max(1, _SHARED_PLAIN_BYTES // (4 * max(1, nq)))
+    for s in range(0, L, step):
+        chunk = codes[s:s + step].long()
+        acc = torch.zeros((nq, chunk.shape[0]), dtype=torch.float32, device=lut.device)
+        for j in range(m):
+            acc += flat[:, j * ksub + chunk[:, j]]
+        out[:, s:s + chunk.shape[0]] = acc
+    return out
 
 
 def _dispatch(wrapper, lut, codes):
@@ -85,8 +126,19 @@ def adc_scan_nibble(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return _dispatch(adc_scan_nibble, lut, codes)
 
 
+def adc_scan_shared(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """K4: ADC scores (nq, L) fp32 of one (L, m) code list shared by the nq
+    queries, for any m the shared memory allows and ksub <= 256."""
+    if lut.device.type == "cpu":
+        return adc_scan_shared_plain(lut, codes)
+    if lut.device.type != "cuda":
+        raise RuntimeError(f"adc_scan_shared: unsupported device {lut.device}")
+    return _launch_shared(lut, codes)
+
+
 adc_scan.launches = 0
 adc_scan_nibble.launches = 0
+adc_scan_shared.launches = 0
 
 
 def adc_scan_auto(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -158,4 +210,34 @@ def _launch(wrapper, lut, codes):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     with _counter_lock:
         wrapper.launches += 1
+    return out
+
+
+def _launch_shared(lut, codes):
+    name = "adc_scan_shared"
+    if lut.dim() != 3 or codes.dim() != 2:
+        raise ValueError(f"{name}: lut must be 3-d and codes 2-d, got {lut.dim()} and "
+                         f"{codes.dim()}")
+    nq, m, ksub = lut.shape
+    L = codes.shape[0]
+    dev = lut.device
+    _check(name, "lut", lut, LUT_DTYPES, (nq, m, ksub), dev)
+    _check(name, "codes", codes, (torch.uint8,), (L, m), dev)
+    if not 1 <= ksub <= 256:
+        raise ValueError(f"{name}: ksub must be in 1..256 (uint8 codes), got {ksub}")
+    smem = shared_smem_bytes(m, ksub, lut.element_size())
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: m={m} is too large for the shared-memory LUT and "
+                         f"code tile: {smem} bytes a block, above {MAX_SMEM_BYTES}")
+    out = torch.empty((nq, L), dtype=torch.float32, device=dev)
+    if nq == 0 or L == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _entry("dft_adc_scan_shared", 5)(lut.data_ptr(), codes.data_ptr(), out.data_ptr(),
+                                           nq, L, m, ksub, int(lut.dtype == torch.bfloat16),
+                                           stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    with _counter_lock:
+        adc_scan_shared.launches += 1
     return out

@@ -14,14 +14,22 @@ multiple of the kernel's 256-row tile, empty and full lists, and -1 ids.
 The ADC scans (K2, K3): list lengths of 1, of one row either side of a
 128-row boundary and past the 256-row tile, m that is no power of two,
 both LUT dtypes, and a code buffer that starts off a 16-byte boundary.
+The shared-list ADC scan (K4): list lengths either side of its 1024-row
+tile, query counts either side of its 32-query group, m from 4 to 64 in
+both LUT dtypes, a code buffer 3 bytes off alignment, and the
+shared-memory edge of m. Then whole indexes on the card against the CPU:
+IVF-Flat, IVF-PQ, flat PQ (K4), OPQ in front of flat PQ and PCA in front
+of IVF-SQfp16 (K1).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from distributed_faiss_tpu_torch.models import factory
 from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
 from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
 pytestmark = pytest.mark.cuda
 
@@ -256,6 +264,107 @@ def test_ivf_pq_on_card_matches_cpu(card, metric, m, kw):
     cpu.set_nprobe(4)
     on_card = IVFPQIndex.from_state_dict(cpu.state_dict(), device=card)
     fn = adc_scan.adc_scan_nibble if adc_scan.nibble_supported(m, 256) else adc_scan.adc_scan
+    before = fn.launches
+    d_card, i_card = on_card.search(q, 10)
+    assert fn.launches > before
+    d_cpu, i_cpu = cpu.search(q, 10)
+    np.testing.assert_array_equal(i_card, i_cpu)
+    np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+
+
+def shared_inputs(seed, nq, L, m, lut_dtype, ksub=256):
+    rng = np.random.default_rng(seed)
+    lut = torch.as_tensor(rng.standard_normal((nq, m, ksub)).astype(np.float32)).to(lut_dtype)
+    codes = torch.as_tensor(rng.integers(0, ksub, (L, m)).astype(np.uint8))
+    return lut, codes
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nq,L", [(1, 1), (5, 1023), (33, 1025), (32, 3000)])
+@pytest.mark.parametrize("m", [4, 12, 16, 32, 64])
+def test_adc_shared_kernel_matches_plain(card, m, nq, L, lut_dtype):
+    """K4 against its plain version: scores within rtol/atol 1e-4
+    (tests/test_adc_pallas.py:46); both sum the same LUT values in fp32 in
+    subspace order. One launch."""
+    lut, codes = [t.to(card) for t in shared_inputs(nq * L + m, nq, L, m, lut_dtype)]
+    before = adc_scan.adc_scan_shared.launches
+    got = adc_scan.adc_scan_shared(lut, codes)
+    torch.cuda.synchronize()
+    assert adc_scan.adc_scan_shared.launches == before + 1
+    assert got.shape == (nq, L)
+    torch.testing.assert_close(got.cpu(), adc_scan.adc_scan_shared_plain(lut, codes).cpu(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_adc_shared_reads_an_unaligned_code_buffer(card):
+    """A code buffer 3 bytes past a 16-byte boundary (a chunk codes[s:e] at
+    m = 12 starts anywhere) scores the same."""
+    lut, codes = [t.to(card) for t in shared_inputs(3, 6, 2100, 12, torch.float32)]
+    raw = torch.zeros(codes.numel() + 3, dtype=torch.uint8, device=card)
+    raw[3:] = codes.reshape(-1)
+    shifted = raw[3:].view(codes.shape)
+    assert shifted.data_ptr() % 16 == 3 and shifted.is_contiguous()
+    torch.testing.assert_close(adc_scan.adc_scan_shared(lut, shifted).cpu(),
+                               adc_scan.adc_scan_shared_plain(lut, codes).cpu(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_adc_shared_refuses_bad_inputs(card):
+    """Device, dtype, shape and contiguity are checked before the kernel
+    gets a pointer; nothing launches when they fail."""
+    lut, codes = [t.to(card) for t in shared_inputs(0, 4, 64, 8, torch.float32)]
+    before = adc_scan.adc_scan_shared.launches
+    cases = [
+        ((lut.half(), codes), "must be torch.float32 or torch.bfloat16"),
+        ((lut, codes.int()), "must be torch.uint8"),
+        ((lut, codes.t().contiguous().t()), "contiguous"),
+        ((lut, codes.cpu()), "is on cpu"),
+        ((lut, codes[:, :4].contiguous()), "shape"),
+        ((lut, codes[None]), "codes 2-d"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            adc_scan.adc_scan_shared(*args)
+    assert adc_scan.adc_scan_shared.launches == before
+
+
+@pytest.mark.parametrize("lut_dtype,m", [(torch.float32, 112), (torch.bfloat16, 149)],
+                         ids=["f32-m112", "bf16-m149"])
+def test_adc_shared_kernel_at_the_shared_memory_limit(card, lut_dtype, m):
+    """At the largest m whose LUT and code tile fit Hopper's 227 KB a block
+    K4 launches and agrees with the plain version; at m + 1 the wrapper
+    refuses before any launch."""
+    lut, codes = [t.to(card) for t in shared_inputs(m, 3, 1500, m, lut_dtype)]
+    torch.testing.assert_close(adc_scan.adc_scan_shared(lut, codes).cpu(),
+                               adc_scan.adc_scan_shared_plain(lut, codes).cpu(),
+                               rtol=1e-4, atol=1e-4)
+    lut, codes = [t.to(card) for t in shared_inputs(m, 3, 1500, m + 1, lut_dtype)]
+    before = adc_scan.adc_scan_shared.launches
+    with pytest.raises(ValueError, match="too large for the shared-memory LUT"):
+        adc_scan.adc_scan_shared(lut, codes)
+    assert adc_scan.adc_scan_shared.launches == before
+
+
+def correlated_corpus(seed, d=32, n=3000, nq=40):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((d, d)).astype(np.float32)
+    return (rng.standard_normal((n, d)).astype(np.float32) @ a,
+            rng.standard_normal((nq, d)).astype(np.float32) @ a)
+
+
+@pytest.mark.parametrize("spec,launched", [("PQ16,RFlat", "K4"), ("OPQ8,PQ8", "K4"),
+                                           ("PCA16,IVF16,SQfp16", "K1")])
+def test_factory_index_on_card_matches_cpu(card, spec, launched):
+    """A factory index trained on the CPU, served on the card from its
+    state: same ids, distances within 1e-3; the path's kernel launched."""
+    x, q = correlated_corpus(4)
+    cpu = factory.build_index(IndexCfg(faiss_factory=spec, dim=32, metric="l2",
+                                       kmeans_iters=4, opq_iters=2), device="cpu")
+    cpu.train(x[:2000])
+    cpu.add(x)
+    cpu.set_nprobe(4)
+    on_card = factory.index_from_state_dict(cpu.state_dict(), device=card)
+    fn = adc_scan.adc_scan_shared if launched == "K4" else flat_scan.flat_list_scan
     before = fn.launches
     d_card, i_card = on_card.search(q, 10)
     assert fn.launches > before

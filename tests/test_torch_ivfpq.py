@@ -22,8 +22,11 @@ from distributed_faiss_tpu.utils import serialization as jser
 from distributed_faiss_tpu.utils.config import IndexCfg as JCfg
 from distributed_faiss_tpu.utils.state import IndexState as JState
 from distributed_faiss_tpu_torch import interop
+from distributed_faiss_tpu_torch.models import base as tbase
 from distributed_faiss_tpu_torch.models import factory as tfactory
+from distributed_faiss_tpu_torch.models import ivf as tivf
 from distributed_faiss_tpu_torch.models.ivf import IVFPQIndex as TIVFPQ
+from distributed_faiss_tpu_torch.ops import adc_scan as tadc
 from distributed_faiss_tpu_torch.parallel.client import IndexClient
 from distributed_faiss_tpu_torch.parallel.server import IndexServer
 from distributed_faiss_tpu_torch.utils import serialization as tser
@@ -161,9 +164,10 @@ def test_knnlm_builder_knobs():
 
 @pytest.mark.parametrize("extra", ["opq", "shard_lists"])
 def test_knnlm_unported_variants_raise(extra):
-    """opq and shard_lists are not ported: the builder raises instead of
-    quietly building a plain IVF-PQ index."""
-    cfg = IndexCfg(index_builder_type="knnlm", dim=D, centroids=4, **{extra: True})
+    """shard_lists is not ported, alone or under the OPQ rotation: the
+    builder raises instead of quietly building an unsharded index."""
+    cfg = IndexCfg(index_builder_type="knnlm", dim=D, centroids=4,
+                   **{extra: True, "shard_lists": True})
     with pytest.raises(RuntimeError, match="not yet ported"):
         tfactory.build_index(cfg, device="cpu")
 
@@ -180,6 +184,96 @@ def test_pq_factory_specs():
     assert refined.refine_k_factor == 3
     with pytest.raises(RuntimeError, match="only 8-bit"):
         build("IVF8,PQ4x4")
+
+
+# ---------------------------------------------------------------- flat PQ
+
+
+FLAT_CASES = [("PQ4", "l2"), ("PQ4", "dot"), ("PQ8,RFlat", "l2"), ("PQ8,RFlat", "dot")]
+
+
+def _jax_flat_pq(x, spec, metric):
+    ref = jfactory.build_index(JCfg(faiss_factory=spec, dim=D, metric=metric))
+    ref.pq_iters = 4
+    ref.train(x[:400])
+    ref.add(x)
+    return ref
+
+
+@pytest.mark.parametrize("spec,metric", FLAT_CASES, ids=[f"{s}-{m}" for s, m in FLAT_CASES])
+def test_flat_pq_from_jax_state(data, monkeypatch, spec, metric):
+    """Flat PQ (one list) built in the JAX package, served by the port's
+    shared-list path: same ids, ADC distances within 1e-4, refined ones
+    within 1e-3; the state goes back to JAX and serves the same. The port
+    never gathers a per-query copy of the codes on this path."""
+    x, q = data
+    ref = _jax_flat_pq(x, spec, metric)
+    port = interop.from_jax_state(ref.state_dict(), device="cpu")
+    assert isinstance(port, TIVFPQ) and port.nlist == 1 and port.ntotal == 600
+
+    def no_group_inputs(*a, **k):
+        raise AssertionError("per-query code gather on the one-list path")
+
+    monkeypatch.setattr(tivf, "_pq_group_inputs", no_group_inputs)
+    want = ref.search(q, K)
+    tol = 1e-3 if port.refine_k_factor else 1e-4
+    assert_same_results(port.search(q, K), want, tol)
+    back = jfactory.index_from_state_dict(interop.to_state_dict(port))
+    assert_same_results(back.search(q, K), want, 0)
+
+
+def test_flat_pq_chunks_span_the_list(data, monkeypatch):
+    """A payload budget of 100 rows a chunk for the query block splits the
+    600-row list into 6 shared scans per block, merged into the same top-k
+    as the JAX package's one pass."""
+    x, q = data
+    ref = _jax_flat_pq(x, "PQ8,RFlat", "l2")
+    port = interop.from_jax_state(ref.state_dict(), device="cpu")
+    # the budget also sizes the query block, down to its 256-row floor
+    monkeypatch.setattr(tbase, "_QUERY_PAYLOAD_BUDGET", 100 * 4 * 256)
+    _, nb, _ = port._search_plan()
+    assert nb == 256 and tivf.shared_chunk_rows(nb) == 100
+    widths = []
+    orig = tadc.adc_scan_shared
+    monkeypatch.setattr(tadc, "adc_scan_shared",
+                        lambda lut, codes: widths.append(codes.shape[0]) or orig(lut, codes))
+    got = port.search(q, K)
+    assert widths == [100] * 6
+    assert_same_results(got, ref.search(q, K), 1e-3)
+    # fewer rows than k in the last chunks: pad slots stay -1 / +inf
+    dp, ip = port.search(q[:2], 700)
+    assert (ip[:, 600:] == -1).all() and np.isposinf(dp[:, 600:]).all()
+    assert sorted(ip[0, :600]) == list(range(600))
+
+
+def test_flat_pq_bf16_lut_through_knnlm(data):
+    """knnlm with one centroid, pallas_adc and adc_lut_bf16: the JAX side
+    runs its per-pair Pallas kernel (interpret mode) over a bf16 LUT, the
+    port its shared-list path over the same bf16 LUT: same ids, distances
+    within 1e-4."""
+    x, q = data
+    cfg = JCfg(index_builder_type="knnlm", dim=D, metric="l2", centroids=1, code_size=8,
+               pallas_adc=True, adc_lut_bf16=True, kmeans_iters=4)
+    ref = jfactory.build_index(cfg)
+    ref.pq_iters = 4
+    ref.train(x[:400])
+    ref.add(x)
+    port = interop.from_jax_state(ref.state_dict(), device="cpu")
+    assert port.nlist == 1 and port.lut_bf16
+    assert_same_results(port.search(q, K), ref.search(q, K), 1e-4)
+
+
+def test_multi_list_search_never_takes_the_shared_path(data, monkeypatch):
+    """With nlist > 1 the probe-group path runs unchanged: no shared scan."""
+    x, q = data
+    ref = _jax_index(x, "l2", 8, {})
+    port = interop.from_jax_state(ref.state_dict(), device="cpu")
+
+    def no_shared(*a, **k):
+        raise AssertionError("shared-list scan on an IVF path")
+
+    monkeypatch.setattr(tadc, "adc_scan_shared", no_shared)
+    assert_same_results(port.search(q, K), ref.search(q, K), 1e-4)
 
 
 # ---------------------------------------------------------------- serving
@@ -257,3 +351,26 @@ def test_jax_knnlm_storage_dir_served_by_port(data, server):
     got_d, got_m = client.search(q, 5, "jpq")
     assert got_m == want_m
     np.testing.assert_allclose(got_d, want_d, rtol=1e-4, atol=1e-4)
+
+
+def test_flat_pq_served_over_loopback(data, server):
+    """PQ8,RFlat through the port's IndexServer/IndexClient on the CPU:
+    threshold train, add, search (each row finds itself after the exact
+    refine), save -> drop -> load with identical results."""
+    client, _ = server
+    x, _ = data
+    cfg = IndexCfg(faiss_factory="PQ8,RFlat", dim=D, metric="l2", train_num=400)
+    assert client.create_index("fpq", cfg) == [True]
+    for s in range(0, 600, 100):
+        client.add_index_data("fpq", x[s:s + 100], [("f", i) for i in range(s, s + 100)])
+    assert wait_until(lambda: client.get_state("fpq") == IndexState.TRAINED
+                      and client.get_buffer_depth("fpq") == 0 and client.get_ntotal("fpq") == 600)
+    D1, M1 = client.search(x[:6] + 1e-4, 4, "fpq")
+    assert D1.shape == (6, 4) and np.all(np.diff(D1, axis=1) >= 0)
+    assert [m[0] for m in M1] == [("f", i) for i in range(6)]
+    client.save_index("fpq")
+    client.drop_index("fpq")
+    assert client.load_index("fpq")
+    D2, M2 = client.search(x[:6] + 1e-4, 4, "fpq")
+    assert M2 == M1
+    np.testing.assert_array_equal(D2, D1)

@@ -133,13 +133,18 @@ def test_port_snapshot_loads_in_jax(data, tmp_path, spec):
 
 
 def test_factory_refuses_unported(data):
+    """What later slices port raises "not yet ported": the hnswsq and
+    ivf_tpu builders, HNSW specs, the mesh-sharded flat index and the
+    sharded snapshot kinds."""
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
     for cfg in (IndexCfg(index_builder_type="hnswsq", dim=D),
-                IndexCfg(index_builder_type="knnlm", dim=D, centroids=4, opq=True),
-                IndexCfg(faiss_factory="OPQ4,IVF8,PQ4", dim=D),
-                IndexCfg(faiss_factory="HNSW32", dim=D)):
+                IndexCfg(index_builder_type="ivf_tpu", dim=D, centroids=4),
+                IndexCfg(index_builder_type="flat", dim=D, mesh_shards=True),
+                IndexCfg(faiss_factory="HNSW32", dim=D),
+                IndexCfg(faiss_factory="OPQ4,HNSW32", dim=D)):
         with pytest.raises(RuntimeError, match="not yet ported"):
             tfactory.build_index(cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="not yet ported"):
-        tfactory.index_from_state_dict({"kind": "sharded_ivf_pq"}, device="cpu")
+    for kind in ("sharded_ivf_pq", "sharded_flat", "hnswsq"):
+        with pytest.raises(RuntimeError, match="not yet ported"):
+            tfactory.index_from_state_dict({"kind": kind}, device="cpu")
