@@ -24,10 +24,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      (5e-2/5e-1 for scan_bf16);
    - the ADC scans (``csrc/adc_scan.cu``): K2 at m=4 and 12, K3 at m=8 and
      64, each with an f32 and a bf16 LUT, P=256 pairs, L=1, 1000 and 2048
-     code rows; the shared-list scan K4 at m=16 and 64, f32 and bf16 LUT,
-     nq=4 and 256 queries, L=13, 5000 and 65536 rows: scores within
-     rtol/atol 1e-4 (both sides sum the same LUT values in fp32, bf16
-     tables included).
+     code rows, then K2 at m=190 and K3 at m=256 with an f32 LUT (wider
+     than a block's shared memory: several subspace slices, the count
+     logged): scores within rtol/atol 1e-4 (both sides sum the same LUT
+     values in fp32, bf16 tables included); the shared-list scan K4 at
+     m=16 and 64, f32 and bf16 LUT, nq=4 and 256 queries, L=13, 5000 and
+     65536 rows, and at m=128 f32, nq=256, L=65536 (slices): bit-exact
+     (both sides add the same fp32 values in subspace order).
 3. ``ivfsq`` path (K1): one port ``IndexServer(device="cuda")`` on a
    loopback port and an ``IndexClient`` over a discovery file.
    create_index with the README Quickstart cfg on the ``ivfsq`` builder,
@@ -56,7 +59,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 7. Pre-transform path: an ``OPQ64,PQ64,RFlat`` index over phase 5's rows
    (train_num 50,000): a few requests checked, recall@10 logged, save ->
    drop -> load identical (the ``pretransform`` snapshot kind).
-8. Each kernel at its path's own shapes (the loaded index's lists and one
+8. Wide flat PQ: a ``PQ128,RFlat`` index over phase 5's rows (an f32
+   LUT wider than a block's shared memory, so K4 runs in subspace slices):
+   a few requests checked, recall@10 logged, the slice count logged.
+9. Each kernel at its path's own shapes (the loaded index's lists and one
    query block's first probe group, or for K4 its LUT and first chunk of
    the list, built by the model's own helpers): kernel vs plain time, its
    bound, its max error, and the kernels JSON line; the kernel's time on
@@ -65,11 +71,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    sums (``embedding_bag``) is timed as a yardstick (``library_ms``); the
    port never calls it.
 
-Before each of phases 3-7 every kernel's launch count is zeroed, and it is
+Before each of phases 3-8 every kernel's launch count is zeroed, and it is
 read after the phase: K1 must have launched on the ivfsq path, K3 on the
 knnlm path (and neither K2 nor K4: the dispatch is fixed by the geometry),
 K2 on the K2 path, K4 on the flat-PQ path (and neither K2 nor K3) and on
-the pre-transform path.
+the pre-transform path and the wide flat-PQ path.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -338,33 +344,39 @@ def kernel_phase(flat_scan, distance, seed: int) -> list:
 
 def adc_kernel_phase(adc, seed: int) -> list:
     """K2 (m=4, 12) and K3 (m=8, 64) vs the plain version, f32 and bf16
-    LUT, P=256 pairs, L=1, 1000, 2048 code rows."""
+    LUT, P=256 pairs, L=1, 1000, 2048 code rows; then K2 at m=190 and K3 at
+    m=256, f32 LUT, L=1000: wider than a block's shared memory, so scored
+    in subspace slices."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     P = 256
     rows = []
-    for kid, fn, ms_ in (("K2", adc.adc_scan, (4, 12)), ("K3", adc.adc_scan_nibble, (8, 64))):
-        for m in ms_:
-            for dtype in (torch.float32, torch.bfloat16):
-                for L in (1, 1000, 2048):
-                    lut = torch.randn((P, m, KSUB), generator=gen, device="cuda").to(dtype)
-                    codes = torch.randint(0, KSUB, (P, L, m), generator=gen, device="cuda",
-                                          dtype=torch.int32).to(torch.uint8)
-                    got = fn(lut, codes)
-                    want = adc.adc_scan_plain(lut, codes)
-                    torch.cuda.synchronize()
-                    name = f"{kid} m={m} {'bf16' if dtype == torch.bfloat16 else 'f32'} L={L}"
-                    err = compare_scores(got, want, 1e-4, 1e-4, name)
-                    bound_ms, bound_by, nbytes, _ = adc_bound(lut, codes)
-                    sets = l2_copies((lut, codes), nbytes)
-                    ms = time_ms(fn, sets)
-                    plain_ms = time_ms(adc.adc_scan_plain, sets, warmup=1, iters=5)
-                    rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by))
-                    log(f"{name}: ok max_abs_err={err:.3g} (rtol=0.0001 atol=0.0001) "
-                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                        f"({bound_by}: {nbytes} bytes)")
-                    del lut, codes, sets, got, want
+    cases = [(kid, fn, m, dtype, L)
+             for kid, fn, ms_ in (("K2", adc.adc_scan, (4, 12)),
+                                  ("K3", adc.adc_scan_nibble, (8, 64)))
+             for m in ms_ for dtype in (torch.float32, torch.bfloat16) for L in (1, 1000, 2048)]
+    cases += [("K2", adc.adc_scan, 190, torch.float32, 1000),
+              ("K3", adc.adc_scan_nibble, 256, torch.float32, 1000)]
+    for kid, fn, m, dtype, L in cases:
+        lut = torch.randn((P, m, KSUB), generator=gen, device="cuda").to(dtype)
+        codes = torch.randint(0, KSUB, (P, L, m), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.uint8)
+        got = fn(lut, codes)
+        want = adc.adc_scan_plain(lut, codes)
+        torch.cuda.synchronize()
+        name = (f"{kid} m={m} {'bf16' if dtype == torch.bfloat16 else 'f32'} L={L} "
+                f"slices={fn.slices}")
+        err = compare_scores(got, want, 1e-4, 1e-4, name)
+        bound_ms, bound_by, nbytes, _ = adc_bound(lut, codes)
+        sets = l2_copies((lut, codes), nbytes)
+        ms = time_ms(fn, sets)
+        plain_ms = time_ms(adc.adc_scan_plain, sets, warmup=1, iters=5)
+        rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"{name}: ok max_abs_err={err:.3g} (rtol=0.0001 atol=0.0001) "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {nbytes} bytes)")
+        del lut, codes, sets, got, want
     torch.cuda.empty_cache()
     return rows
 
@@ -372,41 +384,42 @@ def adc_kernel_phase(adc, seed: int) -> list:
 def shared_kernel_phase(adc, seed: int) -> list:
     """K4 vs its plain version at tpu_validate.py's shared geometries: m=16
     and 64, f32 and bf16 LUT, nq=4 and 256 queries, L=13, 5000 and 65536
-    code rows."""
+    code rows; then m=128 with an f32 LUT at nq=256, L=65536, wider than a
+    block's shared memory, so scored in subspace slices. Bit-exact: both
+    sides add the same fp32 values in subspace order."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 2)
     rows = []
-    for m in (16, 64):
-        for dtype in (torch.float32, torch.bfloat16):
-            for nq in (4, 256):
-                for L in (13, 5000, 65536):
-                    lut = torch.randn((nq, m, KSUB), generator=gen, device="cuda").to(dtype)
-                    codes = torch.randint(0, KSUB, (L, m), generator=gen, device="cuda",
-                                          dtype=torch.int32).to(torch.uint8)
-                    got = adc.adc_scan_shared(lut, codes)
-                    want = adc.adc_scan_shared_plain(lut, codes)
-                    torch.cuda.synchronize()
-                    name = (f"K4 m={m} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
-                            f"nq={nq} L={L}")
-                    err = compare_scores(got, want, 1e-4, 1e-4, name)
-                    bound_ms, bound_by, nbytes, _ = shared_bound(lut, codes)
-                    sets = l2_copies((lut, codes), nbytes)
-                    ms = time_ms(adc.adc_scan_shared, sets)
-                    # the plain version's time on a few of the copies: at
-                    # small inputs a whole rotation would be thousands of
-                    # host-paced calls
-                    plain_ms = time_ms(adc.adc_scan_shared_plain, sets[:8], warmup=1, iters=5)
-                    rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by))
-                    log(f"{name}: ok max_abs_err={err:.3g} (rtol=0.0001 atol=0.0001) "
-                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                        f"({bound_by}: {nbytes} bytes)")
-                    del lut, codes, sets, got, want
+    cases = [(m, dtype, nq, L) for m in (16, 64) for dtype in (torch.float32, torch.bfloat16)
+             for nq in (4, 256) for L in (13, 5000, 65536)]
+    cases.append((128, torch.float32, 256, 65536))
+    for m, dtype, nq, L in cases:
+        lut = torch.randn((nq, m, KSUB), generator=gen, device="cuda").to(dtype)
+        codes = torch.randint(0, KSUB, (L, m), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.uint8)
+        got = adc.adc_scan_shared(lut, codes)
+        want = adc.adc_scan_shared_plain(lut, codes)
+        torch.cuda.synchronize()
+        name = (f"K4 m={m} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                f"nq={nq} L={L} slices={adc.adc_scan_shared.slices}")
+        err = compare_scores(got, want, 0.0, 0.0, name)
+        bound_ms, bound_by, nbytes, _ = shared_bound(lut, codes)
+        sets = l2_copies((lut, codes), nbytes)
+        ms = time_ms(adc.adc_scan_shared, sets)
+        # the plain version's time on a few of the copies: at small inputs
+        # a whole rotation would be thousands of host-paced calls
+        plain_ms = time_ms(adc.adc_scan_shared_plain, sets[:8], warmup=1, iters=5)
+        rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"{name}: ok, bit-exact, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes), "
+            f"{nq * L * m / (ms * 1e-3) / 1e9:.1f} G lookups/s")
+        del lut, codes, sets, got, want
     torch.cuda.empty_cache()
     return rows
 
 
-# ---------------------------------------------------------------- phases 3-7
+# ---------------------------------------------------------------- phases 3-8
 
 
 def make_corpus(rng, n: int, d: int, centers: np.ndarray) -> np.ndarray:
@@ -667,9 +680,10 @@ def check_requests(client, iid: str, q_all: np.ndarray, what: str) -> None:
 
 
 def knnlm_path(args, counters, card: str) -> dict:
-    """Phases 4-7 on one server over the low-rank corpus: the knnlm shard
-    (K3), IVF1024,PQ12,RFlat (K2), flat PQ64,RFlat (K4) and
-    OPQ64,PQ64,RFlat (K4 behind the OPQ rotation)."""
+    """Phases 4-8 on one server over the low-rank corpus: the knnlm shard
+    (K3), IVF1024,PQ12,RFlat (K2), flat PQ64,RFlat (K4),
+    OPQ64,PQ64,RFlat (K4 behind the OPQ rotation) and flat PQ128,RFlat
+    (K4 in subspace slices)."""
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
     d, n, what = 768, KNNLM_N, "knnlm"
@@ -761,6 +775,23 @@ def knnlm_path(args, counters, card: str) -> dict:
         if opq_out["counts"]["K4"] <= 0:
             raise AssertionError(f"{what}: K4 was not launched on this path")
         out["opq"] = opq_out
+
+        # phase 8: flat PQ at m=128, whose f32 LUT is wider than a block's
+        # shared memory: K4 runs in subspace slices; the K2 path's rows
+        what, iid = "PQ128,RFlat", "flatpq128"
+        cfg = IndexCfg(faiss_factory="PQ128,RFlat", dim=d, metric="l2", train_num=50_000)
+        zero_counts(counters)
+        build_index(s.client, iid, cfg, x[:n2], what)
+        check_requests(s.client, iid, q_all, what)
+        D, meta = s.client.search(q_eval, 10, iid)
+        check_result(D, meta, q_eval.shape[0], 10, f"{what} recall request")
+        wide_out = dict(counts=read_counts(counters), recall=recall_at_10(meta, gt_head))
+        slices = counters["K4"].slices
+        log(f"{what}: recall@10={wide_out['recall']:.4f} (logged, not gated); "
+            f"launches {wide_out['counts']}, {slices} subspace slices a K4 call")
+        if wide_out["counts"]["K4"] <= 0 or slices < 2:
+            raise AssertionError(f"{what}: K4 did not run in subspace slices on this path")
+        out["flatpq128"] = wide_out
     return out
 
 
@@ -830,7 +861,7 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
             f"{name[:90]}")
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 9
 
 
 def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray) -> dict:
@@ -915,7 +946,7 @@ def shared_main_shape(adc, ivf, model, q_block: np.ndarray) -> dict:
     codes = codes[:ivf.shared_chunk_rows(nb)]
     got = adc.adc_scan_shared(lut, codes)
     want = adc.adc_scan_shared_plain(lut, codes)
-    err = compare_scores(got, want, 1e-4, 1e-4, "K4 flat-PQ-path shape")
+    err = compare_scores(got, want, 0.0, 0.0, "K4 flat-PQ-path shape")
     bound_ms, bound_by, nbytes, ops = shared_bound(lut, codes)
     sets = l2_copies((lut, codes), nbytes)
     ms = time_ms(adc.adc_scan_shared, sets)
@@ -1002,7 +1033,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     outs = knnlm_path(args, counters, card)
     pq_out, k2_out, flat_out = outs["knnlm"], outs["k2"], outs["flatpq"]
-    log(f"knnlm, IVF1024,PQ12,RFlat, PQ64,RFlat and OPQ64,PQ64,RFlat paths: "
+    log(f"knnlm, IVF1024,PQ12,RFlat, PQ64,RFlat, OPQ64,PQ64,RFlat and PQ128,RFlat paths: "
         f"{time.perf_counter() - t0:.1f} s")
 
     k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])

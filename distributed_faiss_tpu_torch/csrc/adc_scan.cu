@@ -84,9 +84,9 @@ __device__ __forceinline__ void stage_lut(const T* __restrict__ src, T* dst, int
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (bytes & 15) == 0) {
     const uint4* s = reinterpret_cast<const uint4*>(src);
     uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < bytes / 16; i += kThreads) d[i] = __ldg(s + i);
+    for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = __ldg(s + i);
   } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
 }
 
@@ -122,7 +122,7 @@ __device__ __forceinline__ int stage_bytes(const uint8_t* __restrict__ src, int 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 adc_scan_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
-                float* __restrict__ out, int L, int m, int ksub) {
+                float* __restrict__ out, int L, int m, int ksub, int accumulate) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lut_n = m * ksub;
   T* lut_s = reinterpret_cast<T*>(smem);
@@ -144,7 +144,7 @@ adc_scan_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
     const int r = threadIdx.x;
     if (r < rows) {
       const uint8_t* row = tile_s + head + r * m;
-      float acc = 0.f;
+      float acc = accumulate ? pair_out[r0 + r] : 0.f;
       for (int j = 0; j < m; ++j) acc += lut_value(lut_s, j * ksub + row[j]);
       pair_out[r0 + r] = acc;
     }
@@ -155,7 +155,7 @@ adc_scan_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 adc_scan_nibble_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
-                       float* __restrict__ out, int L, int m) {
+                       float* __restrict__ out, int L, int m, int pitch, int accumulate) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* lut_s = reinterpret_cast<T*>(smem);
 
@@ -163,14 +163,15 @@ adc_scan_nibble_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ co
   stage_lut(lut + p * m * kNibbleKsub, lut_s, m * kNibbleKsub);
   __syncthreads();
 
-  const int words = m >> 3;  // 8-code words per row
+  const int words = m >> 3;        // 8-code words per row
+  const int row_words = pitch >> 3;  // 8-byte words between consecutive rows
   const uint2* pair_codes =
-      reinterpret_cast<const uint2*>(codes + p * static_cast<size_t>(L) * m);
+      reinterpret_cast<const uint2*>(codes + p * static_cast<size_t>(L) * pitch);
   float* pair_out = out + p * static_cast<size_t>(L);
   const int row_end = min(L, static_cast<int>(blockIdx.y + 1) * kBlockRows);
   for (int r = blockIdx.y * kBlockRows + threadIdx.x; r < row_end; r += kThreads) {
-    const uint2* row = pair_codes + static_cast<size_t>(r) * words;
-    float acc = 0.f;
+    const uint2* row = pair_codes + static_cast<size_t>(r) * row_words;
+    float acc = accumulate ? pair_out[r] : 0.f;
 #pragma unroll 4
     for (int c = 0; c < words; ++c) {
       const uint2 w = __ldg(row + c);
@@ -198,69 +199,140 @@ adc_scan_nibble_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ co
 // (nq, L) fp32 scores 256 MB, so by bytes the output sets the bound. The
 // work is nq * L * m table lookups, each a shared-memory load at a
 // data-dependent bank, and one fp32 add each; the lookups, not the bytes,
-// are what a simple kernel spends its time on.
+// are what the kernel spends its time on. Random 8-bit codes put a warp's
+// 32 lookups on about 3.5 wavefronts of the 32 banks on average.
 //
 // What the design does about it.
-//   * A block owns a tile of kSharedTile code rows (kSharedRowsPerThread
-//     per thread) and a group of up to kSharedQueries queries. The tile is
-//     staged into shared memory once, transposed into 32-bit words (word w
-//     of every row, then word w + 1, ...) with a one-word pad per word
-//     column, so each thread reads its rows' codes 4 at a time without bank
-//     conflicts, and the staging's byte stores land on distinct banks. The
-//     global reads of the staging are byte loads by consecutive threads of
-//     consecutive bytes: coalesced, at any alignment and any m, never
-//     outside (L, m).
-//   * For each query of the group the block stages that query's LUT into
-//     shared memory (16-byte loads, in its own dtype) and every thread sums
-//     the m lookups of each of its rows in fp32, in j order (the order of
-//     the plain version), writing out[q, row] coalesced along the rows.
-//     The code tile is read from global memory once per query group, not
-//     once per query; each LUT once per tile.
-//   * The LUT buffer and the code tile share the block's shared memory:
-//     the wrapper refuses an m whose two do not fit Hopper's 227 KB.
+//   * A block of kSharedThreads threads owns a tile of kSharedTile code
+//     rows (kSharedRowsPerThread per thread) and a group of up to
+//     kSharedQueries queries. The tile is staged into shared memory once,
+//     transposed into 32-bit words (word w of every row, then word w + 1,
+//     ...) with a one-word pad per word column, so each thread reads its
+//     rows' codes 4 at a time without bank conflicts. Rows that start on a
+//     16-byte boundary are staged with 16-byte loads, each split into four
+//     word columns; other rows (an odd byte offset, a pitch that is no
+//     multiple of 16) byte by byte, never outside the rows' m bytes.
+//   * The queries' LUTs stream through two shared-memory buffers: while
+//     the block scans its tile for query q, 16-byte cp.async copies bring
+//     query q + 1's LUT into the other buffer, so the copy from L2 is
+//     hidden behind the lookups and each query costs one block barrier.
+//     (A LUT that is not 16-byte aligned is staged with plain loads.)
+//   * 16 warps a block keep enough independent lookups in flight to cover
+//     the shared-memory latency of data-dependent addresses; every thread
+//     sums the m lookups of each of its rows in fp32, in j order (the
+//     order of the plain version), starting from 0 or, with `accumulate`,
+//     from the score already in `out`, and writes out[q, row] coalesced.
+//   * Two LUT buffers and the code tile share the block's 227 KB: the
+//     wrapper hands the kernel subspace slices that fit
+//     (shared_smem_bytes in ops/adc_scan.py).
 //   * Blocks carry nothing across each other and run in any order.
-constexpr int kSharedRowsPerThread = 4;
-constexpr int kSharedTile = kThreads * kSharedRowsPerThread;  // code rows a block owns
+constexpr int kSharedThreads = 512;
+constexpr int kSharedRowsPerThread = 2;
+constexpr int kSharedTile = kSharedThreads * kSharedRowsPerThread;  // code rows a block owns
 constexpr int kSharedStride = kSharedTile + 1;  // words per staged word column (+1 pad)
 constexpr int kSharedQueries = 32;              // queries a block walks over its tile
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Start the 16-byte asynchronous copies of `bytes` (a multiple of 16, both
+// ends 16-byte aligned) from `src` into shared `dst`, as one commit group.
+__device__ __forceinline__ void stage_lut_async(const void* src, void* dst, int bytes) {
+  const char* s = static_cast<const char*>(src);
+  char* d = static_cast<char*>(dst);
+  for (int i = threadIdx.x * 16; i < bytes; i += kSharedThreads * 16) cp_async16(d + i, s + i);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage `rows` code rows of m bytes, row r at tile + r * pitch, as the
+// transposed word columns of `words` (kSharedStride words each).
+__device__ __forceinline__ void stage_code_tile(const uint8_t* __restrict__ tile, int rows,
+                                                int m, int pitch, uint32_t* words) {
+  uint8_t* word_bytes = reinterpret_cast<uint8_t*>(words);
+  const int chunks = (m + 15) >> 4;  // 16-byte chunks a row
+  const bool vec = ((reinterpret_cast<uintptr_t>(tile) | static_cast<uintptr_t>(pitch)) & 15) == 0;
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += kSharedThreads) {
+    const int r = idx / chunks;
+    const int c = idx - r * chunks;
+    const uint8_t* src = tile + static_cast<size_t>(r) * pitch + c * 16;
+    const int n = min(16, m - c * 16);
+    if (vec && n == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+      uint32_t* dst = words + c * 4 * kSharedStride + r;
+      dst[0] = v.x;
+      dst[kSharedStride] = v.y;
+      dst[2 * kSharedStride] = v.z;
+      dst[3 * kSharedStride] = v.w;
+    } else {
+      for (int e = 0; e < n; ++e) {
+        const int j = c * 16 + e;
+        word_bytes[((j >> 2) * kSharedStride + r) * 4 + (j & 3)] = __ldg(src + e);
+      }
+    }
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSharedThreads, 1)
 adc_scan_shared_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
-                       float* __restrict__ out, int nq, int L, int m, int ksub) {
+                       float* __restrict__ out, int nq, int L, int m, int ksub, int pitch,
+                       int accumulate) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lut_n = m * ksub;
-  T* lut_s = reinterpret_cast<T*>(smem);
-  uint32_t* words_s = reinterpret_cast<uint32_t*>(
-      smem + ((lut_n * static_cast<int>(sizeof(T)) + 15) & ~15));
-  uint8_t* word_bytes = reinterpret_cast<uint8_t*>(words_s);
+  const int lut_bytes = lut_n * static_cast<int>(sizeof(T));
+  const int buf_bytes = (lut_bytes + 15) & ~15;
+  T* bufs[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem + buf_bytes)};
+  uint32_t* words_s = reinterpret_cast<uint32_t*>(smem + 2 * buf_bytes);
 
   const int r0 = blockIdx.x * kSharedTile;
   const int rows = min(kSharedTile, L - r0);
-  const uint8_t* tile = codes + static_cast<size_t>(r0) * m;
-  const int tile_bytes = rows * m;
-  for (int i = threadIdx.x; i < tile_bytes; i += kThreads) {
-    const int r = i / m;
-    const int j = i - r * m;
-    word_bytes[((j >> 2) * kSharedStride + r) * 4 + (j & 3)] = __ldg(tile + i);
-  }
+  const int q_begin = blockIdx.y * kSharedQueries;
+  const int q_end = min(nq, q_begin + kSharedQueries);
+  const bool async =
+      ((reinterpret_cast<uintptr_t>(lut) | static_cast<uintptr_t>(lut_bytes)) & 15) == 0;
+
+  // the first LUT is in flight while the code tile is staged
+  if (async) stage_lut_async(lut + static_cast<size_t>(q_begin) * lut_n, bufs[0], lut_bytes);
+  stage_code_tile(codes + static_cast<size_t>(r0) * pitch, rows, m, pitch, words_s);
 
   const int full_words = m >> 2;
   const int tail = m & 3;
-  const int q_end = min(nq, static_cast<int>(blockIdx.y + 1) * kSharedQueries);
-  for (int q = blockIdx.y * kSharedQueries; q < q_end; ++q) {
-    __syncthreads();  // the code tile is staged / the previous LUT is consumed
-    stage_lut(lut + static_cast<size_t>(q) * lut_n, lut_s, lut_n);
-    __syncthreads();
+  for (int q = q_begin; q < q_end; ++q) {
+    const T* lut_s = bufs[(q - q_begin) & 1];
+    if (async) {
+      cp_async_wait_all();
+      // query q's LUT and the code tile are in place; every thread is done
+      // with query q - 1's buffer, which now takes query q + 1's LUT
+      __syncthreads();
+      if (q + 1 < q_end) {
+        stage_lut_async(lut + static_cast<size_t>(q + 1) * lut_n, bufs[(q + 1 - q_begin) & 1],
+                        lut_bytes);
+      }
+    } else {
+      __syncthreads();  // this buffer's previous query (q - 2) is consumed
+      stage_lut(lut + static_cast<size_t>(q) * lut_n, bufs[(q - q_begin) & 1], lut_n);
+      __syncthreads();
+    }
+    float* q_out = out + static_cast<size_t>(q) * L + r0;
     float acc[kSharedRowsPerThread];
 #pragma unroll
-    for (int i = 0; i < kSharedRowsPerThread; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kSharedRowsPerThread; ++i) {
+      const int r = threadIdx.x + i * kSharedThreads;
+      acc[i] = (accumulate && r < rows) ? q_out[r] : 0.f;
+    }
+#pragma unroll 4
     for (int w = 0; w < full_words; ++w) {
       const T* sub = lut_s + w * 4 * ksub;  // subspaces 4w .. 4w+3
       const uint32_t* col = words_s + w * kSharedStride + threadIdx.x;
 #pragma unroll
       for (int i = 0; i < kSharedRowsPerThread; ++i) {
-        const uint32_t word = col[i * kThreads];
+        const uint32_t word = col[i * kSharedThreads];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           acc[i] += lut_value(sub, e * ksub + ((word >> (8 * e)) & 0xffu));
@@ -272,17 +344,16 @@ adc_scan_shared_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ co
       const uint32_t* col = words_s + full_words * kSharedStride + threadIdx.x;
 #pragma unroll
       for (int i = 0; i < kSharedRowsPerThread; ++i) {
-        const uint32_t word = col[i * kThreads];
+        const uint32_t word = col[i * kSharedThreads];
 #pragma unroll
         for (int e = 0; e < 3; ++e) {
           if (e < tail) acc[i] += lut_value(sub, e * ksub + ((word >> (8 * e)) & 0xffu));
         }
       }
     }
-    float* q_out = out + static_cast<size_t>(q) * L + r0;
 #pragma unroll
     for (int i = 0; i < kSharedRowsPerThread; ++i) {
-      const int r = threadIdx.x + i * kThreads;
+      const int r = threadIdx.x + i * kSharedThreads;
       if (r < rows) q_out[r] = acc[i];
     }
   }
@@ -292,14 +363,14 @@ adc_scan_shared_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ co
 // opting in above the default 48 KB. Returns the launch's
 // cudaGetLastError().
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    Args... args) {
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -311,17 +382,23 @@ dim3 pair_grid(int P, int L) {
 
 }  // namespace
 
-// Plain-C entries (loaded with ctypes). Pointers are device pointers of
-// contiguous tensors: lut (P, m, ksub) f32 (lut_bf16 = 0) or bf16
-// (lut_bf16 = 1); codes (P, L, m) u8; out (P, L) f32 (K4: lut (nq, m,
-// ksub), codes (L, m), out (nq, L)). Each launches on
-// `stream` and returns cudaGetLastError() (0 on success), or
+// Plain-C entries (loaded with ctypes). Pointers are device pointers:
+// lut (P, m, ksub) f32 (lut_bf16 = 0) or bf16 (lut_bf16 = 1), contiguous;
+// codes (P, L, m) u8, code row c of pair p at byte (p * L + c) * pitch (K2:
+// pitch = m); out (P, L) f32 (K4: lut (nq, m, ksub), codes (L, m) with
+// row c at byte c * pitch, out (nq, L)). A subspace slice [s, s + m) of a
+// wider list is `codes` advanced by s bytes with the list's row pitch.
+// With accumulate = 0 each score is this call's sum; with accumulate = 1
+// it starts from the value already in `out` and adds this call's m
+// lookups in subspace order, so a wrapper that launches the slices of a
+// wide m in turn gets the sum of the whole row in subspace order. Each
+// launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a geometry it does not take; it never
 // synchronises.
 
-// K2.
-extern "C" int dft_adc_scan(const void* lut, const void* codes, void* out, int P,
-                            int L, int m, int ksub, int lut_bf16, void* stream) {
+// K2: codes contiguous (pitch = m).
+extern "C" int dft_adc_scan(const void* lut, const void* codes, void* out, int P, int L,
+                            int m, int ksub, int lut_bf16, int accumulate, void* stream) {
   if (P <= 0 || L <= 0) return 0;
   if (m <= 0 || ksub <= 0 || ksub > 256) return static_cast<int>(cudaErrorInvalidValue);
   const size_t item = lut_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
@@ -332,20 +409,22 @@ extern "C" int dft_adc_scan(const void* lut, const void* codes, void* out, int P
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (lut_bf16) {
-    err = launch(adc_scan_kernel<__nv_bfloat16>, pair_grid(P, L), smem, st,
-                 static_cast<const __nv_bfloat16*>(lut), c, o, L, m, ksub);
+    err = launch(adc_scan_kernel<__nv_bfloat16>, pair_grid(P, L), kThreads, smem, st,
+                 static_cast<const __nv_bfloat16*>(lut), c, o, L, m, ksub, accumulate);
   } else {
-    err = launch(adc_scan_kernel<float>, pair_grid(P, L), smem, st,
-                 static_cast<const float*>(lut), c, o, L, m, ksub);
+    err = launch(adc_scan_kernel<float>, pair_grid(P, L), kThreads, smem, st,
+                 static_cast<const float*>(lut), c, o, L, m, ksub, accumulate);
   }
   return static_cast<int>(err);
 }
 
-// K3: ksub is 256; m % 8 == 0 and `codes` 8-byte aligned.
-extern "C" int dft_adc_scan_nibble(const void* lut, const void* codes, void* out,
-                                   int P, int L, int m, int lut_bf16, void* stream) {
+// K3: ksub is 256; m and pitch multiples of 8 and `codes` 8-byte aligned.
+extern "C" int dft_adc_scan_nibble(const void* lut, const void* codes, void* out, int P,
+                                   int L, int m, int pitch, int lut_bf16, int accumulate,
+                                   void* stream) {
   if (P <= 0 || L <= 0) return 0;
-  if (m <= 0 || m % 8 != 0 || (reinterpret_cast<uintptr_t>(codes) & 7) != 0) {
+  if (m <= 0 || m % 8 != 0 || pitch < m || pitch % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(codes) & 7) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t item = lut_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
@@ -355,22 +434,25 @@ extern "C" int dft_adc_scan_nibble(const void* lut, const void* codes, void* out
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (lut_bf16) {
-    err = launch(adc_scan_nibble_kernel<__nv_bfloat16>, pair_grid(P, L), smem, st,
-                 static_cast<const __nv_bfloat16*>(lut), c, o, L, m);
+    err = launch(adc_scan_nibble_kernel<__nv_bfloat16>, pair_grid(P, L), kThreads, smem, st,
+                 static_cast<const __nv_bfloat16*>(lut), c, o, L, m, pitch, accumulate);
   } else {
-    err = launch(adc_scan_nibble_kernel<float>, pair_grid(P, L), smem, st,
-                 static_cast<const float*>(lut), c, o, L, m);
+    err = launch(adc_scan_nibble_kernel<float>, pair_grid(P, L), kThreads, smem, st,
+                 static_cast<const float*>(lut), c, o, L, m, pitch, accumulate);
   }
   return static_cast<int>(err);
 }
 
-// K4: codes (L, m) shared by the nq queries, at any byte offset.
+// K4: codes (L, m) shared by the nq queries, at any byte offset and pitch.
 extern "C" int dft_adc_scan_shared(const void* lut, const void* codes, void* out, int nq,
-                                   int L, int m, int ksub, int lut_bf16, void* stream) {
+                                   int L, int m, int ksub, int pitch, int lut_bf16,
+                                   int accumulate, void* stream) {
   if (nq <= 0 || L <= 0) return 0;
-  if (m <= 0 || ksub <= 0 || ksub > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || ksub <= 0 || ksub > 256 || pitch < m) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t item = lut_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  const size_t smem = ((static_cast<size_t>(m) * ksub * item + 15) & ~size_t{15}) +
+  const size_t smem = 2 * ((static_cast<size_t>(m) * ksub * item + 15) & ~size_t{15}) +
                       static_cast<size_t>((m + 3) / 4) * kSharedStride * 4;
   const dim3 grid(static_cast<unsigned>((L + kSharedTile - 1) / kSharedTile),
                   static_cast<unsigned>((nq + kSharedQueries - 1) / kSharedQueries));
@@ -379,11 +461,12 @@ extern "C" int dft_adc_scan_shared(const void* lut, const void* codes, void* out
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (lut_bf16) {
-    err = launch(adc_scan_shared_kernel<__nv_bfloat16>, grid, smem, st,
-                 static_cast<const __nv_bfloat16*>(lut), c, o, nq, L, m, ksub);
+    err = launch(adc_scan_shared_kernel<__nv_bfloat16>, grid, kSharedThreads, smem, st,
+                 static_cast<const __nv_bfloat16*>(lut), c, o, nq, L, m, ksub, pitch,
+                 accumulate);
   } else {
-    err = launch(adc_scan_shared_kernel<float>, grid, smem, st,
-                 static_cast<const float*>(lut), c, o, nq, L, m, ksub);
+    err = launch(adc_scan_shared_kernel<float>, grid, kSharedThreads, smem, st,
+                 static_cast<const float*>(lut), c, o, nq, L, m, ksub, pitch, accumulate);
   }
   return static_cast<int>(err);
 }

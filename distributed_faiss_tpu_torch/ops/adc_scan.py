@@ -27,16 +27,20 @@ Over one code list shared by every query (flat PQ),
 
 For tensors on the CPU each wrapper runs the plain version; for CUDA
 tensors it launches its hand-written kernel in ``csrc/adc_scan.cu`` or
-raises: there is no fallback. Each kernel stages a whole LUT in shared
-memory, so on the card m is bounded by Hopper's 227 KB a block
-(``smem_bytes``, ``shared_smem_bytes``): at ksub = 256, K3 takes m <= 224
-with an f32 LUT and m <= 448 with a bf16 one, K2 m <= 181 and m <= 302,
-K4 (whose block also holds a 1024-row code tile) m <= 112 and m <= 149; a
-larger m raises. Each launch adds one to the wrapper's ``launches``. The
-JAX package's ``USE_NIBBLE`` switch and demotion state are not ported.
+raises: there is no fallback. Each kernel stages a LUT in shared memory,
+and Hopper gives a block 227 KB (``smem_bytes``, ``shared_smem_bytes``),
+so a wide m is scored in subspace slices: ``slice_width`` picks the widest
+slice that fits (at ksub = 256, K3 224 subspaces with an f32 LUT and 448
+with a bf16 one, K2 181 and 302, K4 75 and 112) and ``run_slices``
+launches the kernel once per slice, the first starting each score from 0
+and the rest adding to it, so every m the JAX package serves is served
+here. Each launch adds one to the wrapper's ``launches``; ``slices`` holds
+the number of slices of its latest call on the card. The JAX package's
+``USE_NIBBLE`` switch and demotion state are not ported.
 """
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -76,8 +80,9 @@ def smem_bytes(m: int, ksub: int, itemsize: int, nibble: bool) -> int:
 
 def shared_smem_bytes(m: int, ksub: int, itemsize: int) -> int:
     """K4's dynamic shared memory a block, as ``csrc/adc_scan.cu`` sizes it:
-    the LUT of one query, 16-byte aligned, then the transposed code tile."""
-    return ((m * ksub * itemsize + 15) & ~15) + ((m + 3) // 4) * _K4_TILE_STRIDE * 4
+    two buffers of one query's LUT, each 16-byte aligned (one is scanned
+    while the next query's is copied in), then the transposed code tile."""
+    return 2 * ((m * ksub * itemsize + 15) & ~15) + ((m + 3) // 4) * _K4_TILE_STRIDE * 4
 
 
 def adc_scan_plain(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -128,7 +133,7 @@ def adc_scan_nibble(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 def adc_scan_shared(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """K4: ADC scores (nq, L) fp32 of one (L, m) code list shared by the nq
-    queries, for any m the shared memory allows and ksub <= 256."""
+    queries, for any m and ksub <= 256."""
     if lut.device.type == "cpu":
         return adc_scan_shared_plain(lut, codes)
     if lut.device.type != "cuda":
@@ -139,6 +144,9 @@ def adc_scan_shared(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 adc_scan.launches = 0
 adc_scan_nibble.launches = 0
 adc_scan_shared.launches = 0
+adc_scan.slices = 0
+adc_scan_nibble.slices = 0
+adc_scan_shared.slices = 0
 
 
 def adc_scan_auto(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -175,6 +183,43 @@ def _entry(symbol: str, n_ints: int):
     return fn
 
 
+def slice_width(m: int, ksub: int, itemsize: int, kernel) -> int:
+    """The widest subspace slice, at most m, whose block fits
+    ``MAX_SMEM_BYTES`` for ``kernel`` (one of the three wrappers); a
+    multiple of 8 for K3, whose 8-byte code words must stay aligned. At
+    ksub <= 256 a slice of one subspace (K3: 8) always fits."""
+    if kernel is adc_scan_shared:
+        block = functools.partial(shared_smem_bytes, ksub=ksub, itemsize=itemsize)
+    else:
+        block = functools.partial(smem_bytes, ksub=ksub, itemsize=itemsize,
+                                  nibble=kernel is adc_scan_nibble)
+    step = 8 if kernel is adc_scan_nibble else 1
+    width = m
+    while width > step and block(width) > MAX_SMEM_BYTES:
+        width -= step
+    return width
+
+
+def run_slices(m: int, width: int, launch) -> int:
+    """Score m subspaces as slices [s, e) of at most ``width``, in order:
+    ``launch(s, e, accumulate)`` with accumulate False for the first slice
+    (each score starts from 0) and True for the rest (each adds its
+    lookups to the score the previous slices left). Returns the number of
+    slices."""
+    n = 0
+    for s in range(0, m, width):
+        launch(s, min(m, s + width), s > 0)
+        n += 1
+    return n
+
+
+def _count_launch(wrapper, err):
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
+    with _counter_lock:
+        wrapper.launches += 1
+
+
 def _launch(wrapper, lut, codes):
     name = wrapper.__name__
     if lut.dim() != 3 or codes.dim() != 3:
@@ -192,24 +237,29 @@ def _launch(wrapper, lut, codes):
         raise ValueError(f"{name}: ksub must be in 1..256 (uint8 codes), got {ksub}")
     if nibble and codes.data_ptr() % 8:
         raise ValueError(f"{name}: codes must be 8-byte aligned")
-    smem = smem_bytes(m, ksub, lut.element_size(), nibble)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: m={m} is too large for the shared-memory LUT: "
-                         f"{smem} bytes a block, above {MAX_SMEM_BYTES}")
+    width = slice_width(m, ksub, lut.element_size(), wrapper)
     out = torch.empty((P, L), dtype=torch.float32, device=dev)
     if P == 0 or L == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (lut.data_ptr(), codes.data_ptr(), out.data_ptr())
     bf16 = int(lut.dtype == torch.bfloat16)
-    if nibble:
-        err = _entry("dft_adc_scan_nibble", 4)(*ptrs, P, L, m, bf16, stream)
-    else:
-        err = _entry("dft_adc_scan", 5)(*ptrs, P, L, m, ksub, bf16, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    with _counter_lock:
-        wrapper.launches += 1
+    entry = _entry("dft_adc_scan_nibble", 6) if nibble else _entry("dft_adc_scan", 6)
+
+    def launch(s, e, accumulate):
+        part = lut if e - s == m else lut[:, s:e].contiguous()
+        if nibble:
+            # a view of the slice: its rows keep the list's pitch of m bytes
+            err = entry(part.data_ptr(), codes.data_ptr() + s, out.data_ptr(), P, L, e - s,
+                        m, bf16, int(accumulate), stream)
+        else:
+            # K2 stages contiguous rows: the slice is copied (its codes are
+            # already a gathered copy of the probed lists)
+            rows = codes if e - s == m else codes[:, :, s:e].contiguous()
+            err = entry(part.data_ptr(), rows.data_ptr(), out.data_ptr(), P, L, e - s, ksub,
+                        bf16, int(accumulate), stream)
+        _count_launch(wrapper, err)
+
+    wrapper.slices = run_slices(m, width, launch)
     return out
 
 
@@ -225,19 +275,20 @@ def _launch_shared(lut, codes):
     _check(name, "codes", codes, (torch.uint8,), (L, m), dev)
     if not 1 <= ksub <= 256:
         raise ValueError(f"{name}: ksub must be in 1..256 (uint8 codes), got {ksub}")
-    smem = shared_smem_bytes(m, ksub, lut.element_size())
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: m={m} is too large for the shared-memory LUT and "
-                         f"code tile: {smem} bytes a block, above {MAX_SMEM_BYTES}")
+    width = slice_width(m, ksub, lut.element_size(), adc_scan_shared)
     out = torch.empty((nq, L), dtype=torch.float32, device=dev)
     if nq == 0 or L == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry("dft_adc_scan_shared", 5)(lut.data_ptr(), codes.data_ptr(), out.data_ptr(),
-                                           nq, L, m, ksub, int(lut.dtype == torch.bfloat16),
-                                           stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    with _counter_lock:
-        adc_scan_shared.launches += 1
+    bf16 = int(lut.dtype == torch.bfloat16)
+    entry = _entry("dft_adc_scan_shared", 7)
+
+    def launch(s, e, accumulate):
+        # the slice of the code list is a view: rows keep their pitch of m
+        part = lut if e - s == m else lut[:, s:e].contiguous()
+        err = entry(part.data_ptr(), codes.data_ptr() + s, out.data_ptr(), nq, L, e - s,
+                    ksub, m, bf16, int(accumulate), stream)
+        _count_launch(adc_scan_shared, err)
+
+    adc_scan_shared.slices = run_slices(m, width, launch)
     return out

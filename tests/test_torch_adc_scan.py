@@ -131,3 +131,52 @@ def test_shared_memory_sets_the_largest_m(nibble, itemsize, largest):
     step = 8 if nibble else 1
     assert adc_scan.smem_bytes(largest, 256, itemsize, nibble) <= adc_scan.MAX_SMEM_BYTES
     assert adc_scan.smem_bytes(largest + step, 256, itemsize, nibble) > adc_scan.MAX_SMEM_BYTES
+
+
+def pair_plain_slice(lut, codes, out):
+    """The per-slice launch the card path makes, in plain PyTorch: slice
+    [s, e) of the subspaces of every pair, added to ``out`` when
+    accumulating."""
+    def launch(s, e, accumulate):
+        part = adc_scan.adc_scan_plain(lut[:, s:e].contiguous(), codes[:, :, s:e].contiguous())
+        if accumulate:
+            out.add_(part)
+        else:
+            out.copy_(part)
+
+    return launch
+
+
+@pytest.mark.parametrize("wrapper,dtype,m,slices", [
+    ("adc_scan_nibble", torch.float32, 256, 2), ("adc_scan_nibble", torch.float32, 232, 2),
+    ("adc_scan_nibble", torch.bfloat16, 512, 2), ("adc_scan", torch.float32, 190, 2),
+    ("adc_scan", torch.bfloat16, 700, 3)],
+    ids=["k3-f32-m256", "k3-f32-m232", "k3-bf16-m512", "k2-f32-m190", "k2-bf16-m700"])
+def test_sliced_launches_match_plain(wrapper, dtype, m, slices):
+    """Above the shared-memory limit the card path launches K2/K3 once per
+    subspace slice, accumulating: driven with the plain per-slice scan it
+    gives the whole-m plain version's scores within rtol/atol 1e-4 (the
+    sums are grouped by slice)."""
+    fn = getattr(adc_scan, wrapper)
+    lut, codes = make_problem(m, 3, m, 70)
+    lut, codes = torch.as_tensor(lut).to(dtype), torch.as_tensor(codes)
+    width = adc_scan.slice_width(m, 256, lut.element_size(), fn)
+    if fn is adc_scan.adc_scan_nibble:
+        assert width % 8 == 0
+    out = torch.full((3, 70), float("nan"))
+    assert adc_scan.run_slices(m, width, pair_plain_slice(lut, codes, out)) == slices
+    torch.testing.assert_close(out, adc_scan.adc_scan_plain(lut, codes), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("wrapper,itemsize,largest", [
+    ("adc_scan_nibble", 4, 224), ("adc_scan_nibble", 2, 448), ("adc_scan", 4, 181),
+    ("adc_scan", 2, 302)])
+def test_slice_width_follows_the_shared_memory_limit(wrapper, itemsize, largest):
+    """A slice is the whole m up to the largest m whose block fits, and that
+    largest width (a multiple of 8 for K3) above it."""
+    fn = getattr(adc_scan, wrapper)
+    step = 8 if fn is adc_scan.adc_scan_nibble else 1
+    assert adc_scan.slice_width(largest, 256, itemsize, fn) == largest
+    assert adc_scan.slice_width(largest + step, 256, itemsize, fn) == largest
+    assert adc_scan.slice_width(4096, 256, itemsize, fn) == largest
+    assert adc_scan.slice_width(8, 256, itemsize, fn) == 8

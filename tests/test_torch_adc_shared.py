@@ -102,9 +102,62 @@ def test_launch_checks_refuse_bad_inputs():
     assert adc_scan.adc_scan_shared.launches == before
 
 
-@pytest.mark.parametrize("itemsize,largest", [(4, 112), (2, 149)])
+@pytest.mark.parametrize("itemsize,largest", [(4, 75), (2, 112)])
 def test_shared_memory_sets_the_largest_m(itemsize, largest):
-    """One query's LUT and the 1024-row code tile fit Hopper's 227 KB a
-    block up to this m at ksub = 256, and not at m + 1."""
+    """Two buffers of one query's LUT and the 1024-row code tile fit
+    Hopper's 227 KB a block up to this m at ksub = 256, and not at m + 1."""
     assert adc_scan.shared_smem_bytes(largest, 256, itemsize) <= adc_scan.MAX_SMEM_BYTES
     assert adc_scan.shared_smem_bytes(largest + 1, 256, itemsize) > adc_scan.MAX_SMEM_BYTES
+
+
+def shared_plain_slice(lut, codes, out):
+    """The per-slice launch the card path makes, in plain PyTorch: slice
+    [s, e) of the subspaces, summed in subspace order into ``out`` (from 0,
+    or from the scores already there when accumulating), as K4 does."""
+    nq, _, ksub = lut.shape
+
+    def launch(s, e, accumulate):
+        flat = lut[:, s:e].float().reshape(nq, (e - s) * ksub)
+        acc = out.clone() if accumulate else torch.zeros_like(out)
+        for j in range(e - s):
+            acc += flat[:, j * ksub + codes[:, s + j].long()]
+        out.copy_(acc)
+
+    return launch
+
+
+@pytest.mark.parametrize("dtype,m,slices", [(torch.float32, 128, 2), (torch.bfloat16, 128, 2),
+                                            (torch.bfloat16, 300, 3)],
+                         ids=["f32-m128", "bf16-m128", "bf16-m300"])
+def test_sliced_launches_match_plain(dtype, m, slices):
+    """Above the shared-memory limit the card path launches K4 once per
+    subspace slice, accumulating: driven with the plain per-slice scan it
+    gives the whole-m plain version's scores bit for bit (both add the
+    same fp32 values in subspace order)."""
+    lut, codes = make_problem(m, 5, m, 301)
+    lut, codes = torch.as_tensor(lut).to(dtype), torch.as_tensor(codes)
+    width = adc_scan.slice_width(m, 256, lut.element_size(), adc_scan.adc_scan_shared)
+    out = torch.full((5, 301), float("nan"))
+    n = adc_scan.run_slices(m, width, shared_plain_slice(lut, codes, out))
+    assert n == slices
+    assert torch.equal(out, adc_scan.adc_scan_shared_plain(lut, codes))
+
+
+@pytest.mark.parametrize("itemsize,largest", [(4, 75), (2, 112)])
+def test_slice_width_follows_the_shared_memory_limit(itemsize, largest):
+    """A slice is the whole m up to the largest m whose block fits, and that
+    largest width above it."""
+    k4 = adc_scan.adc_scan_shared
+    assert adc_scan.slice_width(largest, 256, itemsize, k4) == largest
+    assert adc_scan.slice_width(largest + 1, 256, itemsize, k4) == largest
+    assert adc_scan.slice_width(1000, 256, itemsize, k4) == largest
+    assert adc_scan.slice_width(7, 256, itemsize, k4) == 7
+
+
+def test_run_slices_walks_the_subspaces_in_order():
+    calls = []
+    assert adc_scan.run_slices(10, 4, lambda s, e, acc: calls.append((s, e, acc))) == 3
+    assert calls == [(0, 4, False), (4, 8, True), (8, 10, True)]
+    calls.clear()
+    assert adc_scan.run_slices(4, 4, lambda s, e, acc: calls.append((s, e, acc))) == 1
+    assert calls == [(0, 4, False)]

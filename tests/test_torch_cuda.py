@@ -16,10 +16,11 @@ The ADC scans (K2, K3): list lengths of 1, of one row either side of a
 both LUT dtypes, and a code buffer that starts off a 16-byte boundary.
 The shared-list ADC scan (K4): list lengths either side of its 1024-row
 tile, query counts either side of its 32-query group, m from 4 to 64 in
-both LUT dtypes, a code buffer 3 bytes off alignment, and the
-shared-memory edge of m. Then whole indexes on the card against the CPU:
-IVF-Flat, IVF-PQ, flat PQ (K4), OPQ in front of flat PQ and PCA in front
-of IVF-SQfp16 (K1).
+both LUT dtypes, code buffers at odd byte offsets. All three ADC scans at
+the shared-memory edge of m and above it, where the wrapper launches the
+kernel once per subspace slice. Then whole indexes on the card against
+the CPU: IVF-Flat, IVF-PQ, flat PQ (K4), OPQ in front of flat PQ, PCA in
+front of IVF-SQfp16 (K1), and flat PQ128 and IVF16,PQ256 at d = 768.
 """
 
 import numpy as np
@@ -222,28 +223,32 @@ def test_adc_wrappers_refuse_bad_inputs(card):
     assert (adc_scan.adc_scan.launches, adc_scan.adc_scan_nibble.launches) == before
 
 
-# (wrapper, LUT dtype, largest m whose LUT fits a block's shared memory)
-SMEM_EDGES = [("adc_scan_nibble", torch.float32, 224), ("adc_scan_nibble", torch.bfloat16, 448),
-              ("adc_scan", torch.float32, 181), ("adc_scan", torch.bfloat16, 302)]
+# (wrapper, LUT dtype, m, slices): the largest m whose LUT fits a block's
+# shared memory (one slice) and m above it (several subspace slices)
+SMEM_EDGES = [("adc_scan_nibble", torch.float32, 224, 1),
+              ("adc_scan_nibble", torch.float32, 232, 2),
+              ("adc_scan_nibble", torch.float32, 256, 2),
+              ("adc_scan_nibble", torch.bfloat16, 448, 1),
+              ("adc_scan_nibble", torch.bfloat16, 456, 2),
+              ("adc_scan", torch.float32, 181, 1), ("adc_scan", torch.float32, 190, 2),
+              ("adc_scan", torch.bfloat16, 302, 1)]
 
 
-@pytest.mark.parametrize("wrapper,lut_dtype,m", SMEM_EDGES,
-                         ids=[f"{w}-{str(t)[6:]}-m{m}" for w, t, m in SMEM_EDGES])
-def test_adc_kernel_at_the_shared_memory_limit(card, wrapper, lut_dtype, m):
+@pytest.mark.parametrize("wrapper,lut_dtype,m,slices", SMEM_EDGES,
+                         ids=[f"{w}-{str(t)[6:]}-m{m}" for w, t, m, _ in SMEM_EDGES])
+def test_adc_kernel_at_the_shared_memory_limit(card, wrapper, lut_dtype, m, slices):
     """At the largest m whose staged LUT fits Hopper's 227 KB a block the
-    kernel launches and agrees with the plain version; one step of m above
-    it the wrapper refuses before any launch."""
+    kernel runs once; above it the wrapper launches it once per subspace
+    slice, accumulating. Either way the scores agree with the plain
+    version within rtol/atol 1e-4."""
     fn = getattr(adc_scan, wrapper)
     lut, codes = [t.to(card) for t in adc_inputs(m, 3, 300, m, lut_dtype)]
+    before = fn.launches
     got = fn(lut, codes)
+    torch.cuda.synchronize()
+    assert fn.slices == slices and fn.launches == before + slices
     torch.testing.assert_close(got.cpu(), adc_scan.adc_scan_plain(lut, codes).cpu(),
                                rtol=1e-4, atol=1e-4)
-    step = 8 if wrapper == "adc_scan_nibble" else 1
-    lut, codes = [t.to(card) for t in adc_inputs(m, 3, 300, m + step, lut_dtype)]
-    before = fn.launches
-    with pytest.raises(ValueError, match="too large for the shared-memory LUT"):
-        fn(lut, codes)
-    assert fn.launches == before
 
 
 @pytest.mark.parametrize("metric,m,kw", [("l2", 8, {"use_pallas": True, "adc_lut_bf16": True,
@@ -328,21 +333,43 @@ def test_adc_shared_refuses_bad_inputs(card):
     assert adc_scan.adc_scan_shared.launches == before
 
 
-@pytest.mark.parametrize("lut_dtype,m", [(torch.float32, 112), (torch.bfloat16, 149)],
-                         ids=["f32-m112", "bf16-m149"])
+@pytest.mark.parametrize("lut_dtype,m", [(torch.float32, 75), (torch.float32, 76),
+                                         (torch.float32, 112), (torch.float32, 113),
+                                         (torch.float32, 128), (torch.bfloat16, 112),
+                                         (torch.bfloat16, 149), (torch.bfloat16, 150)],
+                         ids=["f32-m75", "f32-m76", "f32-m112", "f32-m113", "f32-m128",
+                              "bf16-m112", "bf16-m149", "bf16-m150"])
 def test_adc_shared_kernel_at_the_shared_memory_limit(card, lut_dtype, m):
-    """At the largest m whose LUT and code tile fit Hopper's 227 KB a block
-    K4 launches and agrees with the plain version; at m + 1 the wrapper
-    refuses before any launch."""
+    """Up to the widest slice whose two LUT buffers and code tile fit
+    Hopper's 227 KB a block (m = 75 f32, 112 bf16) K4 runs once; above it the wrapper launches it once per subspace
+    slice, each adding to the scores the previous left. The scores equal
+    the plain version's bit for bit (the same fp32 adds in subspace
+    order). m = 113 and 128 with an f32 LUT were refused before the
+    slices."""
     lut, codes = [t.to(card) for t in shared_inputs(m, 3, 1500, m, lut_dtype)]
-    torch.testing.assert_close(adc_scan.adc_scan_shared(lut, codes).cpu(),
-                               adc_scan.adc_scan_shared_plain(lut, codes).cpu(),
-                               rtol=1e-4, atol=1e-4)
-    lut, codes = [t.to(card) for t in shared_inputs(m, 3, 1500, m + 1, lut_dtype)]
+    width = adc_scan.slice_width(m, 256, lut.element_size(), adc_scan.adc_scan_shared)
     before = adc_scan.adc_scan_shared.launches
-    with pytest.raises(ValueError, match="too large for the shared-memory LUT"):
-        adc_scan.adc_scan_shared(lut, codes)
-    assert adc_scan.adc_scan_shared.launches == before
+    got = adc_scan.adc_scan_shared(lut, codes)
+    torch.cuda.synchronize()
+    slices = -(-m // width)
+    assert adc_scan.adc_scan_shared.slices == slices
+    assert adc_scan.adc_scan_shared.launches == before + slices
+    if m in (76, 113, 128, 150):
+        assert slices > 1
+    assert torch.equal(got.cpu(), adc_scan.adc_scan_shared_plain(lut, codes).cpu())
+
+
+@pytest.mark.parametrize("offset", [1, 7, 13])
+def test_adc_shared_reads_odd_offsets(card, offset):
+    """A code buffer at an odd byte offset with m = 12 (rows never 4-byte
+    aligned), over two tiles of rows and two query groups: bit-exact."""
+    lut, codes = [t.to(card) for t in shared_inputs(offset, 40, 2100, 12, torch.float32)]
+    raw = torch.zeros(codes.numel() + offset, dtype=torch.uint8, device=card)
+    raw[offset:] = codes.reshape(-1)
+    shifted = raw[offset:].view(codes.shape)
+    assert shifted.data_ptr() % 16 == offset
+    got = adc_scan.adc_scan_shared(lut, shifted)
+    assert torch.equal(got.cpu(), adc_scan.adc_scan_shared_plain(lut, codes).cpu())
 
 
 def correlated_corpus(seed, d=32, n=3000, nq=40):
@@ -368,6 +395,33 @@ def test_factory_index_on_card_matches_cpu(card, spec, launched):
     before = fn.launches
     d_card, i_card = on_card.search(q, 10)
     assert fn.launches > before
+    d_cpu, i_cpu = cpu.search(q, 10)
+    np.testing.assert_array_equal(i_card, i_cpu)
+    np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("spec,wrapper", [("PQ128", "adc_scan_shared"),
+                                          ("IVF16,PQ256", "adc_scan_nibble")])
+def test_wide_pq_index_on_card_matches_cpu(card, spec, wrapper):
+    """PQ widths whose f32 LUT is wider than a block's shared memory, at
+    d = 768: trained on the CPU, served on the card from its state through
+    several subspace slices of the path's kernel: the CPU's ids, distances
+    within 1e-3."""
+    rng = np.random.default_rng(5)
+    d = 768
+    centers = rng.standard_normal((16, d)).astype(np.float32) * 3.0
+    x = centers[rng.integers(0, 16, 2000)] + rng.standard_normal((2000, d)).astype(np.float32)
+    q = centers[rng.integers(0, 16, 30)] + rng.standard_normal((30, d)).astype(np.float32)
+    cpu = factory.build_index(IndexCfg(faiss_factory=spec, dim=d, metric="l2",
+                                       kmeans_iters=4), device="cpu")
+    cpu.train(x[:1000])
+    cpu.add(x)
+    cpu.set_nprobe(4)
+    on_card = factory.index_from_state_dict(cpu.state_dict(), device=card)
+    fn = getattr(adc_scan, wrapper)
+    before = fn.launches
+    d_card, i_card = on_card.search(q, 10)
+    assert fn.launches > before and fn.slices > 1
     d_cpu, i_cpu = cpu.search(q, 10)
     np.testing.assert_array_equal(i_card, i_cpu)
     np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)

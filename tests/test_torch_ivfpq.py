@@ -222,6 +222,52 @@ def test_flat_pq_from_jax_state(data, monkeypatch, spec, metric):
     assert_same_results(back.search(q, K), want, 0)
 
 
+WIDE_D = 768
+
+
+@pytest.fixture(scope="module")
+def wide_data():
+    """600 rows and 12 queries at d = 768 around 8 centers."""
+    rng = np.random.default_rng(22)
+    centers = rng.standard_normal((NLIST, WIDE_D)).astype(np.float32) * 3.0
+    x = (centers[rng.integers(0, NLIST, 600)]
+         + rng.standard_normal((600, WIDE_D)).astype(np.float32))
+    q = (centers[rng.integers(0, NLIST, 12)]
+         + rng.standard_normal((12, WIDE_D)).astype(np.float32))
+    return x, q
+
+
+# (spec, metric, m, kernel wrapper, slices of its LUT on the card): wider
+# than one slice of shared memory on the card (K4 f32 75, K3 f32 224)
+WIDE_CASES = [("PQ128", "l2", 128, "adc_scan_shared", 2),
+              ("PQ128,RFlat", "dot", 128, "adc_scan_shared", 2),
+              ("IVF8,PQ256", "l2", 256, "adc_scan_nibble", 2)]
+
+
+@pytest.mark.parametrize("spec,metric,m,wrapper,slices", WIDE_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in WIDE_CASES])
+def test_wide_pq_from_jax_state(wide_data, spec, metric, m, wrapper, slices):
+    """PQ widths whose f32 LUT is wider than a block's shared memory on the
+    card, built in the JAX package and served by the port: same ids, ADC
+    distances within 1e-4, refined ones within 1e-3. On the card the
+    wrapper scores them in ``slices`` subspace slices."""
+    x, q = wide_data
+    ref = jfactory.build_index(JCfg(faiss_factory=spec, dim=WIDE_D, metric=metric,
+                                    kmeans_iters=4))
+    ref.pq_iters = 4
+    ref.train(x[:400])
+    ref.add(x)
+    if ref.nlist > 1:
+        ref.set_nprobe(3)
+    port = interop.from_jax_state(ref.state_dict(), device="cpu")
+    assert port.m == m and port.ntotal == 600
+    fn = getattr(tadc, wrapper)
+    width = tadc.slice_width(m, 256, 4, fn)
+    assert -(-m // width) == slices
+    tol = 1e-3 if port.refine_k_factor else 1e-4
+    assert_same_results(port.search(q, K), ref.search(q, K), tol)
+
+
 def test_flat_pq_chunks_span_the_list(data, monkeypatch):
     """A payload budget of 100 rows a chunk for the query block splits the
     600-row list into 6 shared scans per block, merged into the same top-k
