@@ -27,7 +27,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      code rows, then K2 at m=190 and K3 at m=256 with an f32 LUT (wider
      than a block's shared memory: several subspace slices, the count
      logged): scores within rtol/atol 1e-4 (both sides sum the same LUT
-     values in fp32, bf16 tables included); the shared-list scan K4 at
+     values in fp32, bf16 tables included); K3 over the probed lists
+     themselves (``adc_scan_lists``: it reads li, stops at each list's
+     size and masks -1 ids) at m=8 and 64, f32 and bf16 LUT, 64 lists of
+     capacity 1000 and 2048 with sizes from 0 to the capacity, 128
+     queries x 2 probes, then at m=256 with an f32 LUT (slices):
+     identical -inf masks, scores within rtol/atol 1e-4; the shared-list
+     scan K4 at
      m=16 and 64, f32 and bf16 LUT, nq=4 and 256 queries, L=13, 5000 and
      65536 rows, and at m=128 f32, nq=256, L=65536 (slices): bit-exact
      (both sides add the same fp32 values in subspace order).
@@ -65,7 +71,12 @@ Phases, in order; any failure raises and the script exits nonzero:
 9. Each kernel at its path's own shapes (the loaded index's lists and one
    query block's first probe group, or for K4 its LUT and first chunk of
    the list, built by the model's own helpers): kernel vs plain time, its
-   bound, its max error, and the kernels JSON line; the kernel's time on
+   bound, its max error, and the kernels JSON line. On the knnlm path K3
+   runs twice: over the probed lists, with the group step it replaced
+   timed beside it (the gather of the probed lists' codes, K3 over the
+   gathered copy, the mask), and over the gathered codes (that entry's
+   row reports its own launches, none on the knnlm path); the kernel's
+   time on
    one set of inputs, which back-to-back calls may find in L2, is logged
    beside it, labelled. For K4 one PyTorch call that computes the same
    sums (``embedding_bag``) is timed as a yardstick (``library_ms``); the
@@ -73,7 +84,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 Before each of phases 3-8 every kernel's launch count is zeroed, and it is
 read after the phase: K1 must have launched on the ivfsq path, K3 on the
-knnlm path (and neither K2 nor K4: the dispatch is fixed by the geometry),
+knnlm path through ``adc_scan_lists`` (and neither K2 nor K4: the
+dispatch is fixed by the geometry),
 K2 on the K2 path, K4 on the flat-PQ path (and neither K2 nor K3) and on
 the pre-transform path and the wide flat-PQ path.
 
@@ -218,6 +230,26 @@ def adc_bound(lut, codes):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def lists_bound(lut, list_codes, li, list_sizes):
+    """(bound_ms, bound_by, bytes, ops) of one ``adc_scan_lists`` call on
+    these inputs. Bytes: every pair's LUT, the live code rows and ids of
+    every distinct probed list, the probe indices and their fill counts,
+    each read once, and the (nq, g, cap) fp32 scores written once.
+    Operations: one fp32 add per code byte of each (pair, live row)."""
+    nq, g = li.shape
+    m = lut.shape[1]
+    cap = list_codes.shape[1]
+    sizes = list_sizes.clamp(min=0, max=cap)
+    unique_live = int(sizes[torch.unique(li.long())].sum().item())
+    pair_live = int(sizes[li.long()].sum().item())
+    nbytes = (lut.numel() * lut.element_size() + unique_live * (m + 4) + 2 * nq * g * 4
+              + nq * g * cap * 4)
+    ops = pair_live * m
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
 def shared_bound(lut, codes):
     """(bound_ms, bound_by, bytes, ops) of one K4 call on these inputs.
     Bytes: the (L, m) codes, the (nq, m, ksub) LUTs and the (nq, L) fp32
@@ -257,7 +289,7 @@ def compare_scores(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: flo
 def launch_counters(flat_scan, adc):
     """name -> the wrapper that counts that kernel's launches."""
     return {"K1": flat_scan.flat_list_scan, "K2": adc.adc_scan, "K3": adc.adc_scan_nibble,
-            "K4": adc.adc_scan_shared}
+            "K3 lists": adc.adc_scan_lists, "K4": adc.adc_scan_shared}
 
 
 def zero_counts(counters) -> None:
@@ -377,6 +409,54 @@ def adc_kernel_phase(adc, seed: int) -> list:
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}: {nbytes} bytes)")
         del lut, codes, sets, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lists_kernel_phase(adc, seed: int) -> list:
+    """K3 over the probed lists (``adc_scan_lists``) vs its plain version:
+    m=8 and 64, f32 and bf16 LUT, 64 lists of capacity 1000 and 2048
+    (sizes from 0 to the capacity, 5% of the ids -1), 128 queries x 2
+    probes with a list probed twice; then m=256 with an f32 LUT, wider
+    than a block's shared memory, so scored in subspace slices."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3)
+    nq, g, nlist = 128, 2, 64
+    rows = []
+    cases = [(m, dtype, cap) for m in (8, 64) for dtype in (torch.float32, torch.bfloat16)
+             for cap in (1000, 2048)]
+    cases.append((256, torch.float32, 1000))
+    for m, dtype, cap in cases:
+        lut = torch.randn((nq * g, m, KSUB), generator=gen, device="cuda").to(dtype)
+        list_codes = torch.randint(0, KSUB, (nlist, cap, m), generator=gen, device="cuda",
+                                   dtype=torch.int32).to(torch.uint8)
+        list_ids = torch.randint(0, 1 << 20, (nlist, cap), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+        list_ids[torch.rand((nlist, cap), generator=gen, device="cuda") < 0.05] = -1
+        sizes = torch.randint(0, cap + 1, (nlist,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        sizes[:3] = torch.tensor([cap, 0, 1], dtype=torch.int32, device="cuda")
+        li = torch.randint(0, nlist, (nq, g), generator=gen, device="cuda", dtype=torch.int32)
+        li[0] = 0  # the full list, twice
+        li[1, 0] = 1
+        li[2, 0] = 2
+        args = (lut, list_codes, li, sizes[li.long()].contiguous(), list_ids)
+        got = adc.adc_scan_lists(*args)
+        want = adc.adc_scan_lists_plain(*args)
+        torch.cuda.synchronize()
+        name = (f"K3 lists m={m} {'bf16' if dtype == torch.bfloat16 else 'f32'} cap={cap} "
+                f"slices={adc.adc_scan_lists.slices}")
+        err = compare_scores(got, want, 1e-4, 1e-4, name)
+        bound_ms, bound_by, nbytes, _ = lists_bound(lut, list_codes, li, sizes)
+        sets = l2_copies(args, nbytes)
+        ms = time_ms(adc.adc_scan_lists, sets)
+        plain_ms = time_ms(adc.adc_scan_lists_plain, sets[:8], warmup=1, iters=5)
+        rows.append(dict(variant=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"{name}: ok max_abs_err={err:.3g} (rtol=0.0001 atol=0.0001, -inf masks "
+            f"identical) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {nbytes} bytes)")
+        del args, sets, got, want, lut, list_codes, list_ids
     torch.cuda.empty_cache()
     return rows
 
@@ -710,8 +790,9 @@ def knnlm_path(args, counters, card: str) -> dict:
         save_drop_load(s.client, iid, q_eval, nprobe, what)
         pq_out.update(counts=read_counts(counters), recall=rec)
         log(f"{what}: launches {pq_out['counts']}")
-        if pq_out["counts"]["K3"] <= 0:
-            raise AssertionError(f"{what}: K3 was not launched on this path")
+        if pq_out["counts"]["K3"] <= 0 or pq_out["counts"]["K3 lists"] <= 0:
+            raise AssertionError(f"{what}: K3 was not launched over the probed lists on "
+                                 "this path")
         if pq_out["counts"]["K2"] != 0 or pq_out["counts"]["K4"] != 0:
             raise AssertionError(f"{what}: K2 or K4 launched on a path whose geometry is K3's")
         pq_out.update(model=s.server.indexes[iid].model, q_block=q_all[:256])
@@ -934,6 +1015,54 @@ def adc_main_shape(adc, ivf, model, q_block: np.ndarray, what: str) -> dict:
                 bound_by=bound_by)
 
 
+def _old_group_step(adc, lut, list_codes, li, sizes_g, list_ids):
+    """The knnlm path's probe group step before K3 read the lists itself:
+    the probed lists' code rows gathered, K3 over the gathered copy, the
+    mask."""
+    nq, g = li.shape
+    _, cap, m = list_codes.shape
+    codes = list_codes[li.long()].reshape(nq * g, cap, m)
+    s = adc.adc_scan_nibble(lut, codes).reshape(nq, g, cap)
+    return adc.mask_lists(s, li, sizes_g, list_ids)
+
+
+def lists_main_shape(adc, ivf, model, q_block: np.ndarray) -> dict:
+    """K3 over the probed lists, its plain version and the group step it
+    replaced, on the knnlm path's own inputs: the first probe group of one
+    query block and its LUT, built by the model's own helpers, and the
+    index's lists."""
+    nprobe, nb, g = model._search_plan()
+    q = torch.from_numpy(np.ascontiguousarray(q_block[:nb])).cuda()
+    li = ivf._probe_groups(model.centroids, q, nprobe, g, model.metric)[0].contiguous()
+    lut = ivf._pq_group_lut(model.centroids, model.codebooks, q, li, model.metric,
+                            model.lut_bf16)
+    sizes_g = model.lists.sizes[li.long()].contiguous()
+    args = (lut, model.lists.data, li, sizes_g, model.lists.ids)
+    got = adc.adc_scan_lists(*args)
+    want = adc.adc_scan_lists_plain(*args)
+    err = compare_scores(got, want, 1e-4, 1e-4, "K3 lists knnlm-path shape")
+    old = functools.partial(_old_group_step, adc)
+    compare_scores(old(*args), want, 1e-4, 1e-4, "the old group step")
+    bound_ms, bound_by, nbytes, ops = lists_bound(lut, model.lists.data, li, model.lists.sizes)
+    sets = l2_copies(args, nbytes)
+    ms = time_ms(adc.adc_scan_lists, sets, iters=50)
+    old_ms = time_ms(old, sets, iters=50)
+    warm_ms = time_ms(adc.adc_scan_lists, [args], iters=50)
+    call_ms = time_ms(adc.adc_scan_lists, [args], iters=50, queued=False)
+    plain_ms = time_ms(adc.adc_scan_lists_plain, sets, iters=10)
+    del sets
+    P, m, _ = lut.shape
+    log(f"K3 lists knnlm-path shape: P={P} (nq={q.shape[0]} g={g}) cap={model.lists.cap} "
+        f"m={m} lut={'bf16' if model.lut_bf16 else 'f32'} live rows={int(sizes_g.sum())}: "
+        f"kernel {ms:.4f} ms against the old group step (gather + K3 + mask) {old_ms:.4f} ms "
+        f"({old_ms / ms:.2f}x) (L2-warm back to back {warm_ms:.4f} ms; {call_ms:.4f} ms a "
+        f"call when the host issues them), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes} bytes, of which LUT {lut.numel() * lut.element_size()}; "
+        f"{ops} adds), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, max_abs_err {err:.3g}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def shared_main_shape(adc, ivf, model, q_block: np.ndarray) -> dict:
     """K4, its plain version and the library yardstick on the flat-PQ
     path's own inputs: one query block's LUT and the first chunk of the
@@ -1021,10 +1150,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     variants = kernel_phase(flat_scan, distance, args.seed)
     adc_variants = adc_kernel_phase(adc_scan, args.seed)
+    lists_variants = lists_kernel_phase(adc_scan, args.seed)
     shared_variants = shared_kernel_phase(adc_scan, args.seed)
-    log(f"kernel phase: {len(variants)} K1 variants, {len(adc_variants)} K2/K3 cases and "
-        f"{len(shared_variants)} K4 cases agree with the plain version "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"kernel phase: {len(variants)} K1 variants, {len(adc_variants)} K2/K3 cases, "
+        f"{len(lists_variants)} K3-over-the-lists cases and {len(shared_variants)} K4 cases "
+        f"agree with the plain version ({time.perf_counter() - t0:.1f} s)")
 
     counters = launch_counters(flat_scan, adc_scan)
     t0 = time.perf_counter()
@@ -1038,6 +1168,7 @@ def main(argv=None) -> int:
 
     k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])
     k3 = adc_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"], "knnlm")
+    k3_lists = lists_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"])
     k2 = adc_main_shape(adc_scan, ivf, k2_out["model"], k2_out["q_block"],
                         "IVF1024,PQ12,RFlat")
     k4 = shared_main_shape(adc_scan, ivf, flat_out["model"], flat_out["q_block"])
@@ -1046,8 +1177,13 @@ def main(argv=None) -> int:
              launches=sq_out["counts"]["K1"], **k1, library_ms=None),
         dict(name="adc_scan", route="cuda", source=ADC_SOURCE, replaces=K2_REPLACES,
              launches=k2_out["counts"]["K2"], **k2, library_ms=None),
+        # K3's counter counts both of its entries; this row is the gathered
+        # entry alone (0 on the knnlm path, which scores over the lists)
         dict(name="adc_scan_nibble", route="cuda", source=ADC_SOURCE, replaces=K3_REPLACES,
-             launches=pq_out["counts"]["K3"], **k3, library_ms=None),
+             launches=pq_out["counts"]["K3"] - pq_out["counts"]["K3 lists"], **k3,
+             library_ms=None),
+        dict(name="adc_scan_lists", route="cuda", source=ADC_SOURCE, replaces=K3_REPLACES,
+             launches=pq_out["counts"]["K3 lists"], **k3_lists, library_ms=None),
         dict(name="adc_scan_shared", route="cuda", source=ADC_SOURCE, replaces=K4_REPLACES,
              launches=flat_out["counts"]["K4"], **k4),
     ]

@@ -1,59 +1,78 @@
 // PQ asymmetric-distance (ADC) scans for Hopper (sm_90a): K2, K3 and K4.
 //
 // Replaces three TPU kernels of distributed_faiss_tpu/ops/adc_pallas.py.
-// K2 and K3 compute one function over per-pair code lists:
+// K2 and K3 score per-pair code lists:
 //
 //   K2  adc_scan_pallas         (adc_pallas.py:139)  any m, ksub <= 256
 //   K3  adc_scan_pallas_nibble  (adc_pallas.py:209)  ksub == 256, m % 8 == 0
 //
 //   out[p, c] = sum_{j < m} lut[p, j, codes[p, c, j]]      fp32 accumulation
 //
+// lut (P, m, ksub) f32 or bf16 (a bf16 entry enters the sum as the fp32
+// value it represents); codes (P, L, m) u8, row c of pair p holding the m
+// sub-quantizer codes of one candidate; out (P, L) f32. A pair p is one
+// (query, probed list).
+//
+// K3 also takes the function that the JAX package's probe body computes
+// around its nibble kernel (distributed_faiss_tpu/models/ivf.py:225-253):
+// pair p = (i, j) reads list li[i, j] of the index's own (nlist, cap, m)
+// code lists, never a gathered copy, and
+//
+//   out[p, c] = sum_j lut[p, j, list_codes[li[p], c, j]]   if c < sizes_g[p]
+//                                                          and ids[li[p], c] >= 0
+//             = -inf                                       otherwise
+//
+// The gathered entry is the case of one list per pair, no size cut and no
+// id plane, on the same kernel.
+//
 // K4 (adc_scan_shared_pallas, adc_pallas.py:110) scores one code list that
 // every query shares (flat PQ: an IVF-PQ index with one list); it is
 // described at its kernel below.
 //
-// lut (P, m, ksub) f32 or bf16 (a bf16 entry enters the sum as the fp32
-// value it represents); codes (P, L, m) u8, row c of pair p holding the m
-// sub-quantizer codes of one candidate; out (P, L) f32. A pair p is one
-// (query, probed list); L is the list capacity, and the rows past a list's
-// size are scored like any other (the caller masks them, as
-// distributed_faiss_tpu/models/ivf.py:252 does).
-//
-// What bounds it. Per pair the kernel must read the pair's LUT once
+// What bounds K2 and K3. Per pair the kernel must read the pair's LUT once
 // (m * ksub * itemsize bytes: 32 KB for m = 64 in bf16, 64 KB in f32), its
-// L code rows (L * m bytes) and write L fp32 scores; the work is one
-// table lookup and one fp32 add per code byte. That is well under one
-// operation per byte read against the card's ~20 fp32 operations per byte
-// of HBM bandwidth (67 TFLOP/s over 3.35 TB/s): the kernel is bound by
-// bytes, and at the main path's shapes the per-pair LUT is at least as
-// large as the code rows. Tensor cores have nothing to do here: the TPU
-// kernels built one-hot (or 4-bit hi/lo one-hot) planes only so that its
-// matrix unit could do the lookup; a shared-memory gather does it directly.
+// live code rows (m bytes each, with a 4-byte id for K3 over the lists) and
+// write one fp32 score per row of capacity; the work is one table lookup
+// and one fp32 add per code byte. That is well under one operation per
+// byte read against the card's ~20 fp32 operations per byte of HBM
+// bandwidth (67 TFLOP/s over 3.35 TB/s): the kernels are bound by bytes.
+// Since K3 stops at each list's size, the per-pair LUTs are most of its
+// bytes (8.4 of about 14 MB at the knnlm shard's shape, where a probed
+// list holds a tenth of its capacity). Tensor cores have nothing to do
+// here: the TPU kernels built one-hot (or 4-bit hi/lo one-hot) planes only
+// so that its matrix unit could do the lookup; a shared-memory gather does
+// it directly.
 //
 // What the design does about it.
 //   * A block owns one pair and up to kBlockRows rows of it; the pair's LUT
-//     is staged into shared memory once per block (16-byte loads), in its
-//     own dtype, so a bf16 LUT costs half the bytes and half the shared
-//     memory. Above 48 KB (the f32 LUT at m = 64) the block takes dynamic
-//     shared memory after cudaFuncSetAttribute.
+//     is staged into shared memory once per block, in its own dtype, so a
+//     bf16 LUT costs half the bytes and half the shared memory. Above 48 KB
+//     (the f32 LUT at m = 64) the block takes dynamic shared memory after
+//     cudaFuncSetAttribute.
 //   * K2 (general m, including m that is no power of two, e.g. 12): a
 //     256-row tile of code rows is a contiguous byte range; the block copies
 //     it into shared memory with 16-byte loads for the aligned interior and
 //     byte loads for the ragged ends, never touching a byte outside
 //     (P, L, m). Each thread then sums its row's m lookups in fp32.
-//   * K3 (ksub = 256 fixed at compile time, m % 8 == 0): no staging of the
-//     codes; each thread reads its row 8 codes at a time as one aligned
-//     8-byte word (m % 8 == 0 and an 8-byte aligned base make every word
-//     aligned) and unrolls the 8 lookups of a word.
+//   * K3 (ksub = 256 fixed at compile time, m % 8 == 0): the block reads
+//     li and the list's size itself. A block whose rows all lie at or past
+//     the size writes their -inf with 16-byte stores and returns before it
+//     stages the LUT; otherwise it writes the -inf of its dead rows, starts
+//     16-byte cp.async copies of the LUT and, while they fly, loads the
+//     first 64 codes and the id of its threads' first rows. Each thread
+//     reads its live rows straight from the list in 16-byte words (8-byte
+//     where the row pitch or the slice offset is no multiple of 16), ids
+//     only for live rows, and loads the next row's first words before it
+//     sums the current one. A pair with at most kBlockRows live rows stages
+//     its LUT once.
 //   * Lookups hit shared memory at data-dependent addresses: random codes
 //     spread a warp's 32 lookups over the 32 banks with a few conflicts on
 //     average. Nothing is written but the one fp32 score per row.
 //   * Blocks carry nothing across each other and run in any order.
 //
-// Fusing the LUT build (a per-pair residual product with the codebooks)
-// into the scan, and gathering the probed lists' code rows inside the
-// kernel instead of receiving them gathered, would remove most of the bytes
-// above; both are left for a later change.
+// Left for later: fusing the LUT build (a per-pair residual product with
+// the codebooks) into K3, so that the LUT, now most of its bytes, is never
+// written to device memory; and a per-group top-k inside the kernel.
 //
 // Built by distributed_faiss_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -62,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "scan_common.cuh"
 
 namespace {
 
@@ -88,6 +109,24 @@ __device__ __forceinline__ void stage_lut(const T* __restrict__ src, T* dst, int
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Start the 16-byte asynchronous copies of `bytes` (a multiple of 16, both
+// ends 16-byte aligned) from `src` into shared `dst`, as one commit group.
+__device__ __forceinline__ void stage_lut_async(const void* src, void* dst, int bytes) {
+  const char* s = static_cast<const char*>(src);
+  char* d = static_cast<char*>(dst);
+  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16) cp_async16(d + i, s + i);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Copy the bytes [src, src + n) into `dst` (16-byte aligned shared memory)
@@ -151,41 +190,110 @@ adc_scan_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
   }
 }
 
-// K3: ksub == 256, m % 8 == 0; the codes are read as aligned 8-byte words.
+// The lookups of 4 codes packed in u (subspaces j0 .. j0 + 3), and of one
+// code word (8 or 16 codes from subspace j0), added to acc in subspace
+// order.
 template <typename T>
+__device__ __forceinline__ float add4(const T* lut_s, uint32_t u, int j0, float acc) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc += lut_value(lut_s, (j0 + e) * kNibbleKsub + ((u >> (8 * e)) & 0xffu));
+  }
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ float add_word(const T* lut_s, const uint2& w, int j0, float acc) {
+  return add4(lut_s, w.y, j0 + 4, add4(lut_s, w.x, j0, acc));
+}
+
+template <typename T>
+__device__ __forceinline__ float add_word(const T* lut_s, const uint4& w, int j0, float acc) {
+  acc = add4(lut_s, w.y, j0 + 4, add4(lut_s, w.x, j0, acc));
+  return add4(lut_s, w.w, j0 + 12, add4(lut_s, w.z, j0 + 8, acc));
+}
+
+// K3: ksub == 256, m % 8 == 0; codes read as words W (uint4 or uint2).
+// Pair p's rows are list li[p] of `codes` (nlist, cap) with row pitch
+// `pitch`, live below sizes[p] and masked where ids < 0; li, sizes and ids
+// null: pair p's own list, every row live, no mask. With `accumulate` the
+// launch adds this slice's sums to the live rows' scores and writes
+// nothing else (masked rows stay -inf).
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-adc_scan_nibble_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
-                       float* __restrict__ out, int L, int m, int pitch, int accumulate) {
+adc_scan_lists_kernel(const T* __restrict__ lut, const uint8_t* __restrict__ codes,
+                      const int32_t* __restrict__ li, const int32_t* __restrict__ sizes,
+                      const int32_t* __restrict__ ids, float* __restrict__ out, int cap,
+                      int m, int pitch, int accumulate) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* lut_s = reinterpret_cast<T*>(smem);
+  constexpr int kCodes = static_cast<int>(sizeof(W));  // codes a word
+  constexpr int kHead = 64 / kCodes;  // words of a row loaded ahead: 64 codes
 
-  const size_t p = blockIdx.x;
-  stage_lut(lut + p * m * kNibbleKsub, lut_s, m * kNibbleKsub);
-  __syncthreads();
+  const int p = blockIdx.x;
+  const int r0 = blockIdx.y * kBlockRows;
+  const int r1 = min(cap, r0 + kBlockRows);
+  const int size = sizes ? max(0, min(sizes[p], cap)) : cap;
+  const int live_end = min(r1, size);
+  float* pair_out = out + static_cast<size_t>(p) * cap;
+  if (!accumulate) {
+    const int dead0 = max(r0, live_end);
+    fill_neg_inf(pair_out + dead0, r1 - dead0);
+  }
+  if (live_end <= r0) return;  // no live row: the LUT is never staged
 
-  const int words = m >> 3;        // 8-code words per row
-  const int row_words = pitch >> 3;  // 8-byte words between consecutive rows
-  const uint2* pair_codes =
-      reinterpret_cast<const uint2*>(codes + p * static_cast<size_t>(L) * pitch);
-  float* pair_out = out + p * static_cast<size_t>(L);
-  const int row_end = min(L, static_cast<int>(blockIdx.y + 1) * kBlockRows);
-  for (int r = blockIdx.y * kBlockRows + threadIdx.x; r < row_end; r += kThreads) {
-    const uint2* row = pair_codes + static_cast<size_t>(r) * row_words;
-    float acc = accumulate ? pair_out[r] : 0.f;
-#pragma unroll 4
-    for (int c = 0; c < words; ++c) {
-      const uint2 w = __ldg(row + c);
-      const T* sub = lut_s + c * 8 * kNibbleKsub;  // subspaces 8c .. 8c+7
+  const int lut_n = m * kNibbleKsub;
+  const T* pair_lut = lut + static_cast<size_t>(p) * lut_n;
+  const bool async = (reinterpret_cast<uintptr_t>(pair_lut) & 15) == 0;
+  if (async) {
+    stage_lut_async(pair_lut, lut_s, lut_n * static_cast<int>(sizeof(T)));
+  } else {
+    stage_lut(pair_lut, lut_s, lut_n);
+  }
+
+  const size_t list_row0 = static_cast<size_t>(li ? li[p] : p) * cap;
+  const W* list_words = reinterpret_cast<const W*>(codes + list_row0 * pitch);
+  const int32_t* list_ids = (ids && !accumulate) ? ids + list_row0 : nullptr;
+  const int words = m / kCodes;
+  const int row_words = pitch / kCodes;
+  // a row's first kHead words and its id, loaded ahead of its sum
+  auto load_head = [&](int r, W* head, int& id) {
+    if (r < live_end) {
+      const W* row = list_words + static_cast<size_t>(r) * row_words;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc += lut_value(sub, e * kNibbleKsub + ((w.x >> (8 * e)) & 0xffu));
+      for (int k = 0; k < kHead; ++k) {
+        if (k < words) head[k] = __ldg(row + k);
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc += lut_value(sub, (4 + e) * kNibbleKsub + ((w.y >> (8 * e)) & 0xffu));
-      }
+      id = list_ids ? list_ids[r] : 0;
     }
-    pair_out[r] = acc;
+  };
+
+  int r = r0 + threadIdx.x;
+  W head[kHead];
+  int id = 0;
+  load_head(r, head, id);  // in flight with the LUT copy
+  if (async) cp_async_wait_all();
+  __syncthreads();
+  for (; r < live_end; r += kThreads) {
+    W next[kHead];
+    int next_id = 0;
+    load_head(r + kThreads, next, next_id);
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < kHead; ++k) {
+      if (k < words) acc = add_word(lut_s, head[k], k * kCodes, acc);
+    }
+    const W* row = list_words + static_cast<size_t>(r) * row_words;
+    for (int c = kHead; c < words; ++c) acc = add_word(lut_s, __ldg(row + c), c * kCodes, acc);
+    if (accumulate) {
+      const float prev = pair_out[r];
+      if (prev != neg_inf()) pair_out[r] = prev + acc;
+    } else {
+      pair_out[r] = id < 0 ? neg_inf() : acc;
+    }
+#pragma unroll
+    for (int k = 0; k < kHead; ++k) head[k] = next[k];
+    id = next_id;
   }
 }
 
@@ -231,24 +339,6 @@ constexpr int kSharedRowsPerThread = 2;
 constexpr int kSharedTile = kSharedThreads * kSharedRowsPerThread;  // code rows a block owns
 constexpr int kSharedStride = kSharedTile + 1;  // words per staged word column (+1 pad)
 constexpr int kSharedQueries = 32;              // queries a block walks over its tile
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// Start the 16-byte asynchronous copies of `bytes` (a multiple of 16, both
-// ends 16-byte aligned) from `src` into shared `dst`, as one commit group.
-__device__ __forceinline__ void stage_lut_async(const void* src, void* dst, int bytes) {
-  const char* s = static_cast<const char*>(src);
-  char* d = static_cast<char*>(dst);
-  for (int i = threadIdx.x * 16; i < bytes; i += kSharedThreads * 16) cp_async16(d + i, s + i);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Stage `rows` code rows of m bytes, row r at tile + r * pitch, as the
 // transposed word columns of `words` (kSharedStride words each).
@@ -418,29 +508,65 @@ extern "C" int dft_adc_scan(const void* lut, const void* codes, void* out, int P
   return static_cast<int>(err);
 }
 
-// K3: ksub is 256; m and pitch multiples of 8 and `codes` 8-byte aligned.
-extern "C" int dft_adc_scan_nibble(const void* lut, const void* codes, void* out, int P,
-                                   int L, int m, int pitch, int lut_bf16, int accumulate,
-                                   void* stream) {
-  if (P <= 0 || L <= 0) return 0;
-  if (m <= 0 || m % 8 != 0 || pitch < m || pitch % 8 != 0 ||
-      (reinterpret_cast<uintptr_t>(codes) & 7) != 0) {
+namespace {
+
+// K3's launch: one block per (pair, kBlockRows rows of capacity).
+int launch_lists(const void* lut, const void* codes, const void* li, const void* sizes,
+                 const void* ids, void* out, int P, int cap, int m, int pitch, int lut_bf16,
+                 int accumulate, void* stream) {
+  if (P <= 0 || cap <= 0) return 0;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(codes);
+  if (m <= 0 || m % 8 != 0 || pitch < m || pitch % 8 != 0 || (addr & 7) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool wide = ((addr | static_cast<uintptr_t>(pitch) | static_cast<uintptr_t>(m)) & 15) == 0;
   const size_t item = lut_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   const size_t smem = static_cast<size_t>(m) * kNibbleKsub * item;
   const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* lip = static_cast<const int32_t*>(li);
+  const auto* szp = static_cast<const int32_t*>(sizes);
+  const auto* idp = static_cast<const int32_t*>(ids);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = pair_grid(P, cap);
   cudaError_t err;
   if (lut_bf16) {
-    err = launch(adc_scan_nibble_kernel<__nv_bfloat16>, pair_grid(P, L), kThreads, smem, st,
-                 static_cast<const __nv_bfloat16*>(lut), c, o, L, m, pitch, accumulate);
+    const auto* t = static_cast<const __nv_bfloat16*>(lut);
+    err = wide ? launch(adc_scan_lists_kernel<__nv_bfloat16, uint4>, grid, kThreads, smem, st,
+                        t, c, lip, szp, idp, o, cap, m, pitch, accumulate)
+               : launch(adc_scan_lists_kernel<__nv_bfloat16, uint2>, grid, kThreads, smem, st,
+                        t, c, lip, szp, idp, o, cap, m, pitch, accumulate);
   } else {
-    err = launch(adc_scan_nibble_kernel<float>, pair_grid(P, L), kThreads, smem, st,
-                 static_cast<const float*>(lut), c, o, L, m, pitch, accumulate);
+    const auto* t = static_cast<const float*>(lut);
+    err = wide ? launch(adc_scan_lists_kernel<float, uint4>, grid, kThreads, smem, st,
+                        t, c, lip, szp, idp, o, cap, m, pitch, accumulate)
+               : launch(adc_scan_lists_kernel<float, uint2>, grid, kThreads, smem, st,
+                        t, c, lip, szp, idp, o, cap, m, pitch, accumulate);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// K3 over gathered code lists: ksub is 256; m and pitch multiples of 8 and
+// `codes` 8-byte aligned. Pair p's rows are its own (L, m) list.
+extern "C" int dft_adc_scan_nibble(const void* lut, const void* codes, void* out, int P,
+                                   int L, int m, int pitch, int lut_bf16, int accumulate,
+                                   void* stream) {
+  return launch_lists(lut, codes, nullptr, nullptr, nullptr, out, P, L, m, pitch, lut_bf16,
+                      accumulate, stream);
+}
+
+// K3 over the probed lists: codes (nlist, cap, m) with row c of list l at
+// byte (l * cap + c) * pitch; li, sizes (P,) i32, the pair's list and its
+// fill count; ids (nlist, cap) i32; out (P, cap) f32, -inf at rows past the
+// size or with id < 0 (an accumulating launch leaves those as they are).
+extern "C" int dft_adc_scan_lists(const void* lut, const void* codes, const void* li,
+                                  const void* sizes, const void* ids, void* out, int P,
+                                  int cap, int m, int pitch, int lut_bf16, int accumulate,
+                                  void* stream) {
+  return launch_lists(lut, codes, li, sizes, ids, out, P, cap, m, pitch, lut_bf16, accumulate,
+                      stream);
 }
 
 // K4: codes (L, m) shared by the nq queries, at any byte offset and pitch.

@@ -22,30 +22,48 @@
 // ~1 flop/byte for fp16 rows and ~0.25 for fp32. The card does ~20 fp32
 // flops per byte of HBM bandwidth (67 TFLOP/s over 3.35 TB/s), so the
 // kernel is bound by the bytes it moves, not by arithmetic, and tensor
-// cores would not help at this arithmetic intensity.
+// cores would not help at this arithmetic intensity. The bytes are the
+// live rows of the probed lists (with their ids and stored norms) and the
+// (nq, g, cap) fp32 scores; on the ivfsq shard a probed list holds about
+// an eighth of its capacity, so most of the output is the -inf padding.
 //
 // What the design does about it.
-//   * Only live rows are read: a row at pos >= sizes_g[i, j] (the padded
-//     tail of a pow2-capacity list) is never loaded, only written as -inf.
+//   * A block owns one (query, probe) pair and one 256-row tile of its
+//     capacity (past 65,535 tiles a pair, each block walks the tiles
+//     y, y + 65535, ...). The block reads the pair's list and size
+//     first and writes its share of the pair's dead rows [size, cap) as
+//     -inf with 16-byte stores from all threads. A tile at or past the
+//     size returns there, before it touches q, so the padded tail of a
+//     pow2-capacity list costs only its -inf stores.
 //   * Rows are read with coalesced 16-byte loads (uint4): a row of d
 //     elements is split into 16-byte chunks, and a segment of
 //     `lanes_per_row` neighbouring lanes (a power of two, <= 32) walks the
-//     chunks of one row, so a warp covers 32 / lanes_per_row rows at once
-//     and every lane has a load in flight even for narrow rows (fp16 d=128
-//     is 16 chunks: two rows per warp; u8 d=128 is 8 chunks: four rows).
-//   * Decode happens in registers; the query (and the sq8 vmin and
-//     span/255 planes) sit in shared memory, loaded once per block.
-//   * Dot products accumulate in fp32 per lane and are reduced with xor
-//     shuffles inside each segment; ||x||^2 for the recomputed-norm mode
-//     rides the same pass, so a row is read once.
+//     chunks of one row, so a warp covers 32 / lanes_per_row rows at once.
+//   * Loads in flight: each lane issues the loads of R rows (its C chunks
+//     of each; R * C = 4, so 64 bytes a lane) and their ids and stored
+//     norms before it decodes any of them; one segment reduction (xor
+//     shuffles) then covers the batch. The kernels are held to 85
+//     registers a thread (sq8 rows read in 16-byte chunks excepted), so
+//     that 24 warps an SM keep their loads in flight: the time per row
+//     follows the memory's latency, not its bandwidth, when fewer warps
+//     fit. The row loads skip L1 (each byte is used once).
+//   * A lane always touches the same chunk indices of every row, so its
+//     slice of q (and of the sq8 vmin and span/255 planes) sits in
+//     registers, loaded once per block, and ||q||^2 is the segment's sum
+//     of those registers; rows wider than C chunks a lane are walked in
+//     column groups, reloading the slice per group. ||x||^2 for the
+//     recomputed-norm mode rides the same pass, so a row is read once.
+//     scan_bf16 and the recomputed norm are fixed at compile time inside
+//     the batch, so the common case pays for neither.
 //   * The validity mask is applied before the single fp32 store per row.
-// A block owns one (query, probe) pair and a tile of rows; it reads
-// li[i, j] and sizes_g[i, j] itself (the TPU kernel had them as scalar
-// prefetch). Blocks run in any order: nothing carries across them.
+//   * Rows whose width is no multiple of 16 bytes, or lists at an
+//     unaligned address, take the same loop with element loads.
+// Blocks run in any order: nothing carries across them.
 //
-// Fusing the per-group top-k, or grouping the queries that share a list
-// into one tensor-core GEMM (which would lift the arithmetic intensity),
-// is left for a later change; this version is the simple, right one.
+// Left for later: fusing the per-group top-k (the (nq, g, cap) scores are
+// a fifth of the bytes at the ivfsq shape, and their -inf padding most of
+// the stores), and grouping the queries that share a list into one
+// tensor-core GEMM (which would lift the arithmetic intensity).
 //
 // Built by distributed_faiss_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -56,11 +74,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
+#include "scan_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = 256;  // rows of one (query, probe) pair per block tile
+constexpr int kTileRows = 256;    // live rows a block scans: one tile
+constexpr int kLoadsPerLane = 4;  // R * C: loads a lane issues before decoding
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Codec { kF32 = 0, kF16 = 1, kU8 = 2 };
 
@@ -68,201 +93,289 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// A 16-byte chunk of a stored row, decoded to N fp32 values (before the
-// sq8 affine step, which needs the dimension index).
-template <typename T> struct Chunk;
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_float(uint8_t v) { return static_cast<float>(v); }
 
-template <> struct Chunk<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void decode(const uint4& c, float* v) {
-    v[0] = __uint_as_float(c.x);
-    v[1] = __uint_as_float(c.y);
-    v[2] = __uint_as_float(c.z);
-    v[3] = __uint_as_float(c.w);
-  }
-  __device__ __forceinline__ static float scalar(const float* p) { return *p; }
-};
+// A load unit of a stored row: VEC, a 16-byte chunk of N elements;
+// otherwise one element. decode gives fp32 values before the sq8 affine
+// step, which needs the element index.
+template <typename T, bool VEC> struct Unit;
 
-template <> struct Chunk<__half> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void decode(const uint4& c, float* v) {
-    const __half2* h = reinterpret_cast<const __half2*>(&c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __half22float2(h[e]);
-      v[2 * e] = f.x;
-      v[2 * e + 1] = f.y;
-    }
+template <typename T> struct Unit<T, true> {
+  using Raw = uint4;
+  static constexpr int N = 16 / static_cast<int>(sizeof(T));
+  // read-only and used once: not kept in L1
+  __device__ __forceinline__ static Raw load(const T* row, int c) {
+    uint4 v;
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(reinterpret_cast<const uint4*>(row) + c));
+    return v;
   }
-  __device__ __forceinline__ static float scalar(const __half* p) {
-    return __half2float(*p);
-  }
-};
-
-template <> struct Chunk<uint8_t> {
-  static constexpr int N = 16;
-  __device__ __forceinline__ static void decode(const uint4& c, float* v) {
-    const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+  __device__ __forceinline__ static Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ static void decode(const Raw& r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+    if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(w[e]);
+    } else if constexpr (sizeof(T) == 2) {
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        v[4 * e + b] = static_cast<float>((w[e] >> (8 * b)) & 0xffu);
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[e]));
+        v[2 * e] = f.x;
+        v[2 * e + 1] = f.y;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) v[4 * e + b] = static_cast<float>((w[e] >> (8 * b)) & 0xffu);
       }
     }
   }
-  __device__ __forceinline__ static float scalar(const uint8_t* p) {
-    return static_cast<float>(*p);
-  }
 };
 
-// One element's contribution: sq8 affine decode, then the (optionally
-// bf16-rounded) product into ip and the fp32 square into xn.
-template <bool SQ8>
-__device__ __forceinline__ void accumulate(float x, int k, const float* qs,
-                                           const float* vmin_s,
-                                           const float* scale_s, bool bf16,
-                                           float& ip, float& xn) {
-  if (SQ8) x = fmaf(x, scale_s[k], vmin_s[k]);
-  xn += x * x;
-  const float qv = qs[k];
-  ip += bf16 ? bf16_round(qv) * bf16_round(x) : qv * x;
+template <typename T> struct Unit<T, false> {
+  using Raw = float;  // converted as it is loaded
+  static constexpr int N = 1;
+  __device__ __forceinline__ static Raw load(const T* row, int c) { return to_float(row[c]); }
+  __device__ __forceinline__ static Raw zero() { return 0.f; }
+  __device__ __forceinline__ static void decode(const Raw& r, float* v) { v[0] = r; }
+};
+
+// The widest C (units a lane holds in registers per row) a kernel is
+// built for: at most 32 fp32 values of each q plane (the sq8 planes
+// triple that).
+template <typename T, bool VEC>
+constexpr int max_units_per_lane() {
+  return VEC ? (Unit<T, true>::N >= 8 ? 32 / Unit<T, true>::N : 8) : 8;
 }
 
-// VEC: rows are read as 16-byte chunks (d * sizeof(T) % 16 == 0 and a
-// 16-byte aligned base); otherwise element by element.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-flat_scan_kernel(const float* __restrict__ q, const T* __restrict__ data,
-                 const int32_t* __restrict__ ids,
-                 const int32_t* __restrict__ li,
-                 const int32_t* __restrict__ sizes_g,
-                 const float* __restrict__ norms,
-                 const float* __restrict__ vmin,
-                 const float* __restrict__ span, float* __restrict__ out,
-                 int g, int cap, int d, int metric_l2, int scan_bf16,
-                 int lanes_per_row) {
+struct ScanArgs {
+  const float* q;         // (nq, d)
+  const void* data;       // (nlist, cap, d) of the codec's type
+  const int32_t* ids;     // (nlist, cap)
+  const int32_t* li;      // (nq, g)
+  const int32_t* sizes_g; // (nq, g)
+  const float* norms;     // (nlist, cap), or null: recompute
+  const float* vmin;      // (d,) sq8
+  const float* span;      // (d,) sq8
+  float* out;             // (nq, g, cap)
+  int g, cap, d;
+  int units;              // load units a row: d / N (VEC) or d
+  int lanes_per_row;      // power of two <= 32
+  int metric_l2, scan_bf16;
+};
+
+// The register budget is cut for 3 blocks an SM (at most 85 registers a
+// thread, 24 warps to hide the loads' latency), except for sq8 rows read
+// in 16-byte chunks, whose three q planes need the registers and spill
+// under it.
+template <typename T, bool VEC, int C, int R>
+__global__ void __launch_bounds__(kThreads, (VEC && sizeof(T) == 1) ? 1 : 3)
+flat_scan_kernel(const ScanArgs a) {
+  using U = Unit<T, VEC>;
+  constexpr int N = U::N;
   constexpr bool kSq8 = sizeof(T) == 1;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;             // (d,) the query
-  float* vmin_s = smem + d;     // (d,) sq8 only
-  float* scale_s = smem + 2 * d;  // (d,) sq8 only: span * (1/255)
-
   const int pair = blockIdx.x;  // i * g + j
-  const int i = pair / g;
-  const int list = li[pair];
-  const int size = min(sizes_g[pair], cap);
-  const bool bf16 = scan_bf16 != 0;
+  const int cap = a.cap;
+  const int size = max(0, min(a.sizes_g[pair], cap));
+  const size_t list_base = static_cast<size_t>(a.li[pair]) * cap;
+  float* pair_out = a.out + static_cast<size_t>(pair) * cap;
 
-  for (int k = threadIdx.x; k < d; k += kThreads) {
-    qs[k] = q[static_cast<size_t>(i) * d + k];
-    if (kSq8) {
-      vmin_s[k] = vmin[k];
-      scale_s[k] = span[k] * (1.0f / 255.0f);
-    }
-  }
-  __syncthreads();
+  // this block's share of the dead rows [size, cap), a multiple of 4 rows
+  // so that every share but the first starts as aligned as the first
+  const int share = ((cap - size + static_cast<int>(gridDim.y) - 1) / gridDim.y + 3) & ~3;
+  const int dead0 = min(cap, size + static_cast<int>(blockIdx.y) * share);
+  fill_neg_inf(pair_out + dead0, min(cap - dead0, share));
+  const int first = blockIdx.y * kTileRows;
+  if (first >= size) return;
 
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lpr = a.lanes_per_row;
+  const int rpi = 32 / lpr;         // rows a warp covers per batch slot
+  const int sub = lane / lpr;       // which of those rows
+  const int sl = lane & (lpr - 1);  // lane within the row's segment
+  const int units = a.units;
+  const int groups = (units + lpr * C - 1) / (lpr * C);  // column groups a row
+  const float* qi = a.q + static_cast<size_t>(pair / a.g) * a.d;
+  const bool bf16 = a.scan_bf16 != 0;
+  const bool l2 = a.metric_l2 != 0;
+  const bool recompute = l2 && a.norms == nullptr;
 
-  // ||q||^2, reduced over the whole warp (every warp holds the same value)
-  float qn = 0.f;
-  if (metric_l2) {
-    for (int k = lane; k < d; k += 32) qn += qs[k] * qs[k];
+  // sum over the lanes of a row's segment (xor offsets below lpr stay in it)
+  auto segment_sum = [&](float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      qn += __shfl_xor_sync(0xffffffffu, qn, off);
+      if (off < lpr) v += __shfl_xor_sync(kFull, v, off);
     }
-  }
+    return v;
+  };
 
-  const int lpr = lanes_per_row;
-  const int rows_per_iter = 32 / lpr;
-  const int sub = lane / lpr;  // which row of this warp iteration
-  const int sl = lane % lpr;   // lane within the row's segment
-  const size_t list_base = static_cast<size_t>(list) * cap;
-  const bool recompute = metric_l2 && norms == nullptr;
-
-  for (int tile = blockIdx.y * kTileRows; tile < cap;
-       tile += gridDim.y * kTileRows) {
-    for (int r0 = tile + warp * rows_per_iter; r0 < tile + kTileRows;
-         r0 += kWarps * rows_per_iter) {
-      const int pos = r0 + sub;
-      const bool in_range = pos < cap;
-      const bool live = pos < size;  // size <= cap
-      float ip = 0.f, xn = 0.f;
-      int id = -1;
-      if (live) {
-        if (sl == 0) id = ids[list_base + pos];
-        const T* row = data + (list_base + pos) * static_cast<size_t>(d);
-        if (VEC) {
-          constexpr int N = Chunk<T>::N;
-          const uint4* rowv = reinterpret_cast<const uint4*>(row);
-          const int nchunk = d / N;
-          for (int c = sl; c < nchunk; c += lpr) {
-            const uint4 raw = __ldg(rowv + c);
-            float v[N];
-            Chunk<T>::decode(raw, v);
+  // this lane's slice of q (bf16-rounded under scan_bf16) and of the sq8
+  // planes for column group gi: units sl + lpr * (gi * C + k), k < C.
+  // Returns the slice's share of ||q||^2.
+  float qr[C * N];
+  float vr[kSq8 ? C * N : 1];
+  float sr[kSq8 ? C * N : 1];
+  auto load_slice = [&](int gi) {
+    float qn = 0.f;
 #pragma unroll
-            for (int e = 0; e < N; ++e) {
-              accumulate<kSq8>(v[e], c * N + e, qs, vmin_s, scale_s, bf16, ip, xn);
+    for (int k = 0; k < C; ++k) {
+      const int c = sl + lpr * (gi * C + k);
+      const bool ok = c < units;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const int i = c * N + e;
+        const float qv = ok ? qi[i] : 0.f;
+        qn = fmaf(qv, qv, qn);
+        qr[k * N + e] = bf16 ? bf16_round(qv) : qv;
+        if constexpr (kSq8) {
+          vr[k * N + e] = ok ? a.vmin[i] : 0.f;
+          sr[k * N + e] = ok ? a.span[i] * (1.0f / 255.0f) : 0.f;
+        }
+      }
+    }
+    return qn;
+  };
+  // ||q||^2 over every group; group 0's slice stays loaded
+  float qn = 0.f;
+  for (int gi = groups - 1; gi >= 0; --gi) qn += load_slice(gi);
+  qn = segment_sum(qn);
+
+  const T* rows = static_cast<const T*>(a.data) + list_base * a.d;
+  const int batch = R * rpi;  // rows a warp scans per step
+  for (int t0 = first; t0 < size; t0 += gridDim.y * kTileRows) {
+    const int t1 = min(size, t0 + kTileRows);
+    // b is warp-uniform, so every lane takes part in the shuffles below
+    for (int b = t0 + warp * batch; b < t1; b += kWarps * batch) {
+      float ip[R], xn[R], bn[R];
+      int id[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ip[r] = 0.f;
+        xn[r] = 0.f;
+        bn[r] = 0.f;
+        id[r] = -1;
+        const int row = b + r * rpi + sub;
+        if (row < t1 && sl == (r & (lpr - 1))) {  // the lane that stores row r
+          id[r] = a.ids[list_base + row];
+          if (l2 && !recompute) bn[r] = a.norms[list_base + row];
+        }
+      }
+      for (int gi = 0; gi < groups; ++gi) {
+        if (groups > 1) load_slice(gi);
+        typename U::Raw raw[R][C];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = b + r * rpi + sub;
+          const T* rp = rows + static_cast<size_t>(row) * a.d;
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            const int c = sl + lpr * (gi * C + k);
+            raw[r][k] = (row < t1 && c < units) ? U::load(rp, c) : U::zero();
+          }
+        }
+        // decode and accumulate, with scan_bf16 and the recomputed norm
+        // fixed at compile time
+        auto accumulate = [&](auto round_bf16, auto with_norm) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int k = 0; k < C; ++k) {
+              float v[N];
+              U::decode(raw[r][k], v);
+#pragma unroll
+              for (int e = 0; e < N; ++e) {
+                const int j = k * N + e;
+                float x = v[e];
+                if constexpr (kSq8) x = fmaf(x, sr[j], vr[j]);
+                if constexpr (decltype(with_norm)::value) xn[r] = fmaf(x, x, xn[r]);
+                if constexpr (decltype(round_bf16)::value) x = bf16_round(x);
+                ip[r] = fmaf(qr[j], x, ip[r]);
+              }
             }
           }
-        } else {
-          for (int k = sl; k < d; k += lpr) {
-            accumulate<kSq8>(Chunk<T>::scalar(row + k), k, qs, vmin_s, scale_s,
-                             bf16, ip, xn);
+        };
+        if (bf16) {
+          if (recompute) {
+            accumulate(std::true_type{}, std::true_type{});
+          } else {
+            accumulate(std::true_type{}, std::false_type{});
           }
-        }
-      }
-      // segment reduction: xor offsets below lpr stay inside the segment;
-      // every lane of the warp takes part (the loop bounds are warp-uniform)
-      for (int off = lpr >> 1; off > 0; off >>= 1) {
-        ip += __shfl_xor_sync(0xffffffffu, ip, off);
-        xn += __shfl_xor_sync(0xffffffffu, xn, off);
-      }
-      if (in_range && sl == 0) {
-        float s;
-        if (!live || id < 0) {
-          s = __int_as_float(0xff800000);  // -inf
-        } else if (!metric_l2) {
-          s = ip;
+        } else if (recompute) {
+          accumulate(std::false_type{}, std::true_type{});
         } else {
-          const float bn = recompute ? xn : norms[list_base + pos];
-          s = -(qn - 2.0f * ip + bn);
+          accumulate(std::false_type{}, std::false_type{});
         }
-        out[static_cast<size_t>(pair) * cap + pos] = s;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ip[r] = segment_sum(ip[r]);
+        if (recompute) xn[r] = segment_sum(xn[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = b + r * rpi + sub;
+        if (row < t1 && sl == (r & (lpr - 1))) {
+          float s;
+          if (id[r] < 0) {
+            s = neg_inf();
+          } else if (!l2) {
+            s = ip[r];
+          } else {
+            s = -(qn - 2.0f * ip[r] + (recompute ? xn[r] : bn[r]));
+          }
+          pair_out[row] = s;
+        }
       }
     }
+  }
+}
+
+template <typename T, bool VEC, int C>
+void launch_one(const ScanArgs& a, dim3 grid, cudaStream_t stream) {
+  constexpr int R = kLoadsPerLane / C > 0 ? kLoadsPerLane / C : 1;
+  flat_scan_kernel<T, VEC, C, R><<<grid, kThreads, 0, stream>>>(a);
+}
+
+// c: a power of two <= max_units_per_lane<T, VEC>()
+template <typename T, bool VEC>
+void launch_width(int c, const ScanArgs& a, dim3 grid, cudaStream_t stream) {
+  constexpr int kMax = max_units_per_lane<T, VEC>();
+  if (c <= 1) {
+    launch_one<T, VEC, 1>(a, grid, stream);
+  } else if (c == 2) {
+    if constexpr (kMax >= 2) launch_one<T, VEC, 2>(a, grid, stream);
+  } else if (c == 4) {
+    if constexpr (kMax >= 4) launch_one<T, VEC, 4>(a, grid, stream);
+  } else {
+    if constexpr (kMax >= 8) launch_one<T, VEC, 8>(a, grid, stream);
   }
 }
 
 template <typename T>
-cudaError_t launch_codec(const float* q, const void* data, const int32_t* ids,
-                         const int32_t* li, const int32_t* sizes_g,
-                         const float* norms, const float* vmin,
-                         const float* span, float* out, int nq, int g, int cap,
-                         int d, int metric_l2, int scan_bf16,
-                         cudaStream_t stream) {
-  constexpr int N = Chunk<T>::N;
-  const bool vec = (d % N == 0) &&
-                   (reinterpret_cast<uintptr_t>(data) % 16 == 0);
-  const int units = vec ? d / N : d;
+cudaError_t launch_codec(ScanArgs a, int nq, cudaStream_t stream) {
+  constexpr int N = Unit<T, true>::N;
+  const bool vec = (a.d % N == 0) && (reinterpret_cast<uintptr_t>(a.data) % 16 == 0);
+  a.units = vec ? a.d / N : a.d;
   int lpr = 1;
-  while (lpr * 2 <= units && lpr * 2 <= 32) lpr *= 2;
-  const size_t smem = (sizeof(T) == 1 ? 3 : 1) * static_cast<size_t>(d) * sizeof(float);
-  const int tiles = (cap + kTileRows - 1) / kTileRows;
-  const dim3 grid(static_cast<unsigned>(nq) * static_cast<unsigned>(g),
-                  static_cast<unsigned>(tiles < 65535 ? tiles : 65535));
-  const T* typed = static_cast<const T*>(data);
+  while (lpr * 2 <= a.units && lpr * 2 <= 32) lpr *= 2;
+  a.lanes_per_row = lpr;
+  const int per_lane = (a.units + lpr - 1) / lpr;
+  const int max_c = vec ? max_units_per_lane<T, true>() : max_units_per_lane<T, false>();
+  int c = 1;
+  while (c < per_lane && c < max_c) c *= 2;
+  const int pairs = nq * a.g;
+  const int tiles = (a.cap + kTileRows - 1) / kTileRows;
+  const int y = std::min(tiles, 65535);
+  const dim3 grid(static_cast<unsigned>(pairs), static_cast<unsigned>(y));
   if (vec) {
-    flat_scan_kernel<T, true><<<grid, kThreads, smem, stream>>>(
-        q, typed, ids, li, sizes_g, norms, vmin, span, out, g, cap, d,
-        metric_l2, scan_bf16, lpr);
+    launch_width<T, true>(c, a, grid, stream);
   } else {
-    flat_scan_kernel<T, false><<<grid, kThreads, smem, stream>>>(
-        q, typed, ids, li, sizes_g, norms, vmin, span, out, g, cap, d,
-        metric_l2, scan_bf16, lpr);
+    launch_width<T, false>(c, a, grid, stream);
   }
   return cudaGetLastError();
 }
@@ -273,8 +386,8 @@ cudaError_t launch_codec(const float* q, const void* data, const int32_t* ids,
 // contiguous tensors: q (nq, d) f32; data (nlist, cap, d) f32/f16/u8 by
 // `codec` (0/1/2); ids (nlist, cap) i32; li, sizes_g (nq, g) i32; norms
 // (nlist, cap) f32 or NULL (recompute); vmin, span (d,) f32 (codec 2);
-// out (nq, g, cap) f32. Launches on `stream` and returns cudaGetLastError()
-// (0 on success); never synchronises.
+// out (nq, g, cap) f32. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); never synchronises.
 extern "C" int dft_flat_scan(const void* q, const void* data, const void* ids,
                              const void* li, const void* sizes_g,
                              const void* norms, const void* vmin,
@@ -282,34 +395,33 @@ extern "C" int dft_flat_scan(const void* q, const void* data, const void* ids,
                              int cap, int d, int codec, int metric_l2,
                              int scan_bf16, void* stream) {
   if (nq <= 0 || g <= 0 || cap <= 0) return 0;
-  if (d <= 0 || 3 * static_cast<size_t>(d) * sizeof(float) > 48 * 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* qf = static_cast<const float*>(q);
-  const auto* idsp = static_cast<const int32_t*>(ids);
-  const auto* lip = static_cast<const int32_t*>(li);
-  const auto* szp = static_cast<const int32_t*>(sizes_g);
-  const auto* nrm = static_cast<const float*>(norms);
-  const auto* vm = static_cast<const float*>(vmin);
-  const auto* sp = static_cast<const float*>(span);
-  auto* o = static_cast<float*>(out);
+  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs a;
+  a.q = static_cast<const float*>(q);
+  a.data = data;
+  a.ids = static_cast<const int32_t*>(ids);
+  a.li = static_cast<const int32_t*>(li);
+  a.sizes_g = static_cast<const int32_t*>(sizes_g);
+  a.norms = static_cast<const float*>(norms);
+  a.vmin = static_cast<const float*>(vmin);
+  a.span = static_cast<const float*>(span);
+  a.out = static_cast<float*>(out);
+  a.g = g;
+  a.cap = cap;
+  a.d = d;
+  a.units = 0;
+  a.lanes_per_row = 1;
+  a.metric_l2 = metric_l2;
+  a.scan_bf16 = scan_bf16;
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (codec) {
     case kF32:
-      err = launch_codec<float>(qf, data, idsp, lip, szp, nrm, vm, sp, o, nq, g,
-                                cap, d, metric_l2, scan_bf16, st);
-      break;
+      return static_cast<int>(launch_codec<float>(a, nq, st));
     case kF16:
-      err = launch_codec<__half>(qf, data, idsp, lip, szp, nrm, vm, sp, o, nq,
-                                 g, cap, d, metric_l2, scan_bf16, st);
-      break;
+      return static_cast<int>(launch_codec<__half>(a, nq, st));
     case kU8:
-      err = launch_codec<uint8_t>(qf, data, idsp, lip, szp, nrm, vm, sp, o, nq,
-                                  g, cap, d, metric_l2, scan_bf16, st);
-      break;
+      return static_cast<int>(launch_codec<uint8_t>(a, nq, st));
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

@@ -6,8 +6,11 @@ ported).
 Search: coarse scores (nq, nlist) -> top-nprobe lists -> a loop over probe
 groups; each group's (nq, g, cap) masked score block merges into a running
 top-k. IVF-Flat scores a group with ``ops.flat_scan.flat_list_scan``,
-IVF-PQ with a per-(query, probe) ADC lookup table and
-``ops.adc_scan.adc_scan_auto``. An IVF-PQ index with one list (flat PQ,
+IVF-PQ with a per-(query, probe) ADC lookup table and, in the
+nibble geometry (ksub 256, m % 8 == 0), ``ops.adc_scan.adc_scan_lists``,
+which reads the probed lists itself and applies the size and id mask; in
+the other geometry the probed lists' code rows are gathered and scored by
+``ops.adc_scan.adc_scan`` (K2), then masked. An IVF-PQ index with one list (flat PQ,
 the factory's ``PQ<m>``) takes ``_pq_shared_search`` instead: one LUT per
 query and ``ops.adc_scan.adc_scan_shared`` over chunks of the one list that
 every query shares, with no per-query copy of the codes; it computes the
@@ -121,25 +124,31 @@ def _probe_groups(centroids, q: torch.Tensor, nprobe: int, g: int,
     return probes.to(torch.int32).reshape(nq, nprobe // g, g).permute(1, 0, 2)
 
 
-def _pq_group_inputs(centroids, codebooks, list_codes, q: torch.Tensor, li: torch.Tensor,
-                     metric: str, lut_bf16: bool, shared_lut=None):
-    """The ADC scan's inputs for one probe group ``li`` (nq, g): its (nq*g,
-    m, ksub) LUT, one per (query, probe) pair (l2: of the query's residual
-    to the probed centroid; dot: the query's own, ``shared_lut`` when given,
-    repeated over its probes), cast to bf16 with ``lut_bf16``; and the
-    probed lists' (nq*g, cap, m) code rows."""
+def _pq_group_lut(centroids, codebooks, q: torch.Tensor, li: torch.Tensor, metric: str,
+                  lut_bf16: bool, shared_lut=None) -> torch.Tensor:
+    """The ADC scan's (nq*g, m, ksub) LUT for one probe group ``li`` (nq,
+    g), one per (query, probe) pair (l2: of the query's residual to the
+    probed centroid; dot: the query's own, ``shared_lut`` when given,
+    repeated over its probes), cast to bf16 with ``lut_bf16``."""
     nq, g = li.shape
     m, ksub, _ = codebooks.shape
-    idx = li.long()
-    codes = list_codes[idx].reshape(nq * g, list_codes.shape[1], m)
     if metric == "l2":
-        r = q[:, None, :] - centroids[idx]  # (nq, g, d) residuals
+        r = q[:, None, :] - centroids[li.long()]  # (nq, g, d) residuals
         lut = pq.adc_lut(r.reshape(nq * g, -1), codebooks, metric="l2")
     else:
         if shared_lut is None:
             shared_lut = pq.adc_lut(q, codebooks, metric=metric)  # (nq, m, ksub)
         lut = shared_lut[:, None].expand(nq, g, m, ksub).reshape(nq * g, m, ksub)
-    lut = lut.to(torch.bfloat16 if lut_bf16 else torch.float32).contiguous()
+    return lut.to(torch.bfloat16 if lut_bf16 else torch.float32).contiguous()
+
+
+def _pq_group_inputs(centroids, codebooks, list_codes, q: torch.Tensor, li: torch.Tensor,
+                     metric: str, lut_bf16: bool, shared_lut=None):
+    """K2's inputs for one probe group ``li`` (nq, g): ``_pq_group_lut``'s
+    LUT and the probed lists' (nq*g, cap, m) code rows, gathered."""
+    nq, g = li.shape
+    lut = _pq_group_lut(centroids, codebooks, q, li, metric, lut_bf16, shared_lut)
+    codes = list_codes[li.long()].reshape(nq * g, list_codes.shape[1], list_codes.shape[2])
     return lut, codes
 
 
@@ -209,27 +218,32 @@ def _ivf_pq_search(centroids, codebooks, list_codes, list_ids, list_sizes, q, k:
                    nprobe: int, g: int, metric: str, lut_bf16: bool = False):
     """IVF-PQ probe scan of one query block -> (scores, ids int32).
 
-    Per probe group: the probed lists' code rows are gathered (nq, g, cap,
-    m), each (query, probe) pair gets its LUT (l2: of the query's residual
-    to the probed centroid; dot: the query's own LUT, shared by its
-    probes), cast to bf16 with ``lut_bf16``, and ``adc_scan_auto`` scores
-    the pairs. The validity mask (pos < size, id >= 0) is applied here,
-    outside the kernel, as in the JAX package."""
+    Per probe group each (query, probe) pair gets its LUT (l2: of the
+    query's residual to the probed centroid; dot: the query's own LUT,
+    shared by its probes), cast to bf16 with ``lut_bf16``. In the nibble
+    geometry ``adc_scan_lists`` (K3) scores the probed lists in place and
+    masks pos >= size and id < 0; otherwise the probed lists' code rows
+    are gathered, ``adc_scan`` (K2) scores them and the mask is applied
+    here, as in the JAX package."""
     q = q.float()
     nq = q.shape[0]
     cap = list_codes.shape[1]
+    m, ksub, _ = codebooks.shape
+    fused = adc_scan.nibble_supported(m, ksub)
     shared_lut = None if metric == "l2" else pq.adc_lut(q, codebooks, metric=metric)
-    pos = torch.arange(cap, device=q.device)
     carry = (torch.full((nq, k), distance.NEG_INF, dtype=torch.float32, device=q.device),
              torch.full((nq, k), -1, dtype=torch.int32, device=q.device))
     for li in _probe_groups(centroids, q, nprobe, g, metric):
         li = li.contiguous()
-        idx = li.long()
-        lut, codes = _pq_group_inputs(centroids, codebooks, list_codes, q, li, metric,
-                                      lut_bf16, shared_lut)
-        s = adc_scan.adc_scan_auto(lut, codes).reshape(nq, g, cap)
-        valid = (pos[None, None, :] < list_sizes[idx][:, :, None]) & (list_ids[idx] >= 0)
-        s = torch.where(valid, s, torch.full_like(s, distance.NEG_INF))
+        sizes = list_sizes[li.long()].contiguous()
+        if fused:
+            lut = _pq_group_lut(centroids, codebooks, q, li, metric, lut_bf16, shared_lut)
+            s = adc_scan.adc_scan_lists(lut, list_codes, li, sizes, list_ids)
+        else:
+            lut, codes = _pq_group_inputs(centroids, codebooks, list_codes, q, li, metric,
+                                          lut_bf16, shared_lut)
+            s = adc_scan.mask_lists(adc_scan.adc_scan(lut, codes).reshape(nq, g, cap), li,
+                                    sizes, list_ids)
         carry = _merge_group(carry, s, li, list_ids, k)
     return carry
 

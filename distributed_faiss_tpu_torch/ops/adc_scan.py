@@ -1,7 +1,7 @@
 """PQ asymmetric-distance (ADC) scans: the CUDA kernels' wrappers and their
 plain PyTorch versions (counterpart of distributed_faiss_tpu/ops/adc_pallas.py).
 
-Over per-pair code lists (the IVF probe path) all three compute
+Over per-pair code lists (the IVF probe path) K2 and K3 compute
 ``out[p, c] = sum_m lut[p, m, codes[p, c, m]]`` with an fp32 sum, for lut
 (P, m, ksub) fp32 or bf16 and codes (P, L, m) uint8:
 
@@ -12,9 +12,19 @@ Over per-pair code lists (the IVF probe path) all three compute
 - ``adc_scan_nibble`` (K3, the port of ``adc_scan_pallas_nibble``): the
   geometry ``nibble_supported`` accepts (ksub = 256, m % 8 == 0). The name
   is the TPU kernel's; the CUDA kernel needs no 4-bit split, it gathers
-  from a shared-memory LUT and reads the codes as 8-byte words.
-- ``adc_scan_auto``: K3 when ``nibble_supported``, else K2, fixed by the
-  geometry: on the card nothing demotes.
+  from a shared-memory LUT and reads the codes as 8- or 16-byte words.
+
+K3 also scores a probe group straight from the index's lists, the
+function the JAX package's probe body computes around its nibble kernel
+(models/ivf.py:225-253): ``list_codes[li]``, the scan, then the
+``pos < size & id >= 0`` mask. ``adc_scan_lists(lut, list_codes, li,
+sizes_g, list_ids)`` returns those (nq, g, cap) scores with -inf at masked
+slots; the kernel reads each probed list's live rows itself and stops at
+its size, so the (nq*g, cap, m) gathered block is never built.
+``adc_scan_lists_plain`` is the gather + ``adc_scan_plain`` + ``mask_lists``
+it replaces. Both K3 entries launch the same kernel, and K3's counter
+(``adc_scan_nibble.launches``) counts launches from either;
+``adc_scan_lists.launches`` counts the fused entry's alone.
 
 Over one code list shared by every query (flat PQ),
 ``out[q, c] = sum_m lut[q, m, codes[c, m]]`` for lut (nq, m, ksub) and codes
@@ -33,10 +43,11 @@ so a wide m is scored in subspace slices: ``slice_width`` picks the widest
 slice that fits (at ksub = 256, K3 224 subspaces with an f32 LUT and 448
 with a bf16 one, K2 181 and 302, K4 75 and 112) and ``run_slices``
 launches the kernel once per slice, the first starting each score from 0
-and the rest adding to it, so every m the JAX package serves is served
-here. Each launch adds one to the wrapper's ``launches``; ``slices`` holds
-the number of slices of its latest call on the card. The JAX package's
-``USE_NIBBLE`` switch and demotion state are not ported.
+(K3 over the lists: writing the -inf mask) and the rest adding to the live
+scores, so every m the JAX package serves is served here. Each launch adds
+one to the wrapper's ``launches``; ``slices`` holds the number of slices
+of its latest call on the card. The JAX package's ``USE_NIBBLE`` switch
+and demotion state are not ported.
 """
 
 import ctypes
@@ -46,6 +57,7 @@ import threading
 import torch
 
 from distributed_faiss_tpu_torch.ops import cuda_build
+from distributed_faiss_tpu_torch.ops.distance import NEG_INF
 
 LUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -141,19 +153,52 @@ def adc_scan_shared(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return _launch_shared(lut, codes)
 
 
+def mask_lists(s: torch.Tensor, li: torch.Tensor, sizes_g: torch.Tensor,
+               list_ids: torch.Tensor) -> torch.Tensor:
+    """A probe group's (nq, g, cap) scores with -inf where the slot holds
+    no row: pos >= the probed list's size, or id < 0 (the JAX package's
+    mask, models/ivf.py:252-253)."""
+    pos = torch.arange(s.shape[2], device=s.device)
+    valid = (pos[None, None, :] < sizes_g[:, :, None]) & (list_ids[li.long()] >= 0)
+    return torch.where(valid, s, torch.full_like(s, NEG_INF))
+
+
+def adc_scan_lists_plain(lut: torch.Tensor, list_codes: torch.Tensor, li: torch.Tensor,
+                         sizes_g: torch.Tensor, list_ids: torch.Tensor) -> torch.Tensor:
+    """The fused K3's function in plain PyTorch: the probed lists' code
+    rows gathered into an (nq*g, cap, m) block, ``adc_scan_plain``, then
+    ``mask_lists``."""
+    nq, g = li.shape
+    _, cap, m = list_codes.shape
+    codes = list_codes[li.long()].reshape(nq * g, cap, m)
+    return mask_lists(adc_scan_plain(lut, codes).reshape(nq, g, cap), li, sizes_g, list_ids)
+
+
+def adc_scan_lists(lut: torch.Tensor, list_codes: torch.Tensor, li: torch.Tensor,
+                   sizes_g: torch.Tensor, list_ids: torch.Tensor) -> torch.Tensor:
+    """K3 over the probed lists themselves: masked ADC scores (nq, g, cap)
+    fp32 of one probe group.
+
+    lut: (nq*g, m, 256) fp32 or bf16, one per (query, probe) pair, m % 8
+    == 0; list_codes: (nlist, cap, m) uint8, the index's own lists;
+    li, sizes_g: (nq, g) int32 probed lists and their fill counts;
+    list_ids: (nlist, cap) int32. Slots at pos >= size or with id < 0 are
+    -inf."""
+    if lut.device.type == "cpu":
+        return adc_scan_lists_plain(lut, list_codes, li, sizes_g, list_ids)
+    if lut.device.type != "cuda":
+        raise RuntimeError(f"adc_scan_lists: unsupported device {lut.device}")
+    return _launch_lists(lut, list_codes, li, sizes_g, list_ids)
+
+
 adc_scan.launches = 0
 adc_scan_nibble.launches = 0
+adc_scan_lists.launches = 0
 adc_scan_shared.launches = 0
 adc_scan.slices = 0
 adc_scan_nibble.slices = 0
+adc_scan_lists.slices = 0
 adc_scan_shared.slices = 0
-
-
-def adc_scan_auto(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """K3 where its geometry allows, else K2 (adc_pallas.adc_scan_auto)."""
-    if nibble_supported(lut.shape[1], lut.shape[2]):
-        return adc_scan_nibble(lut, codes)
-    return adc_scan(lut, codes)
 
 
 def _check(name, what, t, dtypes, shape, device):
@@ -171,13 +216,13 @@ def _check(name, what, t, dtypes, shape, device):
 _entries = {}
 
 
-def _entry(symbol: str, n_ints: int):
-    """The C entry ``symbol`` of the built library, typed once: three
+def _entry(symbol: str, n_ptrs: int, n_ints: int):
+    """The C entry ``symbol`` of the built library, typed once: ``n_ptrs``
     device pointers, ``n_ints`` ints, the stream; returns the CUDA error."""
     fn = _entries.get(symbol)
     if fn is None:
         fn = getattr(cuda_build.load("adc_scan"), symbol)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entries[symbol] = fn
     return fn
@@ -213,11 +258,13 @@ def run_slices(m: int, width: int, launch) -> int:
     return n
 
 
-def _count_launch(wrapper, err):
+def _count_launch(err, *wrappers):
+    """Raise on a failed launch, else add one to each wrapper's count."""
     if err != 0:
-        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{wrappers[0].__name__} kernel launch failed: CUDA error {err}")
     with _counter_lock:
-        wrapper.launches += 1
+        for wrapper in wrappers:
+            wrapper.launches += 1
 
 
 def _launch(wrapper, lut, codes):
@@ -243,7 +290,7 @@ def _launch(wrapper, lut, codes):
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     bf16 = int(lut.dtype == torch.bfloat16)
-    entry = _entry("dft_adc_scan_nibble", 6) if nibble else _entry("dft_adc_scan", 6)
+    entry = _entry("dft_adc_scan_nibble" if nibble else "dft_adc_scan", 3, 6)
 
     def launch(s, e, accumulate):
         part = lut if e - s == m else lut[:, s:e].contiguous()
@@ -257,7 +304,7 @@ def _launch(wrapper, lut, codes):
             rows = codes if e - s == m else codes[:, :, s:e].contiguous()
             err = entry(part.data_ptr(), rows.data_ptr(), out.data_ptr(), P, L, e - s, ksub,
                         bf16, int(accumulate), stream)
-        _count_launch(wrapper, err)
+        _count_launch(err, wrapper)
 
     wrapper.slices = run_slices(m, width, launch)
     return out
@@ -281,14 +328,52 @@ def _launch_shared(lut, codes):
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     bf16 = int(lut.dtype == torch.bfloat16)
-    entry = _entry("dft_adc_scan_shared", 7)
+    entry = _entry("dft_adc_scan_shared", 3, 7)
 
     def launch(s, e, accumulate):
         # the slice of the code list is a view: rows keep their pitch of m
         part = lut if e - s == m else lut[:, s:e].contiguous()
         err = entry(part.data_ptr(), codes.data_ptr() + s, out.data_ptr(), nq, L, e - s,
                     ksub, m, bf16, int(accumulate), stream)
-        _count_launch(adc_scan_shared, err)
+        _count_launch(err, adc_scan_shared)
 
     adc_scan_shared.slices = run_slices(m, width, launch)
+    return out
+
+
+def _launch_lists(lut, list_codes, li, sizes_g, list_ids):
+    name = "adc_scan_lists"
+    if lut.dim() != 3 or list_codes.dim() != 3 or li.dim() != 2:
+        raise ValueError(f"{name}: lut and list_codes must be 3-d and li 2-d, got "
+                         f"{lut.dim()}, {list_codes.dim()} and {li.dim()}")
+    nq, g = li.shape
+    P, m, ksub = lut.shape
+    nlist, cap = list_codes.shape[0], list_codes.shape[1]
+    dev = lut.device
+    _check(name, "lut", lut, LUT_DTYPES, (nq * g, m, ksub), dev)
+    _check(name, "list_codes", list_codes, (torch.uint8,), (nlist, cap, m), dev)
+    _check(name, "li", li, (torch.int32,), (nq, g), dev)
+    _check(name, "sizes_g", sizes_g, (torch.int32,), (nq, g), dev)
+    _check(name, "list_ids", list_ids, (torch.int32,), (nlist, cap), dev)
+    if not nibble_supported(m, ksub):
+        raise ValueError(f"{name}: needs ksub == 256 and m % 8 == 0, got m={m} ksub={ksub}")
+    if list_codes.data_ptr() % 8:
+        raise ValueError(f"{name}: list_codes must be 8-byte aligned")
+    out = torch.empty((nq, g, cap), dtype=torch.float32, device=dev)
+    if P == 0 or cap == 0:
+        return out
+    width = slice_width(m, ksub, lut.element_size(), adc_scan_nibble)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = int(lut.dtype == torch.bfloat16)
+    entry = _entry("dft_adc_scan_lists", 6, 6)
+
+    def launch(s, e, accumulate):
+        # a slice of the lists is a view: rows keep their pitch of m bytes
+        part = lut if e - s == m else lut[:, s:e].contiguous()
+        err = entry(part.data_ptr(), list_codes.data_ptr() + s, li.data_ptr(),
+                    sizes_g.data_ptr(), list_ids.data_ptr(), out.data_ptr(), P, cap, e - s, m,
+                    bf16, int(accumulate), stream)
+        _count_launch(err, adc_scan_lists, adc_scan_nibble)
+
+    adc_scan_lists.slices = adc_scan_nibble.slices = run_slices(m, width, launch)
     return out

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 nvcc for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
 library under ``build/torch_kernels/`` at the root of the checkout, at first
 use, then loaded with ``ctypes``. The library's file name carries a hash of
-its source, so an edited kernel rebuilds and a stale one is never loaded.
+its source and of the shared headers, so an edited kernel rebuilds and a
+stale one is never loaded.
 ``build`` starts one nvcc per source, all at once, and waits for them
 together. Nothing here runs at import time: this module imports on machines
 without nvcc (the CPU tests import every module).
@@ -50,9 +51,12 @@ def sources() -> list:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of the shared
+    headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict:

@@ -98,6 +98,7 @@ def _ptr(t):
 
 def _launch(q, list_data, list_ids, li, sizes_g, list_norms, vmin, span,
             metric, codec, scan_bf16):
+    """Check the inputs and launch the kernel."""
     if codec not in CODECS:
         raise ValueError(f"flat_list_scan: unknown codec {codec!r}")
     if metric not in ("l2", "dot"):

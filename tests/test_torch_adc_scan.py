@@ -85,23 +85,6 @@ def test_nibble_supported_matches_jax():
             assert adc_scan.nibble_supported(m, ksub) == adc_pallas.nibble_supported(m, ksub)
 
 
-@pytest.mark.parametrize("m,ksub", [(4, 256), (8, 256), (12, 256), (16, 256), (64, 256),
-                                    (8, 16), (16, 128)])
-def test_auto_dispatch_follows_the_geometry(monkeypatch, m, ksub):
-    """adc_scan_auto takes the K3 wrapper exactly when nibble_supported,
-    else the K2 wrapper (checked through the wrappers it calls: the launch
-    counters do not move on the CPU)."""
-    calls = []
-    for name in ("adc_scan", "adc_scan_nibble"):
-        orig = getattr(adc_scan, name)
-        monkeypatch.setattr(adc_scan, name,
-                            lambda lut, codes, _n=name, _f=orig: calls.append(_n) or _f(lut, codes))
-    lut, codes = make_problem(m * ksub, 2, m, 40, ksub)
-    got = adc_scan.adc_scan_auto(torch.as_tensor(lut), torch.as_tensor(codes)).numpy()
-    assert calls == ["adc_scan_nibble" if adc_pallas.nibble_supported(m, ksub) else "adc_scan"]
-    np.testing.assert_array_equal(got, plain(lut, codes))
-
-
 @pytest.mark.parametrize("wrapper", ["adc_scan", "adc_scan_nibble"])
 def test_wrapper_sends_cpu_tensors_to_plain_version(wrapper):
     """On CPU tensors a wrapper is the plain version and counts no launch."""
@@ -113,7 +96,7 @@ def test_wrapper_sends_cpu_tensors_to_plain_version(wrapper):
     assert fn.launches == before
 
 
-@pytest.mark.parametrize("wrapper", ["adc_scan", "adc_scan_nibble", "adc_scan_auto"])
+@pytest.mark.parametrize("wrapper", ["adc_scan", "adc_scan_nibble"])
 def test_wrapper_never_falls_back_off_cpu(wrapper):
     """A tensor that lies neither on the CPU nor on a CUDA device raises:
     the plain version is reached only through a CPU tensor."""

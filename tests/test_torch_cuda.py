@@ -10,10 +10,15 @@ jax; ``tests/conftest.py`` imports jax, so skip it there:
 ``chip_smoke.py`` holds the kernels at the main path's widths; these cases
 add the ragged ones. The flat scan (K1): rows that are no multiple of 16
 bytes (element loads instead of 16-byte loads), a capacity that is no
-multiple of the kernel's 256-row tile, empty and full lists, and -1 ids.
+multiple of the kernel's 256-row tile, empty and full lists, -1 ids, and
+list sizes either side of its row batch, step and tile.
 The ADC scans (K2, K3): list lengths of 1, of one row either side of a
 128-row boundary and past the 256-row tile, m that is no power of two,
 both LUT dtypes, and a code buffer that starts off a 16-byte boundary.
+K3 over the probed lists (``adc_scan_lists``): list sizes either side of
+its 256-thread row step and its 1024-row block, empty and full lists, a
+capacity that is no multiple of 4, -1 ids, lists probed twice, g up to 4,
+lists read in 8-byte words, and m in subspace slices.
 The shared-list ADC scan (K4): list lengths either side of its 1024-row
 tile, query counts either side of its 32-query group, m from 4 to 64 in
 both LUT dtypes, code buffers at odd byte offsets. All three ADC scans at
@@ -108,6 +113,34 @@ def test_flat_scan_kernel_matches_plain(card, variant, d):
     want = flat_scan.flat_list_scan_plain(*args, **kw)
     rtol, atol = (5e-2, 5e-1) if bf16 else (1e-4, 1e-4)
     assert_scores_match(got, want, rtol, atol)
+
+
+# list sizes at the flat scan's edges: empty, one row, either side of a
+# warp's 8-row batch (fp16 rows at d = 128) and of a block's 64-row step
+# and 256-row tile, one short of the capacity, full
+EDGE_SIZES = (0, 1, 7, 8, 9, 63, 64, 65, 255, 256, 257, 600, 601)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("codec", ["f32", "f16", "sq8"])
+def test_flat_scan_kernel_at_row_edges(card, codec, d):
+    """Lists whose sizes sit at the kernel's row edges, in a capacity of
+    601 rows (no multiple of the tile, nor of the 16-byte -inf stores),
+    probed 4 at a time: identical -inf masks, scores within rtol/atol
+    1e-4."""
+    nlist, cap, g = len(EDGE_SIZES), 601, 4
+    q, data, ids, _, _, norms, vmin, span = flat_scan_inputs(
+        d + len(codec), codec, "l2", True, d, nq=5, nlist=nlist, cap=cap, g=g)
+    li = (torch.arange(5 * g, dtype=torch.int32) % nlist).reshape(5, g)
+    sizes_g = torch.as_tensor(EDGE_SIZES, dtype=torch.int32)[li.long()]
+    args = [None if a is None else a.to(card)
+            for a in (q, data, ids, li, sizes_g, norms, vmin, span)]
+    before = flat_scan.flat_list_scan.launches
+    got = flat_scan.flat_list_scan(*args, metric="l2", codec=codec)
+    torch.cuda.synchronize()
+    assert flat_scan.flat_list_scan.launches == before + 1
+    want = flat_scan.flat_list_scan_plain(*args, metric="l2", codec=codec)
+    assert_scores_match(got, want, 1e-4, 1e-4)
 
 
 def test_flat_scan_wrapper_refuses_bad_inputs(card):
@@ -223,6 +256,101 @@ def test_adc_wrappers_refuse_bad_inputs(card):
     assert (adc_scan.adc_scan.launches, adc_scan.adc_scan_nibble.launches) == before
 
 
+# list sizes at K3's edges over the lists: empty, one row, either side of
+# a block's 256-thread step and of its 1024 rows, one short of the
+# capacity (no multiple of 4), full
+LIST_EDGE_SIZES = (0, 1, 255, 256, 257, 1023, 1024, 1025, 1500, 1501)
+
+
+def lists_inputs(seed, nq, g, m, lut_dtype, sizes=LIST_EDGE_SIZES):
+    """adc_scan_lists arguments on the CPU: every list probed, the first
+    twice by query 0 when g > 1; about 5% of the ids -1."""
+    rng = np.random.default_rng(seed)
+    nlist, cap = len(sizes), max(sizes)
+    lut = torch.as_tensor(rng.standard_normal((nq * g, m, 256)).astype(np.float32))
+    list_codes = torch.as_tensor(rng.integers(0, 256, (nlist, cap, m)).astype(np.uint8))
+    ids = rng.integers(0, 1 << 20, (nlist, cap)).astype(np.int32)
+    ids[rng.random((nlist, cap)) < 0.05] = -1
+    li = (np.arange(nq * g) % nlist).astype(np.int32).reshape(nq, g)
+    if g > 1:
+        li[0, 1] = li[0, 0]
+    sizes_g = np.asarray(sizes, np.int32)[li]
+    return (lut.to(lut_dtype), list_codes, torch.as_tensor(li), torch.as_tensor(sizes_g),
+            torch.as_tensor(ids))
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [8, 64])
+def test_adc_lists_kernel_matches_plain(card, m, lut_dtype, g):
+    """K3 over the probed lists against its plain version (gather + scan +
+    mask): identical -inf masks, scores within rtol/atol 1e-4. One launch,
+    counted by the entry and by K3."""
+    args = [t.to(card) for t in lists_inputs(m + g, 12, g, m, lut_dtype)]
+    before = (adc_scan.adc_scan_lists.launches, adc_scan.adc_scan_nibble.launches)
+    got = adc_scan.adc_scan_lists(*args)
+    torch.cuda.synchronize()
+    assert (adc_scan.adc_scan_lists.launches, adc_scan.adc_scan_nibble.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (12, g, max(LIST_EDGE_SIZES))
+    assert_scores_match(got, adc_scan.adc_scan_lists_plain(*args), 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("lut_dtype,m,slices", [(torch.float32, 232, 2),
+                                                (torch.float32, 256, 2),
+                                                (torch.bfloat16, 456, 2)],
+                         ids=["f32-m232", "f32-m256", "bf16-m456"])
+def test_adc_lists_kernel_in_subspace_slices(card, lut_dtype, m, slices):
+    """Above the shared-memory limit the lists entry launches K3 once per
+    slice (the 8-subspace tail slices read 8-byte words); the later slices
+    add to the live rows only: the plain version's masks and scores."""
+    args = [t.to(card) for t in lists_inputs(m, 3, 2, m, lut_dtype, (0, 1, 300, 1025, 1100))]
+    before = adc_scan.adc_scan_lists.launches
+    got = adc_scan.adc_scan_lists(*args)
+    torch.cuda.synchronize()
+    assert adc_scan.adc_scan_lists.slices == slices
+    assert adc_scan.adc_scan_lists.launches == before + slices
+    assert_scores_match(got, adc_scan.adc_scan_lists_plain(*args), 1e-4, 1e-4)
+
+
+def test_adc_lists_reads_8_byte_aligned_lists(card):
+    """Lists that start 8 bytes past a 16-byte boundary are read in 8-byte
+    words: the same scores."""
+    lut, codes, li, sizes_g, ids = [t.to(card) for t in
+                                    lists_inputs(8, 4, 3, 64, torch.float32)]
+    raw = torch.zeros(codes.numel() + 8, dtype=torch.uint8, device=card)
+    raw[8:] = codes.reshape(-1)
+    shifted = raw[8:].view(codes.shape)
+    assert shifted.data_ptr() % 16 == 8
+    got = adc_scan.adc_scan_lists(lut, shifted, li, sizes_g, ids)
+    assert_scores_match(got, adc_scan.adc_scan_lists_plain(lut, codes, li, sizes_g, ids),
+                        1e-4, 1e-4)
+
+
+def test_adc_lists_refuses_bad_inputs(card):
+    """Device, dtype, shape, contiguity, alignment and geometry are checked
+    before the kernel gets a pointer; nothing launches when they fail."""
+    lut, codes, li, sizes_g, ids = [t.to(card) for t in
+                                    lists_inputs(0, 4, 2, 8, torch.float32, (0, 5, 64))]
+    raw = torch.zeros(codes.numel() + 1, dtype=torch.uint8, device=card)
+    before = (adc_scan.adc_scan_lists.launches, adc_scan.adc_scan_nibble.launches)
+    cases = [
+        ((lut.half(), codes, li, sizes_g, ids), "must be torch.float32 or torch.bfloat16"),
+        ((lut, codes.int(), li, sizes_g, ids), "must be torch.uint8"),
+        ((lut, codes, li.long(), sizes_g, ids), "must be torch.int32"),
+        ((lut, codes, li, sizes_g, ids.t().contiguous().t()), "contiguous"),
+        ((lut, codes, li, sizes_g.cpu(), ids), "is on cpu"),
+        ((lut[:4].contiguous(), codes, li, sizes_g, ids), "shape"),
+        ((lut[:, :4].contiguous(), codes[:, :, :4].contiguous(), li, sizes_g, ids),
+         "m % 8 == 0"),
+        ((lut, raw[1:].view(codes.shape), li, sizes_g, ids), "8-byte aligned"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            adc_scan.adc_scan_lists(*args)
+    assert (adc_scan.adc_scan_lists.launches, adc_scan.adc_scan_nibble.launches) == before
+
+
 # (wrapper, LUT dtype, m, slices): the largest m whose LUT fits a block's
 # shared memory (one slice) and m above it (several subspace slices)
 SMEM_EDGES = [("adc_scan_nibble", torch.float32, 224, 1),
@@ -255,8 +383,9 @@ def test_adc_kernel_at_the_shared_memory_limit(card, wrapper, lut_dtype, m, slic
                                                     "refine_k_factor": 4}),
                                          ("dot", 8, {}), ("l2", 4, {})])
 def test_ivf_pq_on_card_matches_cpu(card, metric, m, kw):
-    """The same IVF-PQ state served on the card (through K2 or K3) and on
-    the CPU (through the plain version): same ids, distances within 1e-3."""
+    """The same IVF-PQ state served on the card (through K2, or K3 over the
+    probed lists) and on the CPU (through the plain versions): same ids,
+    distances within 1e-3."""
     rng = np.random.default_rng(2)
     d, nlist = 32, 16
     centers = rng.standard_normal((nlist, d)).astype(np.float32) * 3.0
