@@ -9,9 +9,11 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
-   CUDA versions, and the build of every kernel source under
-   ``distributed_faiss_tpu_torch/csrc`` (one nvcc per source, started
-   together) with nvcc's register/spill report.
+   CUDA versions, the host compiler's version, and the build of every
+   kernel source under ``distributed_faiss_tpu_torch/csrc`` (one nvcc per
+   source, started together) with nvcc's register/spill report, beside
+   the g++ build of the hnswsq graph (``native/hnsw.cpp``) into
+   ``build/torch_native/``.
 2. Kernel phase, every kernel against its plain PyTorch version on the
    card, both timed with CUDA events after warm-up (``time_ms``: back-to-
    back calls that take copies of the inputs in turn, so many that no call
@@ -46,6 +48,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    >= 0.95 against the port's exact FlatIndex on the card, serve ``--nq``
    queries at top-10 from concurrent clients (QPS and p50/p99 request
    latency), and save -> drop -> load and check the same ids come back.
+   This server stays up for phases b and c.
 4. ``knnlm`` path (K3): a second server and client. The ``knnlm`` builder
    at BASELINE.json config 3's widths (d=768, 4096 centroids, PQ m=64,
    8-bit) with a bf16 LUT and an exact refine of 8x the shortlist, over
@@ -82,12 +85,42 @@ Phases, in order; any failure raises and the script exits nonzero:
    sums (``embedding_bag``) is timed as a yardstick (``library_ms``); the
    port never calls it.
 
-Before each of phases 3-8 every kernel's launch count is zeroed, and it is
-read after the phase: K1 must have launched on the ivfsq path, K3 on the
-knnlm path through ``adc_scan_lists`` (and neither K2 nor K4: the
+After phase 8, the rest of one rank's serving surface:
+
+a. Surface: an ``ivfsq`` index over the first ``SURFACE_N`` (100,000) rows
+   of phase 3's corpus, metadata ``(row, row % 4)``, on phase 3's server:
+   ``search_with_filter(filter_pos=1, filter_value=0)`` of 1000 queries
+   equals the unfiltered top-30 filtered on the host (or, for a row the
+   first fetch leaves short, the client's requery), keeps no tag 0;
+   ``get_ids`` is every row id; ``get_centroids``, ``index_loaded`` and
+   ``add_buffer_to_index`` answer.
+b. Wire A/B: ``--nq`` queries on phase 3's index through the negotiated
+   client (binary skeletons) and through a client built under
+   DFT_RPC_WIRE=pickle, in ``WIRE_PAIRS`` (10) pairs of runs whose first
+   side alternates: QPS and p50/p99 of each run, their medians and the
+   pairs binary won, the server offering ``binary``, the negotiated
+   stub's ``peer_wire`` true and the other's false, and phase 3's ids in
+   every run.
+c. Direct path: a third server with ``SchedulerCfg(enabled=False)`` loads
+   phase 3's snapshot and serves ``--nq`` queries through
+   ``engine.Index.search`` and its natural batcher: phase 3's ids, and
+   the engine's rows per launch logged.
+d. ``hnswsq``: the builder at its defaults (graph degree 128,
+   efConstruction 100, exact rerank of 8x the shortlist on the card) over
+   the first ``HNSW_N`` (200,000) rows of phase 3's corpus: build time,
+   efSearch doubled from 16 until recall@10 >= 0.95 against the exact
+   FlatIndex (failing at 4096), ``--nq`` queries served, save -> drop ->
+   load identical, and the graph library built from ``native/hnsw.cpp``
+   into ``build/``.
+
+Before each of phases 3-8 and a-d every kernel's launch count is zeroed
+(phase b reads none), and it is read after the phase: K1 must have
+launched on the ivfsq path, the surface index and the direct path, K3 on
+the knnlm path through ``adc_scan_lists`` (and neither K2 nor K4: the
 dispatch is fixed by the geometry),
 K2 on the K2 path, K4 on the flat-PQ path (and neither K2 nor K3) and on
-the pre-transform path and the wide flat-PQ path.
+the pre-transform path and the wide flat-PQ path; on the hnswsq path no
+kernel may launch (its graph is host C++).
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -133,6 +166,11 @@ KSUB = 256
 # IVF1024,PQ12,RFlat index (the first rows of the same corpus)
 KNNLM_N = 500_000
 K2_N = 100_000
+
+# rows of the ivfsq corpus behind the surface index (phase a) and the
+# hnswsq index (phase d): the first rows of phase 3's corpus
+SURFACE_N = 100_000
+HNSW_N = 200_000
 
 # H100 L2 is 50 MB: timed calls that read four times that before they take
 # the same inputs again find none of them there, and read them from HBM as
@@ -591,24 +629,25 @@ class Serving:
     """One port IndexServer on a loopback port, serving from a thread, and
     an IndexClient over a discovery file under ``work``; closed on exit."""
 
-    def __init__(self, work: str):
+    def __init__(self, work: str, store: str = None, scheduler_cfg=None):
         from distributed_faiss_tpu_torch.parallel.client import IndexClient
         from distributed_faiss_tpu_torch.parallel.server import IndexServer
 
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         self.work = work
-        self.server = IndexServer(0, os.path.join(work, "store"), device="cuda")
+        self.store = store or os.path.join(work, "store")
+        self.server = IndexServer(0, self.store, scheduler_cfg=scheduler_cfg, device="cuda")
         port = self.server.bind(0)
         self.thread = threading.Thread(target=self.server.start_blocking,
                                        name="smoke-server", daemon=True)
         self.thread.start()
         self.client = None
         try:
-            disc = os.path.join(work, "discovery.txt")
-            with open(disc, "w") as f:
+            self.disc = os.path.join(work, "discovery.txt")
+            with open(self.disc, "w") as f:
                 f.write(f"1\nlocalhost,{port}\n")
-            self.client = IndexClient(disc)
+            self.client = IndexClient(self.disc)
         except BaseException:
             self.close()
             raise
@@ -627,9 +666,10 @@ class Serving:
         self.close()
 
 
-def build_index(client, iid: str, cfg, x: np.ndarray, what: str) -> None:
-    """create_index, add ``x`` with its row numbers as metadata in 50,000-row
-    batches, and wait for the threshold training and the add drain."""
+def build_index(client, iid: str, cfg, x: np.ndarray, what: str, meta=None) -> None:
+    """create_index, add ``x`` with ``meta`` (default: its row numbers) as
+    metadata in 50,000-row batches, and wait for the threshold training and
+    the add drain."""
     from distributed_faiss_tpu_torch.utils.state import IndexState
 
     n = x.shape[0]
@@ -638,7 +678,8 @@ def build_index(client, iid: str, cfg, x: np.ndarray, what: str) -> None:
     t0 = time.perf_counter()
     bsz = 50_000
     for s in range(0, n, bsz):
-        client.add_index_data(iid, x[s:s + bsz], list(range(s, min(n, s + bsz))))
+        client.add_index_data(iid, x[s:s + bsz], list(range(s, min(n, s + bsz)))
+                              if meta is None else meta[s:s + bsz])
     sent_s = time.perf_counter() - t0
     deadline = time.monotonic() + 900
     while True:
@@ -691,17 +732,24 @@ def sweep_nprobe(client, iid: str, q_eval: np.ndarray, gt_ids: np.ndarray, start
 def serve_and_report(args, client, iid: str, q_all: np.ndarray, nprobe: int, card: str,
                      what: str) -> dict:
     serve_queries(client, q_all[:1000], iid, 100, 8)  # warm
-    wall, lat, results = serve_queries(client, q_all, iid, 100, 8)
-    qps = q_all.shape[0] / wall
-    p50, p99 = (float(np.percentile(lat, p) * 1e3) for p in (50, 99))
-    for D, meta in results:
-        check_result(D, meta, 100, 10, f"{what} served search")
-    log(f"{what}: served {q_all.shape[0]} queries at top-10, nprobe={nprobe}: "
-        f"{qps:.1f} QPS, request p50 {p50:.3f} ms p99 {p99:.3f} ms "
-        f"(100-row requests, 8 concurrent clients) on {card}")
+    qps, p50, p99, meta = timed_serve(client, q_all, iid, what, card, f", nprobe={nprobe}")
     if args.profile:
         profile_window(client, q_all[:2000], iid)
-    return dict(qps=qps, p50_ms=p50, p99_ms=p99)
+    return dict(qps=qps, p50_ms=p50, p99_ms=p99, meta=meta)
+
+
+def timed_serve(client, q_all: np.ndarray, iid: str, what: str, card: str, detail: str = ""):
+    """One timed run of ``q_all`` as 100-row requests from 8 threads, each
+    result checked: (QPS, p50 ms, p99 ms, the per-request metadata)."""
+    wall, lat, results = serve_queries(client, q_all, iid, 100, 8)
+    for D, meta in results:
+        check_result(D, meta, 100, 10, f"{what} served search")
+    qps = q_all.shape[0] / wall
+    p50, p99 = (float(np.percentile(lat, p) * 1e3) for p in (50, 99))
+    log(f"{what}: served {q_all.shape[0]} queries at top-10{detail}: "
+        f"{qps:.1f} QPS, request p50 {p50:.3f} ms p99 {p99:.3f} ms "
+        f"(100-row requests, 8 concurrent clients) on {card}")
+    return qps, p50, p99, [m for _d, m in results]
 
 
 def save_drop_load(client, iid: str, q_eval: np.ndarray, nprobe: int, what: str) -> None:
@@ -719,7 +767,10 @@ def save_drop_load(client, iid: str, q_eval: np.ndarray, nprobe: int, what: str)
 
 
 def ivfsq_path(args, counters, card: str) -> dict:
-    """Phase 3: the Quickstart shard on the ivfsq builder (K1)."""
+    """Phase 3: the Quickstart shard on the ivfsq builder (K1). Its server
+    (``out["serving"]``, closed by the caller) stays up for phases b and c,
+    and the corpus's first 200,000 rows and the queries are kept for
+    phases a and d."""
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
     d, n, what = 128, args.n, "ivfsq"
@@ -731,7 +782,8 @@ def ivfsq_path(args, counters, card: str) -> dict:
     q_eval = q_all[:1000]
     log(f"{what}: made {n} x {d} corpus and {args.nq} queries in "
         f"{time.perf_counter() - t0:.2f} s (seed {args.seed})")
-    with Serving(os.path.join(REPO, "build", "chip_smoke")) as s:
+    s = Serving(os.path.join(REPO, "build", "chip_smoke"))
+    try:
         iid = "quickstart"
         cfg = IndexCfg(index_builder_type="ivfsq", dim=d, metric="l2", train_num=100_000,
                        centroids=1024, nprobe=32, pallas_flat=True)
@@ -747,7 +799,11 @@ def ivfsq_path(args, counters, card: str) -> dict:
         # the loaded model's tensors, for timing K1 at the path's shapes
         # (read after the counts above, so those launches do not count)
         out["model"] = s.server.indexes[iid].model
-    out["q_block"] = q_all[:256]
+    except BaseException:
+        s.close()
+        raise
+    out.update(q_block=q_all[:256], serving=s, iid=iid, nprobe=nprobe, q_all=q_all,
+               x_head=x[:HNSW_N])
     log(f"{what}: launches {out['counts']}")
     return out
 
@@ -873,6 +929,202 @@ def knnlm_path(args, counters, card: str) -> dict:
         if wide_out["counts"]["K4"] <= 0 or slices < 2:
             raise AssertionError(f"{what}: K4 did not run in subspace slices on this path")
         out["flatpq128"] = wide_out
+    return out
+
+
+# ---------------------------------------------------------------- phases a-d
+
+
+def host_filter(meta_row, k: int) -> list:
+    """The first ``k`` hits of one unfiltered result row whose tag
+    (meta[1]) is not 0: what search_with_filter keeps."""
+    return [m for m in meta_row if m is not None and m[1] != 0][:k]
+
+
+def surface_phase(sq: dict, counters) -> dict:
+    """Phase a: the rest of one rank's surface over an ivfsq index of the
+    first SURFACE_N rows of phase 3's corpus, metadata (row, row % 4):
+    search_with_filter against the unfiltered top-k filtered on the host,
+    get_ids, get_centroids, index_loaded and add_buffer_to_index."""
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+    what, iid, n, k, max_requery = "surface", "surface", SURFACE_N, 10, 2
+    client = sq["serving"].client
+    x = sq["x_head"][:n]
+    q = sq["q_all"][:1000]
+    cfg = IndexCfg(index_builder_type="ivfsq", dim=x.shape[1], metric="l2", train_num=n,
+                   centroids=1024, nprobe=sq["nprobe"], pallas_flat=True)
+    zero_counts(counters)
+    build_index(client, iid, cfg, x, what, [(r, r % 4) for r in range(n)])
+    t0 = time.perf_counter()
+    scores, kept = client.search_with_filter(q, k, iid, filter_pos=1, filter_value=0,
+                                             max_requery=max_requery)
+    filter_s = time.perf_counter() - t0
+    _, plain = client.search(q, 3 * k, iid)
+    short = 0
+    for i, row in enumerate(kept):
+        if any(m[1] == 0 for m in row):
+            raise AssertionError(f"{what}: query {i} kept a row whose tag is 0")
+        if not (np.isfinite(scores[i]).all() and (np.diff(scores[i][:, 0]) >= 0).all()):
+            raise AssertionError(f"{what}: query {i}'s filtered scores are not ascending")
+        want = host_filter(plain[i], k)
+        factor = 3
+        for _ in range(max_requery):
+            if len(want) == k:
+                break
+            factor *= 3  # the client's requery step
+            want = host_filter(client.search(q[i:i + 1], min(factor * k, n), iid)[1][0], k)
+        if row != want:
+            raise AssertionError(f"{what}: query {i}: search_with_filter kept {row[:3]}..., "
+                                 f"the host filter {want[:3]}...")
+        short += len(row) < k
+    log(f"{what}: search_with_filter of {q.shape[0]} queries at top-{k} in "
+        f"{filter_s * 1e3:.1f} ms matches the unfiltered top-{3 * k} filtered on the host; "
+        f"{short} rows short after {max_requery} requeries")
+    if client.get_ids(iid) != set(range(n)):
+        raise AssertionError(f"{what}: get_ids is not the {n} row ids")
+    cents = client.get_centroids(iid)
+    if len(cents) != 1 or cents[0].shape != (1024, x.shape[1]):
+        raise AssertionError(f"{what}: get_centroids returned {[c.shape for c in cents]}")
+    stub = client.sub_indexes[0]
+    if stub.index_loaded(iid) is not True or stub.index_loaded("absent") is not False:
+        raise AssertionError(f"{what}: index_loaded answered wrong")
+    client.add_buffer_to_index(iid)
+    counts = read_counts(counters)
+    log(f"{what}: get_ids, get_centroids, index_loaded and add_buffer_to_index answered; "
+        f"launches {counts}")
+    if counts["K1"] <= 0:
+        raise AssertionError(f"{what}: K1 was not launched on this path")
+    client.drop_index(iid)
+    return dict(counts=counts, short=short, filter_ms=filter_s * 1e3)
+
+
+WIRE_PAIRS = 10
+
+
+def wire_phase(sq: dict, card: str) -> dict:
+    """Phase b: phase 3's index served to a negotiated client (binary
+    skeletons) and to a pickle-only client (DFT_RPC_WIRE=pickle at its
+    construction) in WIRE_PAIRS pairs of runs, the side that runs first
+    alternating; the ids are identical to each other and to phase 3's."""
+    from distributed_faiss_tpu_torch.parallel.client import IndexClient
+
+    s, iid, q_all = sq["serving"], sq["iid"], sq["q_all"]
+    saved = os.environ.get("DFT_RPC_WIRE")
+    os.environ["DFT_RPC_WIRE"] = "pickle"
+    try:
+        pickled = IndexClient(s.disc)
+    finally:
+        if saved is None:
+            del os.environ["DFT_RPC_WIRE"]
+        else:
+            os.environ["DFT_RPC_WIRE"] = saved
+    pickled.cfg = s.client.cfg
+    clients = {"binary": s.client, "pickle": pickled}
+    out = {"binary": [], "pickle": []}
+    try:
+        for c in clients.values():
+            serve_queries(c, q_all[:1000], iid, 100, 8)  # warm
+        for pair in range(WIRE_PAIRS):
+            for name in (("pickle", "binary") if pair % 2 == 0 else ("binary", "pickle")):
+                qps, p50, p99, meta = timed_serve(clients[name], q_all, iid,
+                                                  f"wire {name} (pair {pair})", card)
+                if meta != sq["meta"]:
+                    raise AssertionError(f"wire {name}: ids differ from phase 3's")
+                out[name].append(dict(qps=qps, p50_ms=p50, p99_ms=p99))
+        server_wire = s.client.get_perf_stats()[0]["rpc"]["wire"]
+        peer = {name: c.sub_indexes[0].rpc_stats()["peer_wire"] for name, c in clients.items()}
+    finally:
+        pickled.close()
+    wins = sum(b["qps"] > p["qps"] for b, p in zip(out["binary"], out["pickle"]))
+    med = {name: {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+           for name, runs in out.items()}
+    quartiles = {name: [float(np.percentile([r["qps"] for r in runs], p)) for p in (25, 75)]
+                 for name, runs in out.items()}
+    log(f"wire: server offers {server_wire}; peer_wire {peer}; medians over "
+        f"{WIRE_PAIRS} pairs: binary {med['binary']}, pickle {med['pickle']}; QPS quartiles "
+        f"{quartiles}; binary's QPS higher in {wins} of {WIRE_PAIRS} pairs")
+    if server_wire != "binary" or peer != {"binary": True, "pickle": False}:
+        raise AssertionError("wire: the negotiated client did not negotiate, or the "
+                             "pickle-only one did")
+    return out
+
+
+def direct_phase(sq: dict, counters, card: str) -> dict:
+    """Phase c: a third server without the scheduler (SchedulerCfg(enabled=
+    False)) loads phase 3's snapshot and serves ``--nq`` queries through
+    engine.search and its natural batcher: phase 3's ids, K1 launched."""
+    from distributed_faiss_tpu_torch.utils.config import SchedulerCfg
+
+    iid, q_all, what = sq["iid"], sq["q_all"], "direct"
+    with Serving(os.path.join(REPO, "build", "chip_smoke_direct"), store=sq["serving"].store,
+                 scheduler_cfg=SchedulerCfg(enabled=False)) as s:
+        if not s.client.load_index(iid):
+            raise AssertionError(f"{what}: load_index of phase 3's snapshot failed")
+        s.client.set_nprobe(iid, sq["nprobe"])
+        zero_counts(counters)
+        serve_queries(s.client, q_all[:1000], iid, 100, 8)  # warm
+
+        def rows():
+            r = s.client.get_perf_stats()[0]["engine"][iid]["device_search_rows"]
+            return r["count"], r["total_s"]  # launches, rows
+
+        n0, r0 = rows()
+        qps, p50, p99, meta = timed_serve(s.client, q_all, iid, what, card)
+        n1, r1 = rows()
+        counts = read_counts(counters)
+        if "scheduler" in s.client.get_perf_stats()[0]:
+            raise AssertionError(f"{what}: the server runs a scheduler")
+    rows_per_launch = (r1 - r0) / max(1, n1 - n0)
+    log(f"{what}: {n1 - n0} engine launches for {r1 - r0:.0f} rows, {rows_per_launch:.1f} "
+        f"rows a launch (100-row requests); launches {counts}")
+    if meta != sq["meta"]:
+        raise AssertionError(f"{what}: ids differ from phase 3's")
+    if counts["K1"] <= 0:
+        raise AssertionError(f"{what}: K1 was not launched on this path")
+    return dict(qps=qps, p50_ms=p50, p99_ms=p99, rows_per_launch=rows_per_launch,
+                counts=counts)
+
+
+def hnswsq_phase(args, sq: dict, counters, card: str) -> dict:
+    """Phase d: the hnswsq builder at its defaults over the first HNSW_N
+    rows of phase 3's corpus; efSearch swept by doubling from 16 until
+    recall@10 >= 0.95 (failing at 4096), ``--nq`` queries served, save ->
+    drop -> load identical, the graph library built from native/hnsw.cpp
+    into build/, and no kernel of the port launched."""
+    from distributed_faiss_tpu_torch.models import hnsw
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+    what, iid = "hnswsq", "hnswsq"
+    x, q_all = sq["x_head"], sq["q_all"]
+    q_eval = q_all[:1000]
+    with Serving(os.path.join(REPO, "build", "chip_smoke_hnsw")) as s:
+        cfg = IndexCfg(index_builder_type="hnswsq", dim=x.shape[1], metric="l2",
+                       train_num=100_000)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        build_index(s.client, iid, cfg, x, what)
+        build_s = time.perf_counter() - t0
+        model = s.server.indexes[iid].model
+        if not isinstance(model, hnsw.HNSWSQIndex) or (
+                model.M, model.ef_construction, model.refine_k_factor) != (128, 100, 8):
+            raise AssertionError(f"{what}: the builder did not build the default graph")
+        lib = hnsw.library_path()
+        if (str(hnsw.SOURCE) != os.path.join(REPO, "native", "hnsw.cpp") or not lib.is_file()
+                or not str(lib).startswith(os.path.join(REPO, "build") + os.sep)
+                or os.path.realpath(hnsw.load_library()._name) != os.path.realpath(lib)):
+            raise AssertionError(f"{what}: the graph library is not {lib}")
+        gt_ids = exact_ground_truth(x, q_eval, 10, what)
+        ef, rec = sweep_nprobe(s.client, iid, q_eval, gt_ids, 16, 4096, what)
+        out = serve_and_report(args, s.client, iid, q_all, ef, card, what)
+        save_drop_load(s.client, iid, q_eval, ef, what)
+        counts = read_counts(counters)
+    log(f"{what}: {x.shape[0]} rows built in {build_s:.2f} s (M=128, efConstruction=100, "
+        f"exact rerank of 8x the shortlist on the card), efSearch={ef} recall@10={rec:.4f}; "
+        f"graph library {os.path.relpath(lib, REPO)}; launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"{what}: a kernel of the port launched on the graph path")
+    out.update(build_s=build_s, ef=ef, recall=rec, counts=counts)
     return out
 
 
@@ -1128,7 +1380,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.models import hnsw, ivf
     from distributed_faiss_tpu_torch.ops import adc_scan, cuda_build, distance, flat_scan
     from distributed_faiss_tpu_torch.utils.device import resolve_device
 
@@ -1138,8 +1390,28 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()[0]
+    log(f"host compiler for the hnswsq graph: {gxx}")
     t0 = time.perf_counter()
+    graph_build = {}
+
+    def build_graph():
+        t = time.perf_counter()
+        try:
+            graph_build["lib"] = hnsw.build_library()
+        except BaseException as e:  # re-raised below, on the main thread
+            graph_build["error"] = e
+        graph_build["s"] = time.perf_counter() - t
+
+    graph_thread = threading.Thread(target=build_graph, name="smoke-g++")
+    graph_thread.start()
     libs = cuda_build.build()
+    graph_thread.join()
+    if "error" in graph_build:
+        raise graph_build["error"]
+    log(f"hnswsq graph library built in {graph_build['s']:.2f} s: "
+        f"{os.path.relpath(graph_build['lib'], REPO)}")
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(f"{name} -> {os.path.relpath(p, REPO)}" for name, p in libs.items()))
     for name in libs:
@@ -1160,11 +1432,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sq_out = ivfsq_path(args, counters, card)
     log(f"ivfsq path: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    outs = knnlm_path(args, counters, card)
-    pq_out, k2_out, flat_out = outs["knnlm"], outs["k2"], outs["flatpq"]
-    log(f"knnlm, IVF1024,PQ12,RFlat, PQ64,RFlat, OPQ64,PQ64,RFlat and PQ128,RFlat paths: "
-        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        t0 = time.perf_counter()
+        outs = knnlm_path(args, counters, card)
+        pq_out, k2_out, flat_out = outs["knnlm"], outs["k2"], outs["flatpq"]
+        log(f"knnlm, IVF1024,PQ12,RFlat, PQ64,RFlat, OPQ64,PQ64,RFlat and PQ128,RFlat "
+            f"paths: {time.perf_counter() - t0:.1f} s")
+        for name, phase in (("surface", lambda: surface_phase(sq_out, counters)),
+                            ("wire A/B", lambda: wire_phase(sq_out, card)),
+                            ("direct path", lambda: direct_phase(sq_out, counters, card)),
+                            ("hnswsq", lambda: hnswsq_phase(args, sq_out, counters, card))):
+            t0 = time.perf_counter()
+            phase()
+            log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        sq_out["serving"].close()
 
     k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])
     k3 = adc_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"], "knnlm")

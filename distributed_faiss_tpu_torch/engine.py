@@ -9,13 +9,17 @@ async training on a uniform sample of the whole buffer, chunked async add
 (cfg.buffer_bsz), the metadata join, and generation + MANIFEST persistence
 that writes the same file set as the JAX engine's ``_commit_generation``
 (index npz, meta pkl, buffer pkl, cfg json, tombstones json), so a storage
-dir written by either package loads in the other.
+dir written by either package loads in the other. With
+``cfg.save_interval_sec > 0`` a save watcher thread commits a generation
+every interval while rows keep arriving, and ``search`` goes through the
+in-process natural batcher (utils/batching.py) so concurrent callers share
+device launches.
 
 Not ported yet: mutation (remove/upsert, tombstones, compaction), per-id
-versions, replica digests, shard transfer, generation-pinned reads, the
-autosave watcher and the in-process natural batcher. A storage dir whose
-tombstone set is not empty is refused with a clear error, because serving
-it without the deletes would resurrect deleted rows.
+versions, replica digests, shard transfer and generation-pinned reads. A
+storage dir whose tombstone set is not empty is refused with a clear
+error, because serving it without the deletes would resurrect deleted
+rows.
 """
 
 import json
@@ -30,6 +34,7 @@ import numpy as np
 
 from distributed_faiss_tpu_torch.models.factory import build_index, index_from_state_dict
 from distributed_faiss_tpu_torch.utils import serialization
+from distributed_faiss_tpu_torch.utils.batching import SearchBatcher
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
 from distributed_faiss_tpu_torch.utils.device import resolve_device
 from distributed_faiss_tpu_torch.utils.serialization import atomic_write, load_state, save_state
@@ -125,6 +130,7 @@ class Index:
         self._retired = threading.Event()
         self._train_thread: Optional[threading.Thread] = None
         self._add_thread: Optional[threading.Thread] = None
+        self._save_thread: Optional[threading.Thread] = None
         self.index_save_time = time.time()
         self.index_saved_size = 0
         self.perf = LatencyStats()  # device-search latency, served via get_perf_stats
@@ -132,6 +138,12 @@ class Index:
         # bumped under both locks whenever the positional layout is replaced
         # (drop_index): a search that launched on the old layout re-joins
         self._meta_epoch = 0
+        # concurrent searches coalesce into shared device launches; window 0
+        # = natural batching only, no added latency
+        self._batcher = SearchBatcher(
+            self._device_search, window_ms=float(cfg.extra.get("batch_window_ms", 0.0)))
+        if cfg.save_interval_sec > 0:
+            self._run_save_watcher()
 
     # ------------------------------------------------------------------ ingest
 
@@ -352,13 +364,22 @@ class Index:
 
     def search(self, query_batch: np.ndarray, top_k: int = 100,
                return_embeddings: bool = False):
-        return self.search_batched(query_batch, top_k, return_embeddings)
+        """Search through the natural batcher: concurrent callers share
+        device launches (the state is re-checked under the lock inside
+        ``_device_search``)."""
+        query_batch = np.asarray(query_batch, np.float32)
+        if return_embeddings:
+            run = lambda: self._search_reconstruct(query_batch, top_k)  # noqa: E731
+        else:
+            run = lambda: self._batcher.search(query_batch, top_k) + (None,)  # noqa: E731
+        return self._run_and_join(run, return_embeddings)
 
     def search_batched(self, query_batch: np.ndarray, top_k: int = 100,
                        return_embeddings: bool = False):
         """The already-batched entry the serving scheduler calls with one
-        coalesced window. ``search`` is the same call: the JAX engine's
-        in-process natural batcher in front of it is not ported."""
+        coalesced window: the same locked launch and metadata join as
+        ``search``, without the batcher in front (the scheduler has already
+        coalesced its callers, from a single thread)."""
         query_batch = np.asarray(query_batch, np.float32)
         if return_embeddings:
             run = lambda: self._search_reconstruct(query_batch, top_k)  # noqa: E731
@@ -388,6 +409,17 @@ class Index:
             if self.state != IndexState.TRAINED:
                 raise RuntimeError("Server index is not trained")
             return self.model.get_centroids()
+
+    def get_ids(self) -> set:
+        """The ``cfg.custom_meta_id_idx`` field of every indexed or buffered
+        row's metadata. The store is snapshotted under both locks and the
+        set is built outside them, so a long iteration does not stall
+        concurrent adds (slots below the snapshotted length are never
+        rewritten). Deletes are not ported, so no row is dead."""
+        id_idx = self.cfg.custom_meta_id_idx
+        with self.buffer_lock, self.index_lock:
+            meta_arr, meta_n = self.id_to_metadata.snapshot()
+        return {meta[id_idx] for meta in meta_arr[:meta_n].tolist() if meta}
 
     def set_nprobe(self, nprobe: int) -> None:
         self.cfg.nprobe = nprobe
@@ -421,9 +453,12 @@ class Index:
 
     def retire(self) -> None:
         """Stop persistence for this engine (the server swapped it out) and
-        join its workers, bounded."""
+        join its workers, bounded: the save watcher wakes on the retired
+        event and exits at once; a train or add worker still running past
+        the timeout is harmless, since ``_maybe_save`` no-ops once
+        retired."""
         self._retired.set()
-        for t in (self._train_thread, self._add_thread):
+        for t in (self._save_thread, self._train_thread, self._add_thread):
             if t is not None and t is not threading.current_thread():
                 t.join(timeout=1.0)
 
@@ -452,6 +487,18 @@ class Index:
             logger.info("saved index (%d vectors) to %s as generation %d",
                         self.index_saved_size, storage_dir, gen)
             return True
+
+    def _run_save_watcher(self) -> None:
+        def watch(idx: "Index"):
+            # the retired event doubles as the sleep: retire() wakes the
+            # watcher at once instead of leaking it one last interval
+            while not idx._retired.wait(idx.cfg.save_interval_sec):
+                idx._maybe_save(ignore_time=False)
+
+        t = threading.Thread(target=watch, args=(self,), name=f"save:{self._thread_tag()}",
+                             daemon=True)
+        self._save_thread = t
+        t.start()
 
     @staticmethod
     def _commit_generation(storage_dir: str, gen: int, state: dict, meta: list,

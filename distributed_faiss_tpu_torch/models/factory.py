@@ -9,16 +9,21 @@ Ported builders (same names as the reference and the JAX package):
                (IndexIVFPQ), with the pallas_adc, adc_lut_bf16,
                refine_k_factor and kmeans_iters knobs; opq=True puts an OPQ
                rotation in front (opq_iters, default 8); its
-               shard_lists=True variant is not ported and raises.
+               shard_lists=True variant is not ported and raises;
+- hnswsq     — the host C++ HNSW graph over SQ8 codes (models/hnsw.py), L2
+               only: store_n (graph degree, default 128), ef_construction
+               (default 100), refine_k_factor (default 8); nprobe is
+               efSearch. Without a working C++ compiler it raises; it never
+               falls back to a flat scan.
 
 Factory strings: ``[OPQ<m>[_<dout>],|PCA<dout>,|PCAR<dout>,] core
-[,RFlat|,Refine(Flat)]`` with core ``Flat | SQ8 | SQfp16 | PQ<m>[x8]`` or
-``IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])`` (``{centroids}`` templating as in
-the reference). ``index_from_state_dict`` rebuilds the kinds ``flat``,
-``ivf_flat``, ``ivf_pq`` and ``pretransform`` — the npz state written by
-either package loads here.
+[,RFlat|,Refine(Flat)]`` with core ``Flat | SQ8 | SQfp16 | PQ<m>[x8]``,
+``HNSW<M>[,Flat|,SQ8]`` or ``IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])``
+(``{centroids}`` templating as in the reference). ``index_from_state_dict``
+rebuilds the kinds ``flat``, ``ivf_flat``, ``ivf_pq``, ``hnswsq`` and
+``pretransform``: the npz state written by either package loads here.
 
-Everything else (hnswsq, ivf_tpu, HNSW specs, the sharded kinds) raises a
+Everything else (ivf_tpu, the mesh-sharded indexes and kinds) raises a
 "not yet ported" error.
 """
 
@@ -26,6 +31,7 @@ import logging
 import re
 
 from distributed_faiss_tpu_torch.models.flat import FlatIndex
+from distributed_faiss_tpu_torch.models.hnsw import HNSWSQIndex
 from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
 from distributed_faiss_tpu_torch.models.pretransform import PreTransformIndex
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
@@ -35,10 +41,10 @@ logger = logging.getLogger()
 
 def _not_ported(what: str):
     return RuntimeError(f"{what} is not yet ported to distributed_faiss_tpu_torch "
-                        "(ported: the flat, ivf_simple, ivfsq and knnlm builders; "
-                        "the Flat, SQ8, SQfp16 and PQ<m> factory specs, alone or "
-                        "under IVF<n>, with an optional RFlat and an optional "
-                        "OPQ<m>[_<d>], PCA<d> or PCAR<d> prefix)")
+                        "(ported: the flat, ivf_simple, ivfsq, knnlm and hnswsq "
+                        "builders; the Flat, SQ8, SQfp16 and PQ<m> factory specs, "
+                        "alone or under IVF<n>, and HNSW<M>, with an optional RFlat "
+                        "and an optional OPQ<m>[_<d>], PCA<d> or PCAR<d> prefix)")
 
 
 def _centroids(cfg: IndexCfg) -> int:
@@ -104,15 +110,36 @@ def _build_knnlm(cfg: IndexCfg, device):
     return inner
 
 
+def _hnsw(dim: int, M: int, cfg: IndexCfg, device) -> HNSWSQIndex:
+    if cfg.metric != "l2":
+        raise RuntimeError("hnswsq and HNSW<M> support the l2 metric only "
+                           "(reference index.py:52)")
+    # refine_k_factor=8 (exact fp16 rescore of the SQ8 shortlist) is on by
+    # default: the bare SQ8 codec plateaus near recall 0.90, and the rerank
+    # is what clears 0.95; extra={'refine_k_factor': 0} is the reference's
+    # IndexHNSWSQ
+    return HNSWSQIndex(dim, "l2", M=M,
+                       ef_construction=int(cfg.extra.get("ef_construction", 100)),
+                       refine_k_factor=int(cfg.extra.get("refine_k_factor", 8)),
+                       device=device)
+
+
+def _build_hnswsq(cfg: IndexCfg, device) -> HNSWSQIndex:
+    # store_n=128 and efConstruction=100 are the reference builder's
+    # (index.py:55-58)
+    return _hnsw(cfg.dim, int(cfg.extra.get("store_n", 128)), cfg, device)
+
+
 INDEX_BUILDERS = {
     "flat": _build_flat,
     "ivf_simple": _build_ivf_simple,
     "ivfsq": _build_ivfsq,
     "knnlm": _build_knnlm,
+    "hnswsq": _build_hnswsq,
 }
 
 # builders of the JAX package that later slices port
-_PENDING_BUILDERS = ("hnswsq", "ivf_tpu")
+_PENDING_BUILDERS = ("ivf_tpu",)
 
 _FLAT_CODECS = {"Flat": "f32", "SQ8": "sq8", "SQfp16": "f16"}
 _IVF_CODECS = {"Flat": "f32", "SQ8": "sq8", "SQfp16": "f16", "SQ16": "f16"}
@@ -133,6 +160,7 @@ def _is_pq(token: str) -> bool:
 
 
 _OPQ_RE = re.compile(r"^OPQ(\d+)(?:_(\d+))?$")
+_HNSW_RE = re.compile(r"^HNSW(\d+)$")
 _PCA_RE = re.compile(r"^PCAR?(\d+)$")
 
 
@@ -146,6 +174,10 @@ def _build_core(parts, dim: int, metric: str, refine_k: int, cfg: IndexCfg, devi
                          refine_k_factor=refine_k, device=device)
         idx.set_nprobe(1)
         return idx
+    hnsw = _HNSW_RE.match(parts[0]) if parts else None
+    if hnsw and (len(parts) == 1 or (len(parts) == 2 and parts[1] in ("Flat", "SQ8"))):
+        # the graph's storage is SQ8 either way
+        return _hnsw(dim, int(hnsw.group(1)), cfg, device)
     if len(parts) == 2 and parts[0].startswith("IVF") and parts[0][3:].isdigit():
         nlist = int(parts[0][3:])
         if _is_pq(parts[1]):
@@ -166,7 +198,7 @@ def parse_factory(cfg: IndexCfg, device):
     package's grammar):
 
       [OPQ<m>[_<dout>],|PCA<dout>,|PCAR<dout>,] core [,RFlat|,Refine(Flat)]
-      core := Flat | SQ8 | SQfp16 | PQ<m>[x8]
+      core := Flat | SQ8 | SQfp16 | PQ<m>[x8] | HNSW<M>[,Flat|,SQ8]
             | IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])
 
     A flat ``PQ<m>`` is IVF-PQ with one list, always probed. As in the JAX
@@ -225,8 +257,8 @@ def build_index(cfg: IndexCfg, device="cuda"):
 
 
 _STATE_KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
-                "pretransform": PreTransformIndex}
-_PENDING_KINDS = ("sharded_flat", "sharded_ivf_flat", "sharded_ivf_pq", "hnswsq")
+                "hnswsq": HNSWSQIndex, "pretransform": PreTransformIndex}
+_PENDING_KINDS = ("sharded_flat", "sharded_ivf_flat", "sharded_ivf_pq")
 
 
 def index_from_state_dict(state, device="cuda"):

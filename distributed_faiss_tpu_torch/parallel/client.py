@@ -9,12 +9,16 @@ multiplexed RPC stub per server with a sized fan-out executor
 transport-dead rank, broadcast ops that retry per rank and raise a
 ``MultiRankError`` carrying every rank's outcome, the fan-out search with
 the client-side top-k merge (``merge_result_blocks``: dot scores negated
-before the min-merge and returned negated), and the cluster state
-aggregation.
+before the min-merge and returned negated), partial-result search
+(``allow_partial``: transport-dead ranks are skipped and listed), the
+metadata-filtered search with over-fetch and requery
+(``search_with_filter``), ``get_ids``, ``get_centroids``,
+``add_buffer_to_index``, ``set_omp_num_threads`` and the cluster state
+aggregation. Each rank is its own shard (one replica per group).
 
-Not ported yet: replication groups and repair, versioned writes,
-mutation ops, partial-result search, filtered search, generation-pinned
-reads and trace export.
+Not ported yet: replication groups and repair, versioned writes and
+read-your-writes (``min_version``), mutation ops, generation-pinned reads
+and trace export.
 """
 
 import itertools
@@ -86,6 +90,16 @@ def merge_result_blocks(blocks: List[np.ndarray], topk: int) -> Tuple[np.ndarray
     else:
         ids = np.argsort(all_d, kind="stable", axis=1)[:, :topk]
     return np.take_along_axis(all_d, ids, axis=1), ids.astype(np.int64)
+
+
+class _FailedRank:
+    """A rank that failed a partial fan-out call: its stub and error (cannot
+    be mistaken for a server's (scores, meta, embs) tuple)."""
+
+    __slots__ = ("stub", "error")
+
+    def __init__(self, stub, error):
+        self.stub, self.error = stub, error
 
 
 class MultiRankError(RuntimeError):
@@ -275,29 +289,70 @@ class IndexClient:
     def async_train(self, index_id: str) -> None:
         self._broadcast("async_train", (index_id,))
 
+    def add_buffer_to_index(self, index_id: str):
+        self._broadcast("add_buffer_to_index", (index_id,))
+
     # ------------------------------------------------------------ query
 
     def search(self, query: np.ndarray, topk: int, index_id: str,
-               return_embeddings: bool = False, deadline: Optional[float] = None) -> tuple:
+               return_embeddings: bool = False, allow_partial: bool = False,
+               partial_timeout: Optional[float] = None,
+               deadline: Optional[float] = None) -> tuple:
         """Fan-out search with the client-side top-k merge; returns (D, meta)
-        or (D, meta, embs). Any rank's failure raises. ``deadline`` (seconds
-        of budget) rides every per-rank frame so an overloaded rank can shed
-        the request before it reaches the device; BUSY rejections retry under
-        the RetryPolicy backoff, never past the deadline."""
+        or (D, meta, embs), plus a trailing ``missing`` list with
+        ``allow_partial``.
+
+        allow_partial=False: any rank's failure raises. allow_partial=True:
+        a rank that is dead at the transport level (unreachable, connection
+        lost, deadline expired) or still BUSY after the retry budget is
+        skipped, top-k is served from the rest, and ``missing`` holds one
+        {server, host, port, error} dict per skipped rank (empty: complete).
+        An application error from a live rank (ServerException: index not
+        loaded or trained, bad args) still raises, and so does a call on
+        which every rank is dead. ``partial_timeout`` bounds each rank's
+        call with a socket wait, so a hung rank degrades too; the stub
+        redials on its next call.
+
+        ``deadline`` (seconds of budget) rides every per-rank frame so an
+        overloaded rank can shed the request before it reaches the device;
+        BUSY rejections retry under the RetryPolicy backoff, never past the
+        deadline."""
         if self.cfg is None:
             # without the metric the merge cannot be right (dot is negated)
             raise RuntimeError("IndexClient has no cfg for this index: pass cfg_path at "
                                "construction, or call create_index/load_index first")
         abs_deadline = None if deadline is None else time.time() + deadline
+        maximize_metric = self.cfg.metric == "dot"
 
-        def one(stub):
+        def call_stub(stub, timeout=None):
             return self.retry.run_filtered(
                 (rpc.BusyError,), abs_deadline, stub.generic_fun, "search",
-                (index_id, query, topk, return_embeddings), None, deadline=abs_deadline)
+                (index_id, query, topk, return_embeddings), None, timeout=timeout,
+                deadline=abs_deadline)
 
-        results = self.pool.map(one, self.sub_indexes)
-        return IndexClient._aggregate_results(results, topk, query.shape[0],
-                                              self.cfg.metric == "dot", return_embeddings)
+        if not allow_partial:
+            results = self.pool.map(call_stub, self.sub_indexes)
+            return IndexClient._aggregate_results(results, topk, query.shape[0],
+                                                  maximize_metric, return_embeddings)
+
+        def one_partial(stub):
+            try:
+                return call_stub(stub, timeout=partial_timeout)
+            except rpc.TRANSPORT_ERRORS + (rpc.BusyError, rpc.DeadlineExceeded) as e:
+                logger.warning("rank %s (%s:%s) unreachable during search, serving "
+                               "without it: %s", stub.id, stub.host, stub.port, e)
+                return _FailedRank(stub, e)
+
+        raw = list(self.pool.map(one_partial, self.sub_indexes))
+        ok = [r for r in raw if not isinstance(r, _FailedRank)]
+        missing = [{"server": f.stub.id, "host": f.stub.host, "port": f.stub.port,
+                    "error": f"{type(f.error).__name__}: {f.error}"}
+                   for f in raw if isinstance(f, _FailedRank)]
+        if not ok:
+            raise RuntimeError(f"search failed on every rank: {[m['error'] for m in missing]}")
+        merged = IndexClient._aggregate_results(iter(ok), topk, query.shape[0],
+                                                maximize_metric, return_embeddings)
+        return merged + (missing,)
 
     @staticmethod
     def _aggregate_results(results, topk: int, q_size: int, maximize_metric: bool,
@@ -325,6 +380,63 @@ class IndexClient:
             return D, selected_meta, to_matrix([embs[f] for f in flat])
         return D, selected_meta
 
+    def search_with_filter(self, query: np.ndarray, top_k: int, index_id: str,
+                           filter_pos: int = -1, filter_value=None, max_requery: int = 2):
+        """Metadata-filtered search with over-fetch (reference
+        client.py:213-263): fetch 3*k, drop the rows whose
+        ``meta[filter_pos] == filter_value``, keep the first k survivors.
+        Returns (list of (n_kept, 1) score arrays, list of kept metadata).
+
+        A query left short is searched again with a factor three times
+        larger, up to ``max_requery`` times, and never past the whole index
+        (``max_requery=0`` keeps the reference's short rows)."""
+        filter_top_factor = 3
+        if filter_pos < 0:
+            return self.search(query, top_k, index_id)
+
+        def filter_rows(scores, meta):
+            out_scores, out_meta, short = [], [], []
+            for i, meta_list in enumerate(meta):
+                kept_meta, kept_scores = [], []
+                for j, m in enumerate(meta_list):
+                    if not m:
+                        continue
+                    if len(m) > filter_pos and m[filter_pos] != filter_value:
+                        kept_meta.append(m)
+                        kept_scores.append(scores[i, j])
+                    if len(kept_meta) >= top_k:
+                        break
+                if len(kept_meta) < top_k:
+                    short.append(i)
+                out_meta.append(kept_meta)
+                out_scores.append(np.asarray(kept_scores).reshape(-1, 1))
+            return out_scores, out_meta, short
+
+        factor = filter_top_factor
+        scores, meta = self.search(query, factor * top_k, index_id)
+        new_scores, new_meta, short_ids = filter_rows(scores, meta)
+
+        ntotal = None
+        for _ in range(max_requery):
+            if not short_ids:
+                break
+            if ntotal is None:
+                ntotal = self.get_ntotal(index_id)
+            if factor * top_k >= ntotal:
+                break  # already saw the whole index
+            factor *= filter_top_factor
+            requery = np.asarray(query)[short_ids]
+            s2, m2 = self.search(requery, min(factor * top_k, ntotal), index_id)
+            f_scores, f_meta, still_short = filter_rows(s2, m2)
+            for pos, qi in enumerate(short_ids):
+                new_scores[qi] = f_scores[pos]
+                new_meta[qi] = f_meta[pos]
+            short_ids = [short_ids[pos] for pos in still_short]
+        if short_ids:
+            logger.info("%d samples returned fewer than %d results after filtering",
+                        len(short_ids), top_k)
+        return new_scores, new_meta
+
     # ------------------------------------------------------------ observability
 
     def get_state(self, index_id: str) -> IndexState:
@@ -343,15 +455,30 @@ class IndexClient:
             lambda s: self._call_with_retry(s, "get_aggregated_ntotal", (index_id,)),
             self.sub_indexes))
 
+    def get_ids(self, index_id: str) -> set:
+        id_sets = self.pool.map(
+            lambda s: self._call_with_retry(s, "get_ids", (index_id,)), self.sub_indexes)
+        return set().union(*id_sets)
+
+    def get_centroids(self, index_id: str) -> list:
+        return list(self.pool.map(
+            lambda s: self._call_with_retry(s, "get_centroids", (index_id,)),
+            self.sub_indexes))
+
     def set_nprobe(self, index_id: str, nprobe: int):
         return self._broadcast("set_nprobe", (index_id, nprobe))
 
+    def set_omp_num_threads(self, num_threads: int) -> None:
+        self._broadcast("set_omp_num_threads", (num_threads,))
+
     def get_perf_stats(self) -> list:
-        """Per-server latency summaries; each entry gains this client's wire
-        round-trip view of the stub under ``"rpc_client"``."""
+        """Per-server latency summaries; each entry gains this client's view
+        of the stub (``rpc.Client.rpc_stats``: wire encoding, whether the
+        peer answered in binary, pipelining depth, wire round trips) under
+        ``"rpc_client"``."""
         stats = self._broadcast("get_perf_stats")
         for stub, entry in zip(self.sub_indexes, stats):
-            entry["rpc_client"] = stub.stats.summary()
+            entry["rpc_client"] = stub.rpc_stats()
         return stats
 
     def ping(self, timeout: float = 10.0) -> list:

@@ -18,10 +18,22 @@ meta dict (with ``deadline_s`` when the call has a deadline); the server
 answers with the tagged kinds (``KIND_*_MUX``, payload ``({"req_id": n},
 body)``), so many calls are in flight per connection and complete out of
 order. A frame without ``req_id`` is served on the synchronous in-order
-path and answered untagged. The binary skeleton encoding
-(parallel/wire.py) is not ported: the port never advertises it, which is
-the protocol's legal un-negotiated dialect, and every frame here carries a
-pickle skeleton.
+path and answered untagged.
+
+Binary skeletons (parallel/wire.py): a frame whose kind byte carries
+``WIRE_BINARY_FLAG`` holds a compact binary skeleton instead of pickle
+bytes; the header and the tensor planes are unchanged. Negotiation is per
+connection and costs no round trip. Every pickle CALL from a wire-capable
+``Client`` carries ``{"wire": 1}`` in its meta ("I decode binary frames");
+a wire-capable server then answers the search family in binary on that
+connection, and the first binary-flagged frame the stub's demux receives
+proves the server speaks it, so later search CALLs go out binary too. The
+state resets with the connection. Control ops, a peer that never
+advertises, and ``DFT_RPC_WIRE=pickle`` keep pickle skeletons, and any
+payload outside the binary schema falls back to pickle for that one frame
+(``wire.WireEncodeError`` is the fallback signal, never an error on the
+wire). The port has only the multiplexed client; a serial peer sends no
+advert and is answered in pickle.
 """
 
 import io
@@ -36,6 +48,8 @@ import time
 
 import numpy as np
 
+from distributed_faiss_tpu_torch.parallel import wire
+from distributed_faiss_tpu_torch.utils.config import WireCfg
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
 
 DEFAULT_PORT = 12032
@@ -97,11 +111,24 @@ KIND_RESULT_MUX = 5
 KIND_ERROR_MUX = 6
 KIND_BUSY_MUX = 7
 
+# kind-byte flag of a frame whose skeleton is binary (parallel/wire.py);
+# every KIND_* value stays below it
+WIRE_BINARY_FLAG = 0x80
+WIRE_META_KEY = "wire"
+
 MUX_RESPONSE_KINDS = {KIND_RESULT: KIND_RESULT_MUX, KIND_ERROR: KIND_ERROR_MUX,
                       KIND_BUSY: KIND_BUSY_MUX}
 _MUX_TO_BASE = {v: k for k, v in MUX_RESPONSE_KINDS.items()}
 
 _HDR = struct.Struct("<4sBII")
+
+
+def wire_binary_by_env() -> bool:
+    """DFT_RPC_WIRE (default ``binary``): ``pickle`` turns binary-skeleton
+    negotiation off on this end, so frames stay byte-identical to the
+    pickle-only protocol. Parsed by ``WireCfg``, the server's schema, so a
+    bad value fails the same way on both ends."""
+    return WireCfg.from_env().encoding == "binary"
 
 # kernel-level bound on one zero-progress frame write (SO_SNDTIMEO): a peer
 # that stops draining TCP becomes a transport error instead of a wedged
@@ -232,10 +259,10 @@ def send_parts(sock: socket.socket, parts) -> None:
         sock.sendall(p)
 
 
-def pack_frame(kind: int, obj=None):
-    arrays = []
-    skel = pickle.dumps(_extract(obj, arrays), protocol=4)
-    parts = [_HDR.pack(MAGIC, kind, len(skel), len(arrays)), skel]
+def _tensor_parts(arrays):
+    """The raw-buffer plane section both skeleton encodings share: per
+    plane ``dtype_len u8 | dtype | ndim u8 | dims u64* | data``."""
+    parts = []
     for a in arrays:
         dt = a.dtype.str.encode()
         parts.append(struct.pack("<B", len(dt)) + dt + struct.pack("<B", a.ndim)
@@ -245,6 +272,12 @@ def pack_frame(kind: int, obj=None):
     return parts
 
 
+def pack_frame(kind: int, obj=None):
+    arrays = []
+    skel = pickle.dumps(_extract(obj, arrays), protocol=4)
+    return [_HDR.pack(MAGIC, kind, len(skel), len(arrays)), skel] + _tensor_parts(arrays)
+
+
 def send_frame(sock: socket.socket, kind: int, obj=None) -> None:
     send_parts(sock, pack_frame(kind, obj))
 
@@ -252,6 +285,63 @@ def send_frame(sock: socket.socket, kind: int, obj=None) -> None:
 def pack_tagged_response(base_kind: int, obj, req_id: int):
     """Frame parts for a req_id-tagged RESULT/ERROR/BUSY response."""
     return pack_frame(MUX_RESPONSE_KINDS[base_kind], ({"req_id": int(req_id)}, obj))
+
+
+def pack_binary_call(fname: str, args, kwargs, meta):
+    """Frame parts for a binary-skeleton CALL, or None when the call falls
+    outside the schema (the caller packs the pickle skeleton instead)."""
+    try:
+        skel, arrays = wire.encode_call(fname, args, kwargs, meta)
+    except wire.WireEncodeError:
+        return None
+    return [_HDR.pack(MAGIC, KIND_CALL | WIRE_BINARY_FLAG, len(skel), len(arrays)),
+            skel] + _tensor_parts(arrays)
+
+
+_WIRE_ENCODERS = {KIND_RESULT: wire.encode_result, KIND_ERROR: wire.encode_error,
+                  KIND_BUSY: wire.encode_busy}
+_WIRE_DECODERS = {KIND_RESULT: wire.decode_result, KIND_ERROR: wire.decode_error,
+                  KIND_BUSY: wire.decode_busy}
+
+
+def pack_binary_response(base_kind: int, obj, req_id=None):
+    """Frame parts for a binary-skeleton response (tagged when ``req_id`` is
+    given), or None for a kind or payload outside the schema (the caller
+    falls back to the pickle skeleton for that one frame)."""
+    enc = _WIRE_ENCODERS.get(base_kind)
+    if enc is None:
+        return None
+    try:
+        skel, arrays = enc(obj)
+    except wire.WireEncodeError:
+        return None
+    kind = base_kind
+    if req_id is not None:
+        kind = MUX_RESPONSE_KINDS[base_kind]
+        skel = struct.pack("<Q", int(req_id)) + skel
+    return [_HDR.pack(MAGIC, kind | WIRE_BINARY_FLAG, len(skel), len(arrays)),
+            skel] + _tensor_parts(arrays)
+
+
+def _decode_binary_skeleton(kind: int, skel: bytes, arrays):
+    """A binary skeleton -> the exact payload the pickle path gives for the
+    same kind (tagged kinds included), so every consumer is shared."""
+    if kind == KIND_CALL:
+        return wire.decode_call(skel, arrays)
+    base, req_id = _MUX_TO_BASE.get(kind), None
+    if base is not None:
+        if len(skel) < 8:
+            raise wire.WireDecodeError("tagged skeleton shorter than req_id")
+        (req_id,) = struct.unpack_from("<Q", skel)
+        skel = skel[8:]
+        kind = base
+    dec = _WIRE_DECODERS.get(kind)
+    if dec is None:
+        raise wire.WireDecodeError(f"kind {kind} has no binary schema")
+    body = dec(skel, arrays)
+    if req_id is None:
+        return body
+    return {"req_id": req_id}, body
 
 
 class FrameReader:
@@ -296,12 +386,15 @@ class FrameReader:
                 raise EOFError("connection closed mid-tensor")
             got += r
 
-    def recv_frame(self):
-        """``(kind, payload)`` for one frame."""
+    def recv_frame_ex(self):
+        """``(kind, payload, was_binary)`` for one frame; ``was_binary`` is
+        the negotiation signal (the peer speaks binary skeletons)."""
         self._frame_started = False
         magic, kind, skel_len, narr = _HDR.unpack(self._take(_HDR.size))
         if magic != MAGIC:
             raise FrameError(f"bad frame magic {bytes(magic)!r}")
+        binary = bool(kind & WIRE_BINARY_FLAG)
+        kind &= ~WIRE_BINARY_FLAG
         skel_bytes = bytes(self._take(skel_len))
         arrays = []
         for _ in range(narr):
@@ -323,7 +416,26 @@ class FrameReader:
             # connection's buffer stays bounded
             del self._buf[:self._pos]
             self._pos = 0
-        return kind, _restore(restricted_loads(skel_bytes), arrays)
+        if not binary:
+            return kind, _restore(restricted_loads(skel_bytes), arrays), False
+        try:
+            payload = _decode_binary_skeleton(kind, skel_bytes, arrays)
+        except Exception as e:
+            # a garbled binary skeleton is corruption or desync: FrameError
+            # keeps it a transport error, so the connection is dropped
+            raise FrameError(f"undecodable binary skeleton (kind {kind}): {e}") from e
+        return kind, payload, True
+
+    def recv_frame(self):
+        """``(kind, payload)`` for one frame."""
+        kind, payload, _binary = self.recv_frame_ex()
+        return kind, payload
+
+
+def recv_frame_ex(sock: socket.socket):
+    """One-shot unbuffered read of a single frame (never over-reads):
+    ``(kind, payload, was_binary)``."""
+    return FrameReader(sock, bufsize=0).recv_frame_ex()
 
 
 def recv_frame(sock: socket.socket):
@@ -350,7 +462,12 @@ class Client:
     write, a demux reader thread routes tagged responses to their calls by
     ``req_id`` (untagged ones FIFO), and each caller waits on its own slot.
     A transport failure fails every in-flight call and drops the connection;
-    the next call redials."""
+    the next call redials.
+
+    ``wire_binary`` (default: DFT_RPC_WIRE) advertises binary skeletons in
+    every CALL's meta and sends search CALLs binary once this connection
+    has received a binary-flagged frame (``_peer_wire``, reset with the
+    connection: a redial may reach a pickle-only peer)."""
 
     RECONNECT_TIMEOUT = 2.0
     REDIAL_COOLDOWN = 2.0
@@ -359,11 +476,13 @@ class Client:
     DEADLINE_GRACE = 0.5
 
     def __init__(self, client_id: int, host: str, port: int, v6: bool = False,
-                 connect_timeout: float = 60.0):
+                 connect_timeout: float = 60.0, wire_binary: bool = None):
         self.id = client_id
         self.host = host
         self.port = port
         self._fam = socket.AF_INET6 if v6 else socket.AF_INET
+        self._wire = wire_binary_by_env() if wire_binary is None else bool(wire_binary)
+        self._peer_wire = False  # under _lock, reset per connection
         self._lock = threading.Lock()
         self._closed = False
         self._shutdown = False
@@ -398,6 +517,7 @@ class Client:
                 delay = min(delay * 1.6, 2.0)
         self._epoch += 1
         self._last_rx = time.monotonic()
+        self._peer_wire = False  # a restarted peer may be pickle-only
         self._reader = threading.Thread(
             target=self._reader_loop, args=(self.sock, self._epoch),
             name=f"rpc-demux:{self.host}:{self.port}:c{self.id}", daemon=True)
@@ -407,7 +527,7 @@ class Client:
         try:
             reader = FrameReader(sock)
             while True:
-                kind, payload = reader.recv_frame()
+                kind, payload, was_binary = reader.recv_frame_ex()
                 base = _MUX_TO_BASE.get(kind)
                 if base is not None:
                     meta, body = payload
@@ -418,6 +538,10 @@ class Client:
                     if epoch != self._epoch:
                         return  # superseded by a redial/teardown
                     self._last_rx = time.monotonic()
+                    if was_binary:
+                        # the peer produces binary skeletons, so it decodes
+                        # them too: search CALLs may now go out binary
+                        self._peer_wire = True
                     if rid is None:
                         rid = next(iter(self._pending), None)
                     slot = self._pending.pop(rid, None)
@@ -477,8 +601,11 @@ class Client:
         with self._lock:
             self._ensure_connected_locked()
             epoch = self._epoch
+            peer_wire = self._wire and self._peer_wire
         rid = next(self._req_counter)
         meta = {"req_id": rid}
+        if self._wire:
+            meta[WIRE_META_KEY] = 1  # the capability advert
         wait = timeout
         if deadline is not None:
             budget = deadline - time.time()
@@ -489,7 +616,13 @@ class Client:
             wait = w if wait is None else min(wait, w)
         # pack outside the lock and before touching the socket: a pickling
         # failure must not tear down a healthy connection
-        parts = pack_frame(KIND_CALL, (fname, tuple(args), kwargs or {}, meta))
+        parts = None
+        if peer_wire:
+            # None (a call outside the binary schema) falls back to pickle
+            # for this frame only
+            parts = pack_binary_call(fname, tuple(args), kwargs or {}, meta)
+        if parts is None:
+            parts = pack_frame(KIND_CALL, (fname, tuple(args), kwargs or {}, meta))
         slot = _PendingCall(rid, fname)
         t0 = time.perf_counter()
         with self._lock:
@@ -538,6 +671,15 @@ class Client:
                 f"server shed {fname}: {info.get('reason', 'busy')} "
                 f"(queue {info.get('queue_depth', '?')}/{info.get('max_queue', '?')})", info)
         raise RuntimeError(f"unexpected frame kind {kind}")
+
+    def rpc_stats(self) -> dict:
+        """This stub's view of its connection: the wire encoding it offers,
+        whether the peer has answered in binary, and the wire round-trip
+        percentiles."""
+        with self._lock:
+            peer_wire = self._peer_wire
+        return {"wire": "binary" if self._wire else "pickle", "peer_wire": peer_wire,
+                "round_trip_s": self.stats.summary().get("round_trip_s", {})}
 
     def __getattr__(self, name: str):
         if name.startswith("_"):

@@ -2,18 +2,23 @@
 (counterpart of distributed_faiss_tpu/parallel/server.py).
 
 Multi-index registry guarded by a lock, storage path convention
-``{storage_dir}/{index_id}/{rank}/``, and the RPC surface of this slice:
-create/add/search/sync_train/async_train/get_state/get_ntotal/
-get_aggregated_ntotal/set_nprobe/save/load/drop/ping (plus get_rank and
+``{storage_dir}/{index_id}/{rank}/``, and the single-rank RPC surface:
+create/add/search/sync_train/async_train/add_buffer_to_index/get_state/
+get_ntotal/get_aggregated_ntotal/get_ids/get_centroids/index_loaded/
+set_nprobe/set_omp_num_threads/save/load/drop/ping (plus get_rank and
 get_config_path, which the client's construction and load path use).
-Searches go through the ``SearchScheduler`` unless DFT_SCHEDULER=0.
+Searches go through the ``SearchScheduler``; with DFT_SCHEDULER=0 they are
+served through ``engine.Index.search`` and its natural batcher.
 
 One serving loop: thread-per-connection (``start_blocking``). Calls whose
 frame meta carries a ``req_id`` are dispatched without blocking the
 connection's reader — searches to the scheduler's async completion path,
 everything else to a small worker pool — and answered with tagged frames
 under a per-connection write lock; frames without ``req_id`` are served in
-order on the reader thread.
+order on the reader thread. A connection whose client advertised binary
+skeletons (the ``wire`` CALL-meta key, or a binary frame itself) gets its
+search responses in binary (parallel/wire.py) unless DFT_RPC_WIRE=pickle;
+every other response stays pickle.
 
 Not ported yet: the selector loop, replication membership, anti-entropy,
 mutation ops, shard transfer, tracing export, generation-pinned reads.
@@ -32,7 +37,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from distributed_faiss_tpu_torch.engine import Index
-from distributed_faiss_tpu_torch.parallel import rpc
+from distributed_faiss_tpu_torch.parallel import rpc, wire
 from distributed_faiss_tpu_torch.serving.scheduler import (
     DeadlineExpired,
     SchedulerBusy,
@@ -49,6 +54,17 @@ logger = logging.getLogger()
 _SEARCH_ARGS = ("index_id", "query_batch", "top_k", "return_embeddings")
 
 
+def _search_args(args, kwargs) -> dict:
+    """A search call's arguments by name; an unknown keyword (a read-your-
+    writes ``min_version``, say) is refused, not dropped."""
+    vals = dict(zip(_SEARCH_ARGS, args))
+    vals.update(kwargs or {})
+    unknown = sorted(set(vals) - set(_SEARCH_ARGS))
+    if unknown:
+        raise TypeError(f"search() got an unexpected keyword argument {unknown[0]!r}")
+    return vals
+
+
 def rpc_worker_count() -> int:
     """Worker pool size for mux-dispatched non-search ops and response
     writes (DFT_RPC_WORKERS overrides)."""
@@ -58,9 +74,21 @@ def rpc_worker_count() -> int:
     return min(8, max(2, os.cpu_count() or 4))
 
 
+class _ConnState:
+    """One connection's response write lock and whether its client decodes
+    binary skeletons (dies with the connection, like the client's half)."""
+
+    __slots__ = ("wlock", "peer_wire")
+
+    def __init__(self):
+        self.wlock = threading.Lock()
+        self.peer_wire = False
+
+
 class IndexServer:
     def __init__(self, rank: int, index_storage_dir: str,
-                 scheduler_cfg: Optional[SchedulerCfg] = None, device="cuda"):
+                 scheduler_cfg: Optional[SchedulerCfg] = None, device="cuda",
+                 wire_cfg: Optional[WireCfg] = None):
         self.device = resolve_device(device)
         self.indexes: Dict[str, Index] = {}
         self.indexes_lock = threading.Lock()
@@ -71,8 +99,11 @@ class IndexServer:
         self.perf = LatencyStats()  # per-RPC latency
         self._threads_lock = threading.Lock()
         self._train_threads: List[threading.Thread] = []
-        # parsed for a fail-fast on bad values; frames stay pickle (rpc.py)
-        self.wire_cfg = WireCfg.from_env()
+        self._conns = set()  # live client connections, under _threads_lock
+        # DFT_RPC_WIRE=pickle keeps every response byte-identical to the
+        # pickle-only protocol
+        wire_cfg = wire_cfg if wire_cfg is not None else WireCfg.from_env()
+        self._wire_enabled = wire_cfg.encoding == "binary"
         cfg = scheduler_cfg if scheduler_cfg is not None else SchedulerCfg.from_env()
         self.scheduler: Optional[SearchScheduler] = None
         if cfg.enabled:
@@ -127,8 +158,22 @@ class IndexServer:
             self._train_threads.append(t)
             t.start()  # inside the lock: stop() never joins an unstarted thread
 
+    def add_buffer_to_index(self, index_id: str) -> None:
+        return self._get_index(index_id).add_buffer_to_index()
+
     def get_state(self, index_id: str) -> IndexState:
         return self._get_index(index_id).get_state()
+
+    def get_ids(self, index_id: str = "default") -> set:
+        return self._get_index(index_id).get_ids()
+
+    def get_centroids(self, index_id: str):
+        return self._get_index(index_id).get_centroids()
+
+    def index_loaded(self, index_id: str) -> bool:
+        with self.indexes_lock:
+            return (index_id in self.indexes
+                    and self.indexes[index_id].get_state() == IndexState.TRAINED)
 
     def get_ntotal(self, index_id: str) -> int:
         with self.indexes_lock:
@@ -175,10 +220,19 @@ class IndexServer:
     def get_config_path(self, index_id: str) -> str:
         return os.path.join(self.index_storage_dir, index_id, str(self.rank), "cfg.json")
 
+    def set_omp_num_threads(self, num_threads: int) -> None:
+        # kept for the reference's API; host-side libraries read it
+        os.environ["OMP_NUM_THREADS"] = str(num_threads)
+
     def get_perf_stats(self) -> dict:
+        """Per-RPC latency summaries; ``"scheduler"`` its queue and batch
+        distributions, ``"rpc"`` the wire encoding this rank is willing to
+        speak (the use is per connection), ``"engine"`` each index's
+        device-launch latencies."""
         out = self.perf.summary()
         if self.scheduler is not None:
             out["scheduler"] = self.scheduler.perf_stats()
+        out["rpc"] = {"wire": "binary" if self._wire_enabled else "pickle"}
         with self.indexes_lock:
             snapshot = list(self.indexes.items())
         out["engine"] = {iid: idx.perf_stats() for iid, idx in snapshot}
@@ -205,6 +259,14 @@ class IndexServer:
         self._rpc_workers.shutdown(wait=False)
         with self._threads_lock:
             train_threads = list(self._train_threads)
+            conns = list(self._conns)
+        for conn in conns:
+            # a stopped rank stops answering: its clients see a transport
+            # error now, and a refused redial after
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
         for t in train_threads:
             t.join(timeout=30.0)
             if t.is_alive():
@@ -243,17 +305,22 @@ class IndexServer:
                 break
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             rpc.bound_send_timeout(conn)
+            with self._threads_lock:
+                if self._stopping.is_set():
+                    conn.close()
+                    break
+                self._conns.add(conn)
             # lifetime is the connection's: exits when the peer closes
             threading.Thread(target=self._serve_connection, args=(conn, addr),
                              name=f"conn:r{self.rank}:{addr[0]}:{addr[1]}",
                              daemon=True).start()
 
     def _serve_connection(self, conn: socket.socket, addr) -> None:
-        wlock = threading.Lock()  # serializes this connection's response writes
+        state = _ConnState()
         reader = rpc.FrameReader(conn)
         try:
             while True:
-                self._one_call(conn, reader, wlock)
+                self._one_call(conn, reader, state)
         except (rpc.ClientExit, EOFError):
             pass
         except OSError as e:
@@ -262,13 +329,15 @@ class IndexServer:
             # malformed frame / undecodable payload: drop this connection only
             logger.warning("dropping connection from %s: %s", addr, e)
         finally:
+            with self._threads_lock:
+                self._conns.discard(conn)
             try:
                 conn.close()
             except OSError:
                 pass
 
-    def _one_call(self, conn, reader: rpc.FrameReader, wlock) -> None:
-        kind, payload = reader.recv_frame()
+    def _one_call(self, conn, reader: rpc.FrameReader, state: _ConnState) -> None:
+        kind, payload, was_binary = reader.recv_frame_ex()
         if kind == rpc.KIND_CLOSE:
             raise rpc.ClientExit("client closed")
         if kind != rpc.KIND_CALL:
@@ -280,6 +349,10 @@ class IndexServer:
             if frame_meta.get("deadline_s") is not None:
                 deadline = time.monotonic() + float(frame_meta["deadline_s"])
             req_id = frame_meta.get("req_id")
+            if was_binary or frame_meta.get(rpc.WIRE_META_KEY):
+                # the client decodes binary skeletons: search responses on
+                # this connection may go out binary from here on
+                state.peer_wire = True
         if fname.startswith("_") or not callable(getattr(self, fname, None)):
             fname = f"unknown:{fname}"
         t0 = time.perf_counter()
@@ -289,13 +362,13 @@ class IndexServer:
                 parts = rpc.pack_frame(kind, payload)
             except Exception:
                 parts = rpc.pack_frame(rpc.KIND_ERROR, traceback.format_exc())
-            with wlock:
+            with state.wlock:
                 rpc.send_parts(conn, parts)
             return
         if fname == "search" and self.scheduler is not None:
-            self._dispatch_scheduled(conn, wlock, args, kwargs, deadline, req_id, t0)
+            self._dispatch_scheduled(conn, state, args, kwargs, deadline, req_id, t0)
         else:
-            self._rpc_workers.submit(self._dispatch_direct, conn, wlock, fname, args,
+            self._rpc_workers.submit(self._dispatch_direct, conn, state, fname, args,
                                      kwargs, deadline, req_id, t0)
 
     def _call(self, fname, args, kwargs, deadline, t0):
@@ -304,8 +377,7 @@ class IndexServer:
             if fname.startswith("unknown:"):
                 raise AttributeError(f"IndexServer has no RPC op {fname[8:]!r}")
             if fname == "search" and self.scheduler is not None:
-                vals = dict(zip(_SEARCH_ARGS, args))
-                vals.update(kwargs or {})
+                vals = _search_args(args, kwargs)
                 ret = self.scheduler.submit(
                     vals["index_id"], vals["query_batch"], vals["top_k"],
                     bool(vals.get("return_embeddings", False)), deadline=deadline)
@@ -334,57 +406,66 @@ class IndexServer:
             return "search:shed", {"reason": "deadline"}
         return None
 
-    def _dispatch_scheduled(self, conn, wlock, args, kwargs, deadline, req_id, t0) -> None:
+    def _dispatch_scheduled(self, conn, state, args, kwargs, deadline, req_id, t0) -> None:
         """Hand a mux search to the scheduler without blocking the reader;
         its completion callback queues the tagged response write on the
         worker pool (never socket I/O on the batcher thread)."""
 
         def done(result, error):
             try:
-                self._rpc_workers.submit(self._finish_scheduled, conn, wlock, req_id,
+                self._rpc_workers.submit(self._finish_scheduled, conn, state, req_id,
                                          result, error, t0)
             except RuntimeError:
                 pass  # pool shut down (server stopping): the client sees the drop
 
         try:
-            vals = dict(zip(_SEARCH_ARGS, args))
-            vals.update(kwargs or {})
+            vals = _search_args(args, kwargs)
             self.scheduler.submit_async(
                 vals["index_id"], vals["query_batch"], vals["top_k"],
                 bool(vals.get("return_embeddings", False)), deadline=deadline,
                 callback=done)
         except Exception as e:
             # admission rejected or bad args: answered now, never queued
-            self._finish_scheduled(conn, wlock, req_id, None, e, t0)
+            self._finish_scheduled(conn, state, req_id, None, e, t0)
 
-    def _finish_scheduled(self, conn, wlock, req_id, result, error, t0) -> None:
+    def _finish_scheduled(self, conn, state, req_id, result, error, t0) -> None:
         if error is None:
             self.perf.record("search", time.perf_counter() - t0)
-            self._send_tagged(conn, wlock, rpc.KIND_RESULT, result, req_id)
+            self._send_tagged(conn, state, rpc.KIND_RESULT, result, req_id, "search")
             return
         busy = self._classify_scheduler_reject(error)
         if busy is not None:
             self.perf.record(busy[0], time.perf_counter() - t0)
-            self._send_tagged(conn, wlock, rpc.KIND_BUSY, busy[1], req_id)
+            self._send_tagged(conn, state, rpc.KIND_BUSY, busy[1], req_id, "search")
             return
         tb = "".join(traceback.format_exception(type(error), error, error.__traceback__))
         logger.error("exception in scheduled search: %s", tb)
-        self._send_tagged(conn, wlock, rpc.KIND_ERROR, tb, req_id)
+        self._send_tagged(conn, state, rpc.KIND_ERROR, tb, req_id, "search")
 
-    def _dispatch_direct(self, conn, wlock, fname, args, kwargs, deadline, req_id, t0):
-        """Worker-pool target for mux non-search ops."""
+    def _dispatch_direct(self, conn, state, fname, args, kwargs, deadline, req_id, t0):
+        """Worker-pool target for mux ops other than scheduled searches."""
         kind, payload = self._call(fname, args, kwargs, deadline, t0)
-        self._send_tagged(conn, wlock, kind, payload, req_id)
+        self._send_tagged(conn, state, kind, payload, req_id, fname)
 
-    @staticmethod
-    def _send_tagged(conn, wlock, base_kind, payload, req_id) -> None:
+    def _pack_tagged(self, state, base_kind, payload, req_id, fname):
+        """A tagged response's frame parts: a binary skeleton when the
+        connection negotiated it and the op is in the binary search family,
+        pickle otherwise (also for a payload the binary schema cannot
+        carry: the per-frame fallback)."""
+        if self._wire_enabled and state.peer_wire and fname in wire.BINARY_CALL_OPS:
+            parts = rpc.pack_binary_response(base_kind, payload, req_id)
+            if parts is not None:
+                return parts
+        return rpc.pack_tagged_response(base_kind, payload, req_id)
+
+    def _send_tagged(self, conn, state, base_kind, payload, req_id, fname) -> None:
         try:
             try:
-                parts = rpc.pack_tagged_response(base_kind, payload, req_id)
+                parts = self._pack_tagged(state, base_kind, payload, req_id, fname)
             except Exception:
                 parts = rpc.pack_tagged_response(rpc.KIND_ERROR, traceback.format_exc(),
                                                  req_id)
-            with wlock:
+            with state.wlock:
                 rpc.send_parts(conn, parts)
         except OSError as e:
             logger.info("mux response write failed (req=%s): %s", req_id, e)

@@ -133,11 +133,12 @@ _WIRE_ENCODINGS = ("binary", "pickle")
 
 
 class WireCfg(_EnvCfg):
-    """RPC wire-encoding knob. The port's frames always carry pickle
-    skeletons — the binary skeletons are not ported yet, and a server that
-    never advertises binary is the legal un-negotiated dialect — but the
-    knob is parsed with the JAX package's rules so a bad value fails fast
-    the same way on both."""
+    """RPC wire-encoding knob (DFT_RPC_WIRE, default ``binary``): with
+    ``binary`` a client advertises binary skeletons (parallel/wire.py) and a
+    server answers an advertising connection's searches in them; ``pickle``
+    keeps every frame a pickle skeleton, byte-identical to the pickle-only
+    protocol. Parsed with the JAX package's rules, so a bad value fails
+    fast the same way on both ends."""
 
     _SCHEMA = {"encoding": (str, "DFT_RPC_WIRE", "binary")}
     _KIND = "wire"

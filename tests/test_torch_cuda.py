@@ -26,6 +26,10 @@ the shared-memory edge of m and above it, where the wrapper launches the
 kernel once per subspace slice. Then whole indexes on the card against
 the CPU: IVF-Flat, IVF-PQ, flat PQ (K4), OPQ in front of flat PQ, PCA in
 front of IVF-SQfp16 (K1), and flat PQ128 and IVF16,PQ256 at d = 768.
+Last, the host-side surface on the card: an ``hnswsq`` index (host C++
+graph, exact rerank on the card) serves the CPU's ids, and an ``ivfsq``
+server on the card answers a negotiated (binary wire) client and a
+pickle-only client with the same results, its searches launching K1.
 """
 
 import numpy as np
@@ -554,3 +558,75 @@ def test_wide_pq_index_on_card_matches_cpu(card, spec, wrapper):
     d_cpu, i_cpu = cpu.search(q, 10)
     np.testing.assert_array_equal(i_card, i_cpu)
     np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+
+
+def test_hnswsq_on_card_matches_cpu(card, monkeypatch):
+    """The hnswsq builder's index built on the CPU (graph on one thread),
+    served on the card from its state: the graph walk is the same host code
+    and the exact rerank runs on the card, so the ids are the CPU's and the
+    distances within 1e-3. No kernel of the port launches."""
+    from distributed_faiss_tpu_torch.models.hnsw import HNSWSQIndex
+
+    monkeypatch.setenv("DFT_HNSW_THREADS", "1")
+    x, q = correlated_corpus(6)
+    cpu = factory.build_index(IndexCfg(index_builder_type="hnswsq", dim=32, metric="l2",
+                                       store_n=16), device="cpu")
+    cpu.train(x)
+    cpu.add(x)
+    cpu.set_nprobe(64)
+    on_card = factory.index_from_state_dict(cpu.state_dict(), device=card)
+    assert isinstance(on_card, HNSWSQIndex) and on_card._refine.data.is_cuda
+    counts = [fn.launches for fn in (flat_scan.flat_list_scan, adc_scan.adc_scan,
+                                     adc_scan.adc_scan_nibble, adc_scan.adc_scan_shared)]
+    d_card, i_card = on_card.search(q, 10)
+    d_cpu, i_cpu = cpu.search(q, 10)
+    np.testing.assert_array_equal(i_card, i_cpu)
+    np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+    assert counts == [fn.launches for fn in (flat_scan.flat_list_scan, adc_scan.adc_scan,
+                                             adc_scan.adc_scan_nibble,
+                                             adc_scan.adc_scan_shared)]
+
+
+def test_negotiated_search_matches_pickle_on_a_card_server(card, tmp_path):
+    """An ivfsq index served from the card: a negotiated client (binary
+    skeletons after the first reply) and a wire_binary=False client get the
+    same ids and distances, and the searches launched K1."""
+    import threading
+    import time
+
+    from distributed_faiss_tpu_torch.parallel import rpc
+    from distributed_faiss_tpu_torch.parallel.server import IndexServer
+    from distributed_faiss_tpu_torch.utils.state import IndexState
+
+    x, q = correlated_corpus(7, n=4000)
+    srv = IndexServer(0, str(tmp_path), device=card)
+    port = srv.bind(0)
+    thread = threading.Thread(target=srv.start_blocking, daemon=True)
+    thread.start()
+    binary = rpc.Client(0, "localhost", port)
+    pickled = rpc.Client(1, "localhost", port, wire_binary=False)
+    try:
+        cfg = IndexCfg(index_builder_type="ivfsq", dim=32, metric="l2", train_num=2000,
+                       centroids=16, nprobe=4)
+        assert binary.create_index("w", cfg)
+        binary.add_index_data("w", x, list(range(x.shape[0])))
+        deadline = time.time() + 120
+        while not (binary.get_state("w") == IndexState.TRAINED
+                   and binary.get_aggregated_ntotal("w") == 0
+                   and binary.get_ntotal("w") == x.shape[0]):
+            assert time.time() < deadline, "index not built"
+            time.sleep(0.1)
+        before = flat_scan.flat_list_scan.launches
+        first = binary.search("w", q, 10)
+        got = binary.search("w", q, 10)
+        want = pickled.search("w", q, 10)
+        assert flat_scan.flat_list_scan.launches > before
+        assert binary.rpc_stats()["peer_wire"] is True
+        assert pickled.rpc_stats()["peer_wire"] is False
+        assert got[1] == want[1] == first[1]
+        np.testing.assert_array_equal(got[0], want[0])
+    finally:
+        binary.close()
+        pickled.close()
+        srv.stop()
+        thread.join(10)

@@ -23,8 +23,13 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "distributed_faiss_tpu"))
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 """
+
+# modules the isolation check must reach by name (the walk imports all)
+_NAMED = ("distributed_faiss_tpu_torch.parallel.wire",
+          "distributed_faiss_tpu_torch.utils.batching",
+          "distributed_faiss_tpu_torch.models.hnsw")
 
 
 def test_port_modules_import_without_jax():
@@ -34,9 +39,10 @@ def test_port_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20
+    count, bad, names = out.stdout.strip().split(" ", 2)
+    assert int(count) >= 23
     assert bad == "[]", f"port imported {bad}"
+    assert set(_NAMED) <= set(names.split(","))
 
 
 def test_no_import_statement_names_jax():
@@ -58,6 +64,7 @@ def test_default_device_raises_without_cuda(tmp_path):
     from distributed_faiss_tpu_torch.engine import Index
     from distributed_faiss_tpu_torch.models.factory import build_index
     from distributed_faiss_tpu_torch.models.flat import FlatIndex
+    from distributed_faiss_tpu_torch.models.hnsw import HNSWSQIndex
     from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
     from distributed_faiss_tpu_torch.parallel.server import IndexServer
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
@@ -66,7 +73,9 @@ def test_default_device_raises_without_cuda(tmp_path):
     _no_cuda()
     cfg = IndexCfg(index_builder_type="ivfsq", dim=8, centroids=4)
     pq_cfg = IndexCfg(index_builder_type="knnlm", dim=8, centroids=4, code_size=4)
+    hnsw_cfg = IndexCfg(index_builder_type="hnswsq", dim=8, metric="l2")
     for make in (lambda: FlatIndex(8), lambda: IVFFlatIndex(8, 4), lambda: IVFPQIndex(8, 4, m=4),
+                 lambda: HNSWSQIndex(8), lambda: build_index(hnsw_cfg),
                  lambda: Index(cfg), lambda: build_index(cfg), lambda: build_index(pq_cfg),
                  lambda: IndexServer(0, str(tmp_path)), resolve_device):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

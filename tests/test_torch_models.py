@@ -133,18 +133,50 @@ def test_port_snapshot_loads_in_jax(data, tmp_path, spec):
 
 
 def test_factory_refuses_unported(data):
-    """What later slices port raises "not yet ported": the hnswsq and
-    ivf_tpu builders, HNSW specs, the mesh-sharded flat index and the
-    sharded snapshot kinds."""
+    """What later slices port raises "not yet ported": the ivf_tpu builder,
+    the mesh-sharded flat index and the sharded snapshot kinds."""
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
-    for cfg in (IndexCfg(index_builder_type="hnswsq", dim=D),
-                IndexCfg(index_builder_type="ivf_tpu", dim=D, centroids=4),
-                IndexCfg(index_builder_type="flat", dim=D, mesh_shards=True),
-                IndexCfg(faiss_factory="HNSW32", dim=D),
-                IndexCfg(faiss_factory="OPQ4,HNSW32", dim=D)):
+    for cfg in (IndexCfg(index_builder_type="ivf_tpu", dim=D, centroids=4),
+                IndexCfg(index_builder_type="flat", dim=D, mesh_shards=True)):
         with pytest.raises(RuntimeError, match="not yet ported"):
             tfactory.build_index(cfg, device="cpu")
-    for kind in ("sharded_ivf_pq", "sharded_flat", "hnswsq"):
+    for kind in ("sharded_ivf_pq", "sharded_flat"):
         with pytest.raises(RuntimeError, match="not yet ported"):
             tfactory.index_from_state_dict({"kind": kind}, device="cpu")
+
+
+@pytest.mark.parametrize("spec", [dict(index_builder_type="hnswsq"),
+                                  dict(faiss_factory="HNSW32"),
+                                  dict(faiss_factory="OPQ4,HNSW32")],
+                         ids=["hnswsq", "HNSW32", "OPQ4,HNSW32"])
+def test_factory_builds_hnsw(data, monkeypatch, spec):
+    """The hnswsq builder (store_n 128, ef_construction 100, refine 8 by
+    default) and the HNSW<M> specs, bare or behind OPQ, build the native
+    graph: each finds its own rows, and the JAX package's index of the same
+    cfg, carried into the port, serves the JAX package's ids."""
+    from distributed_faiss_tpu.utils.config import IndexCfg as JCfg
+    from distributed_faiss_tpu_torch.models.hnsw import HNSWSQIndex
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+    monkeypatch.setenv("DFT_HNSW_THREADS", "1")
+    x, q = data
+    port = tfactory.build_index(IndexCfg(dim=D, metric="l2", nprobe=64, **spec), device="cpu")
+    graph = getattr(port, "inner", port)
+    assert isinstance(graph, HNSWSQIndex)
+    assert (graph.M, graph.ef_construction, graph.refine_k_factor) == (
+        128 if "index_builder_type" in spec else 32, 100, 8)
+    port.train(x)
+    port.add(x)
+    port.set_nprobe(64)
+    assert graph.nprobe == 64  # nprobe is efSearch
+    _, ids = port.search(x[:8], 1)
+    assert (ids[:, 0] == np.arange(8)).all()
+    ref = jfactory.build_index(JCfg(dim=D, metric="l2", nprobe=64, **spec))
+    ref.train(x)
+    ref.add(x)
+    ref.set_nprobe(64)
+    carried = tfactory.index_from_state_dict(ref.state_dict(), device="cpu")
+    assert_same_results(carried.search(q, K), ref.search(q, K))
+    with pytest.raises(RuntimeError, match="l2"):
+        tfactory.build_index(IndexCfg(dim=D, metric="dot", **spec), device="cpu")

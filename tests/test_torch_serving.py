@@ -258,3 +258,190 @@ def test_scheduler_coalesces_and_sheds():
     finally:
         gate.set()
         sched.stop()
+
+
+# ---------------------------------------------------------------------------
+# the rest of the single-rank surface, against the JAX package's
+
+
+@pytest.fixture
+def jax_client(tmp_path):
+    """One JAX IndexServer on a loopback port and a JAX IndexClient; both
+    stopped in teardown."""
+    import socket
+
+    from distributed_faiss_tpu.parallel.client import IndexClient as JClient
+    from distributed_faiss_tpu.parallel.server import IndexServer as JServer
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    srv = JServer(0, str(tmp_path / "jax_store"))
+    threading.Thread(target=srv.start_blocking, args=(port,), daemon=True).start()
+    disc = tmp_path / "jax_discovery.txt"
+    disc.write_text(f"1\nlocalhost,{port}\n")
+    client = JClient(str(disc))
+    try:
+        yield client
+    finally:
+        client.close()
+        srv.stop()
+
+
+def _fill(client, iid, x, meta, bs=100):
+    for s in range(0, x.shape[0], bs):
+        client.add_index_data(iid, x[s:s + bs], meta[s:s + bs])
+
+
+def _filter_corpus(rng):
+    x = rng.standard_normal((400, D)).astype(np.float32)
+    # 95% of rows filtered out: a 3x over-fetch of k=5 leaves rows short
+    meta = [("rare" if i % 20 == 0 else "common", i) for i in range(400)]
+    return x, meta
+
+
+@pytest.mark.parametrize("max_requery", [0, 3])
+def test_search_with_filter_matches_jax(rng, cluster, jax_client, max_requery):
+    """search_with_filter over two port ranks gives the JAX package's
+    single-rank answer (exact flat search: the same global top-k however
+    the rows were placed): no kept row carries the filtered value, and rows
+    are short only without the requery."""
+    from distributed_faiss_tpu.utils.config import IndexCfg as JCfg
+
+    x, meta = _filter_corpus(rng)
+    q = x[:4] + 0.01
+    client, _ = cluster(2)
+    kw = dict(index_builder_type="flat", dim=D, metric="l2", train_num=20)
+    client.create_index("f", IndexCfg(**kw))
+    jax_client.create_index("f", JCfg(**kw))
+    for c in (client, jax_client):
+        _fill(c, "f", x, meta)
+        c.sync_train("f")
+    assert wait_until(lambda: indexed(client, "f", 400))
+    assert wait_until(lambda: jax_client.get_ntotal("f") == 400
+                      and jax_client.get_buffer_depth("f") == 0)
+    args = (q, 5, "f")
+    kwargs = dict(filter_pos=0, filter_value="common", max_requery=max_requery)
+    got_s, got_m = client.search_with_filter(*args, **kwargs)
+    want_s, want_m = jax_client.search_with_filter(*args, **kwargs)
+    assert got_m == want_m
+    for gs, ws in zip(got_s, want_s):
+        np.testing.assert_allclose(gs, ws, rtol=1e-3, atol=1e-3)
+    assert all(m[0] == "rare" for row in got_m for m in row)
+    if max_requery:
+        assert all(len(row) == 5 for row in got_m)
+    else:
+        assert any(len(row) < 5 for row in got_m)
+    # filter_pos < 0 is the plain search
+    d, m = client.search_with_filter(q, 5, "f")
+    assert m == client.search(q, 5, "f")[1]
+
+
+def test_get_ids_matches_jax(rng, cluster, jax_client):
+    from distributed_faiss_tpu.utils.config import IndexCfg as JCfg
+
+    x = rng.standard_normal((120, D)).astype(np.float32)
+    meta = [("m", 1000 + i) for i in range(120)]
+    client, _ = cluster(2)
+    kw = dict(index_builder_type="flat", dim=D, metric="l2", train_num=20,
+              custom_meta_id_idx=1)
+    client.create_index("ids", IndexCfg(**kw))
+    jax_client.create_index("ids", JCfg(**kw))
+    for c in (client, jax_client):
+        _fill(c, "ids", x[:90], meta[:90], bs=30)
+        c.sync_train("ids")
+        _fill(c, "ids", x[90:], meta[90:], bs=30)
+    assert wait_until(lambda: indexed(client, "ids", 120))
+    assert wait_until(lambda: jax_client.get_ntotal("ids") == 120)
+    assert client.get_ids("ids") == jax_client.get_ids("ids") == set(range(1000, 1120))
+
+
+def test_centroids_index_loaded_buffer_and_omp(rng, cluster):
+    """get_centroids, index_loaded, add_buffer_to_index and
+    set_omp_num_threads answer on every rank."""
+    client, servers = cluster(2)
+    x = rng.standard_normal((600, D)).astype(np.float32)
+    cfg = IndexCfg(index_builder_type="ivfsq", dim=D, metric="l2", train_num=200,
+                   centroids=4, nprobe=4)
+    client.create_index("c", cfg)
+    assert [s.index_loaded("c") for s in servers] == [False, False]
+    _fill(client, "c", x, list(range(600)))
+    client.add_buffer_to_index("c")  # a no-op until trained, then a drain
+    assert wait_until(lambda: indexed(client, "c", 600))
+    client.add_buffer_to_index("c")
+    cents = client.get_centroids("c")
+    assert len(cents) == 2 and all(c.shape == (4, D) for c in cents)
+    for c, s in zip(cents, servers):
+        np.testing.assert_array_equal(c, s.indexes["c"].model.get_centroids())
+    assert [s.index_loaded("c") for s in servers] == [True, True]
+    assert not servers[0].index_loaded("nope")
+    client.set_omp_num_threads(2)
+    assert os.environ["OMP_NUM_THREADS"] == "2"
+
+
+def test_allow_partial_with_a_stopped_server(rng, cluster):
+    """With one of two ranks stopped, allow_partial serves the survivor's
+    top-k and names the dead rank in ``missing``; the strict call raises; an
+    application error from the live rank still raises; and with every rank
+    dead the partial call raises too."""
+    from distributed_faiss_tpu_torch.parallel import rpc
+
+    client, servers = cluster(2)
+    x = rng.standard_normal((400, D)).astype(np.float32)
+    client.create_index("p", IndexCfg(index_builder_type="flat", dim=D, metric="l2",
+                                      train_num=20))
+    _fill(client, "p", x, [("r", i) for i in range(400)])
+    client.sync_train("p")
+    assert wait_until(lambda: indexed(client, "p", 400))
+    q = x[:6] + 0.01
+    full_d, full_m, missing = client.search(q, 5, "p", allow_partial=True)
+    assert missing == []
+    np.testing.assert_array_equal(full_d, client.search(q, 5, "p")[0])
+    survivor = servers[0].indexes["p"]
+    servers[1].stop()
+    with pytest.raises(rpc.TRANSPORT_ERRORS):
+        client.search(q, 5, "p")
+    d, m, missing = client.search(q, 5, "p", allow_partial=True, partial_timeout=5.0)
+    want_d, want_m, _ = survivor.search(q, 5)
+    assert m == want_m
+    np.testing.assert_allclose(d, want_d, rtol=1e-5)
+    assert len(missing) == 1 and missing[0]["server"] == client.sub_indexes[1].id
+    assert missing[0]["port"] == client.sub_indexes[1].port
+    with pytest.raises(rpc.ServerException, match="no index"):
+        client.search(q, 5, "absent", allow_partial=True)
+    servers[0].stop()
+    with pytest.raises(RuntimeError, match="every rank"):
+        client.search(q, 5, "p", allow_partial=True)
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_save_watcher_commits_a_generation(rng, tmp_path, package):
+    """save_interval_sec > 0 starts a save watcher: rows added once, with no
+    later add, reach a committed generation within two intervals, as in the
+    JAX engine; retire() stops the watcher at once."""
+    from distributed_faiss_tpu.utils import serialization as jser
+    from distributed_faiss_tpu_torch.utils import serialization as tser
+
+    storage = str(tmp_path / "shard")
+    x = rng.standard_normal((200, D)).astype(np.float32)
+    kw = dict(index_builder_type="flat", dim=D, metric="l2", train_num=50,
+              save_interval_sec=1, index_storage_dir=storage)
+    if package == "port":
+        idx, ser, trained = TIndex(IndexCfg(**kw), device="cpu"), tser, IndexState.TRAINED
+    else:
+        idx, ser, trained = JIndex(JCfg(**kw)), jser, JState.TRAINED
+    try:
+        idx.add_batch(x, list(range(200)), train_async_if_triggered=False)
+        assert wait_until(lambda: idx.get_state() == trained
+                          and idx.get_idx_data_num() == (0, 200))
+        t0 = time.monotonic()
+        assert wait_until(lambda: ser.list_generations(storage), timeout=2.0)
+        assert time.monotonic() - t0 <= 2.0
+    finally:
+        idx.retire()
+    assert not idx._save_thread.is_alive()
+    if package == "port":
+        loaded = TIndex.from_storage_dir(storage, device="cpu")
+        assert loaded.get_idx_data_num() == (0, 200)
+        loaded.retire()
