@@ -113,14 +113,37 @@ d. ``hnswsq``: the builder at its defaults (graph degree 128,
    load identical, and the graph library built from ``native/hnsw.cpp``
    into ``build/``.
 
-Before each of phases 3-8 and a-d every kernel's launch count is zeroed
-(phase b reads none), and it is read after the phase: K1 must have
-launched on the ivfsq path, the surface index and the direct path, K3 on
-the knnlm path through ``adc_scan_lists`` (and neither K2 nor K4: the
-dispatch is fixed by the geometry),
-K2 on the K2 path, K4 on the flat-PQ path (and neither K2 nor K3) and on
-the pre-transform path and the wide flat-PQ path; on the hnswsq path no
-kernel may launch (its graph is host C++).
+After phase 9, the servers of phases 3 and 4 still up:
+
+e. Mutation: on phase 3's index, ``save_index`` and ``pin_generations``;
+   ``remove_ids`` of every 10th id (100,000), timed; no deleted id in the
+   top-10 of the 1000 eval queries, ``get_ids`` counts 900,000, recall@10
+   >= 0.95 against the exact top-10 over the survivors (the port's
+   FlatIndex on the card twice, over every row with the deleted ones
+   removed through ``remove_rows`` and over the survivors alone, which
+   must agree); ``--nq`` queries served from 8 clients right before the
+   deletes and after them (no deleted id), QPS and p50/p99 of both beside
+   phase 3's; ``upsert`` of 1000 deleted ids with
+   each eval query's own vector, polled through ``read_your_writes=True``
+   searches until each is its query's top-1 (a refusal other than the
+   drain's fails); ``search_at_generation(pins)`` serves phase 3's ids;
+   ``compact_index`` keeps every query's ids and distances; save -> drop
+   -> load serves no deleted id and every upserted row. On phase 4's
+   knnlm index and phase 6's PQ64,RFlat index: ``remove_ids`` of every
+   10th id (50,000), no deleted id served, recall@10 over the survivors
+   (>= 0.95 on knnlm, logged on PQ64,RFlat), and the knnlm index
+   compacted with the same ids. Every index's metadata is ``(row,)``: the
+   id sits at ``custom_meta_id_idx`` 0.
+
+Before each of phases 3-8, a-d and each part of e every kernel's launch
+count is zeroed (phase b reads none), and it is read after the phase: K1
+must have launched on the ivfsq path, the surface index, the direct path
+and the ivfsq part of phase e, K3 on the knnlm path through
+``adc_scan_lists`` (and neither K2 nor K4: the dispatch is fixed by the
+geometry) and on phase e's knnlm part, K2 on the K2 path, K4 on the
+flat-PQ path (and neither K2 nor K3), the pre-transform path, the wide
+flat-PQ path and phase e's PQ64,RFlat part; on the hnswsq path no kernel
+may launch (its graph is host C++).
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -579,9 +602,10 @@ def check_result(D: np.ndarray, meta, nq: int, k: int, what: str) -> None:
 
 
 def recall_at_10(meta, gt_ids: np.ndarray) -> float:
+    """Share of the ground truth's ids among the served rows' ids (meta[0])."""
     hits = 0
     for i, row in enumerate(meta):
-        hits += len({m for m in row if m is not None} & set(gt_ids[i].tolist()))
+        hits += len({m[0] for m in row if m is not None} & set(gt_ids[i].tolist()))
     return hits / (10 * len(meta))
 
 
@@ -667,9 +691,10 @@ class Serving:
 
 
 def build_index(client, iid: str, cfg, x: np.ndarray, what: str, meta=None) -> None:
-    """create_index, add ``x`` with ``meta`` (default: its row numbers) as
-    metadata in 50,000-row batches, and wait for the threshold training and
-    the add drain."""
+    """create_index, add ``x`` with ``meta`` (default: ``(row,)`` tuples, the
+    row number being the id at ``custom_meta_id_idx`` 0) as metadata in
+    50,000-row batches, and wait for the threshold training and the add
+    drain."""
     from distributed_faiss_tpu_torch.utils.state import IndexState
 
     n = x.shape[0]
@@ -678,7 +703,7 @@ def build_index(client, iid: str, cfg, x: np.ndarray, what: str, meta=None) -> N
     t0 = time.perf_counter()
     bsz = 50_000
     for s in range(0, n, bsz):
-        client.add_index_data(iid, x[s:s + bsz], list(range(s, min(n, s + bsz)))
+        client.add_index_data(iid, x[s:s + bsz], [(r,) for r in range(s, min(n, s + bsz))]
                               if meta is None else meta[s:s + bsz])
     sent_s = time.perf_counter() - t0
     deadline = time.monotonic() + 900
@@ -803,7 +828,7 @@ def ivfsq_path(args, counters, card: str) -> dict:
         s.close()
         raise
     out.update(q_block=q_all[:256], serving=s, iid=iid, nprobe=nprobe, q_all=q_all,
-               x_head=x[:HNSW_N])
+               x_head=x[:HNSW_N], x=x)
     log(f"{what}: launches {out['counts']}")
     return out
 
@@ -819,7 +844,9 @@ def knnlm_path(args, counters, card: str) -> dict:
     """Phases 4-8 on one server over the low-rank corpus: the knnlm shard
     (K3), IVF1024,PQ12,RFlat (K2), flat PQ64,RFlat (K4),
     OPQ64,PQ64,RFlat (K4 behind the OPQ rotation) and flat PQ128,RFlat
-    (K4 in subspace slices)."""
+    (K4 in subspace slices). The server (``out["serving"]``, closed by the
+    caller) stays up for phase e, and the corpus, the eval queries and
+    their exact top-10 are kept for it."""
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
     d, n, what = 768, KNNLM_N, "knnlm"
@@ -832,7 +859,8 @@ def knnlm_path(args, counters, card: str) -> dict:
     log(f"{what}: made {n} x {d} low-rank corpus and {args.nq} queries in "
         f"{time.perf_counter() - t0:.2f} s (seed {args.seed})")
     out = {}
-    with Serving(os.path.join(REPO, "build", "chip_smoke_pq")) as s:
+    s = Serving(os.path.join(REPO, "build", "chip_smoke_pq"))
+    try:
         iid = "knnlm"
         cfg = IndexCfg(index_builder_type="knnlm", dim=d, metric="l2", centroids=4096,
                        train_num=100_000, nprobe=32, code_size=64, pallas_adc=True,
@@ -929,6 +957,13 @@ def knnlm_path(args, counters, card: str) -> dict:
         if wide_out["counts"]["K4"] <= 0 or slices < 2:
             raise AssertionError(f"{what}: K4 did not run in subspace slices on this path")
         out["flatpq128"] = wide_out
+        # only phase e's indexes stay on the card
+        for iid in ("k2", "opq", "flatpq128"):
+            s.client.drop_index(iid)
+    except BaseException:
+        s.close()
+        raise
+    out.update(serving=s, x=x, q_eval=q_eval)
     return out
 
 
@@ -1355,6 +1390,218 @@ def shared_main_shape(adc, ivf, model, q_block: np.ndarray) -> dict:
                 bound_by=bound_by, library_ms=library_ms)
 
 
+# ---------------------------------------------------------------- phase e
+
+
+def served_ids(meta) -> set:
+    return {m[0] for row in meta for m in row if m is not None}
+
+
+def refused_while_draining(e: Exception) -> bool:
+    """The single rank's refusal of a search while its add buffer drains
+    (state ADD), which the caller retries; anything else, a stale-read
+    refusal included, is a failure."""
+    return "not trained. state: IndexState.ADD" in str(e)
+
+
+def same_sets(meta_a, d_a, meta_b, d_b, what: str) -> None:
+    """Per query the same ids, and distances within 1e-3."""
+    for i, (ra, rb) in enumerate(zip(meta_a, meta_b)):
+        if set(ra) != set(rb):
+            raise AssertionError(f"{what}: query {i}'s ids differ: {ra} vs {rb}")
+    np.testing.assert_allclose(np.sort(d_a, axis=1), np.sort(d_b, axis=1), rtol=1e-3,
+                               atol=1e-3, err_msg=what)
+
+
+def survivors_ground_truth(x: np.ndarray, q: np.ndarray, dead: np.ndarray, what: str):
+    """The exact top-10 over the rows not in ``dead`` from the port's
+    FlatIndex on the card, twice: over every row with ``dead`` removed
+    through ``remove_rows`` (the flat live mask), and over the survivors
+    alone. Both must give the same ids."""
+    from distributed_faiss_tpu_torch.models.flat import FlatIndex
+
+    t0 = time.perf_counter()
+    masked = FlatIndex(x.shape[1], "l2", device="cuda")
+    masked.add(x)
+    masked.remove_rows(dead)
+    d_m, i_m = masked.search(q, 10)
+    del masked
+    keep = np.ones(x.shape[0], bool)
+    keep[dead] = False
+    survivors = np.flatnonzero(keep)
+    alone = FlatIndex(x.shape[1], "l2", device="cuda")
+    alone.add(x[survivors])
+    d_s, i_s = alone.search(q, 10)
+    del alone
+    torch.cuda.empty_cache()
+    if not np.array_equal(i_m, survivors[i_s]) or not np.isfinite(d_m).all():
+        raise AssertionError(f"{what}: the masked FlatIndex and the one over the survivors "
+                             "disagree")
+    np.testing.assert_allclose(d_m, d_s, rtol=1e-5, atol=1e-5, err_msg=what)
+    log(f"{what}: exact top-10 over {survivors.size} survivors, masked and rebuilt "
+        f"FlatIndex agree ({time.perf_counter() - t0:.2f} s)")
+    return i_m
+
+
+def mutation_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
+    """Phase e: deletes, upserts, pinned reads and compaction on the ivfsq
+    index of phase 3 (K1), the knnlm index of phase 4 (K3 over the lists)
+    and the flat PQ64,RFlat index of phase 6 (K4), through the client."""
+    out = {}
+    # ---- ivfsq (K1) ----
+    what = "mutation ivfsq"
+    s, iid, nprobe, q_all, x = sq["serving"], sq["iid"], sq["nprobe"], sq["q_all"], sq["x"]
+    client, q_eval, n = s.client, sq["q_all"][:1000], sq["x"].shape[0]
+    zero_counts(counters)
+    client.save_index(iid)
+    pins = client.pin_generations(iid)
+    d0, meta0 = client.search(q_eval, 10, iid)
+    # the same serving run right before the deletes: the reading after
+    # them compares with this one, not with phase 3's, run many phases
+    # earlier on the same server
+    qps0, p50_0, p99_0, _ = timed_serve(client, q_all, iid, f"{what} (before the deletes)",
+                                        card)
+    dead = np.arange(0, n, 10)
+    t0 = time.perf_counter()
+    removed = client.remove_ids(iid, dead.tolist())
+    remove_s = time.perf_counter() - t0
+    if removed != dead.size:
+        raise AssertionError(f"{what}: remove_ids tombstoned {removed} rows, not {dead.size}")
+    d1, meta1 = client.search(q_eval, 10, iid)
+    check_result(d1, meta1, 1000, 10, f"{what} search")
+    dead_set = set(dead.tolist())
+    if served_ids(meta1) & dead_set:
+        raise AssertionError(f"{what}: a deleted id served")
+    live_n = len(client.get_ids(iid))
+    if live_n != n - dead.size:
+        raise AssertionError(f"{what}: get_ids counts {live_n}, not {n - dead.size}")
+    gt = survivors_ground_truth(x, q_eval, dead, what)
+    rec = recall_at_10(meta1, gt)
+    sidecar_mb = os.path.getsize(os.path.join(s.store, iid, "0", "tombstones.json")) / 1e6
+    log(f"{what}: remove_ids of {dead.size} ids in {remove_s:.3f} s on {card} (the sidecar it "
+        f"rewrote: {sidecar_mb:.1f} MB); get_ids counts {live_n}; recall@10 {rec:.4f} over "
+        f"the survivors at nprobe={nprobe}")
+    if rec < 0.95:
+        raise AssertionError(f"{what}: recall@10 {rec:.4f} < 0.95 over the survivors")
+    qps, p50, p99, metas = timed_serve(client, q_all, iid, what, card)
+    if any(served_ids(m) & dead_set for m in metas):
+        raise AssertionError(f"{what}: a deleted id served under load")
+    log(f"{what}: served after the deletes {qps:.1f} QPS, p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+        f"right before them {qps0:.1f} QPS, p50 {p50_0:.3f} ms, p99 {p99_0:.3f} ms; phase 3 "
+        f"on the same call {sq['qps']:.1f} QPS, p50 {sq['p50_ms']:.3f} ms, "
+        f"p99 {sq['p99_ms']:.3f} ms, on {card}")
+
+    # upsert 1000 deleted ids with each eval query's own vector: its top-1
+    up_ids = dead[:1000].tolist()
+    t0 = time.perf_counter()
+    client.upsert(iid, up_ids, q_eval)
+    ack_s = time.perf_counter() - t0
+    drain_refusals, ryw_answered_s = 0, None
+    while True:
+        try:
+            d_up, meta_up = client.search(q_eval, 10, iid, read_your_writes=True)
+        except Exception as e:
+            if not refused_while_draining(e):
+                raise
+            drain_refusals += 1
+            meta_up = None
+        else:
+            ryw_answered_s = ryw_answered_s or time.perf_counter() - t0
+        if meta_up is not None and all(row[0] == (i,) for row, i in zip(meta_up, up_ids)):
+            break
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"{what}: the upserted rows did not become top-1")
+        time.sleep(0.005)
+    visible_s = time.perf_counter() - t0
+    log(f"{what}: upsert of {len(up_ids)} deleted ids acknowledged in {ack_s:.3f} s; the "
+        f"first read-your-writes search answered {ryw_answered_s:.3f} s after the call "
+        f"({drain_refusals} refusals while the buffer drained, none stale); every "
+        f"upserted row top-1 for its query {visible_s:.3f} s after the call, on {card}")
+
+    d_pin, meta_pin = client.search_at_generation(q_eval, 10, iid, pins=pins)
+    if meta_pin != meta0:
+        raise AssertionError(f"{what}: the pinned generation did not serve phase 3's ids")
+    np.testing.assert_allclose(d_pin, d0, rtol=1e-3, atol=1e-3, err_msg=f"{what} pinned")
+    log(f"{what}: search_at_generation({pins}) served phase 3's ids for the eval queries")
+
+    d_pre, meta_pre = client.search(q_eval, 10, iid)
+    t0 = time.perf_counter()
+    if client.compact_index(iid) != [True]:
+        raise AssertionError(f"{what}: compact_index committed nothing")
+    compact_s = time.perf_counter() - t0
+    gen = client.pin_generations(iid)
+    d_post, meta_post = client.search(q_eval, 10, iid)
+    same_sets(meta_pre, d_pre, meta_post, d_post, f"{what} across the compaction")
+    mstats = client.get_perf_stats()[0]["mutation"][iid]
+    log(f"{what}: compact_index in {compact_s:.3f} s into generation {gen}, "
+        f"{mstats['tombstoned_rows']} tombstones left; same ids and distances before and "
+        f"after, on {card}")
+
+    t0 = time.perf_counter()
+    client.save_index(iid)
+    save_s = time.perf_counter() - t0
+    client.drop_index(iid)
+    t0 = time.perf_counter()
+    if not client.load_index(iid):
+        raise AssertionError(f"{what}: load_index failed")
+    load_s = time.perf_counter() - t0
+    client.set_nprobe(iid, nprobe)
+    d_l, meta_l = client.search(q_eval, 10, iid)
+    if served_ids(meta_l) & (dead_set - set(up_ids)):
+        raise AssertionError(f"{what}: a deleted id served after save -> drop -> load")
+    if not all(row[0] == (i,) for row, i in zip(meta_l, up_ids)):
+        raise AssertionError(f"{what}: an upserted row lost its top-1 after the reload")
+    counts = read_counts(counters)
+    log(f"{what}: save ({save_s:.3f} s) -> drop -> load ({load_s:.3f} s) serves no deleted "
+        f"id and every upserted row; launches over the phase {counts}")
+    if counts["K1"] <= 0:
+        raise AssertionError(f"{what}: K1 was not launched in this phase")
+    out["ivfsq"] = dict(remove_s=remove_s, sidecar_mb=sidecar_mb, recall=rec, qps=qps,
+                        p50_ms=p50, p99_ms=p99, qps_before=qps0,
+                        upsert_ack_s=ack_s, visible_s=visible_s, compact_s=compact_s,
+                        counts=counts)
+
+    # ---- knnlm (K3 over the lists) and flat PQ64,RFlat (K4) ----
+    s, x, q_eval = pq["serving"], pq["x"], pq["q_eval"]
+    client, n = s.client, pq["x"].shape[0]
+    dead = np.arange(0, n, 10)
+    dead_set = set(dead.tolist())
+    gt = survivors_ground_truth(x, q_eval, dead, "mutation knnlm corpus")
+    for iid, what, kernel in (("knnlm", "mutation knnlm", "K3 lists"),
+                              ("flatpq", "mutation PQ64,RFlat", "K4")):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        removed = client.remove_ids(iid, dead.tolist())
+        remove_s = time.perf_counter() - t0
+        if removed != dead.size:
+            raise AssertionError(f"{what}: remove_ids tombstoned {removed} rows")
+        d1, meta1 = client.search(q_eval, 10, iid)
+        check_result(d1, meta1, 1000, 10, f"{what} search")
+        if served_ids(meta1) & dead_set:
+            raise AssertionError(f"{what}: a deleted id served")
+        rec = recall_at_10(meta1, gt)
+        row = dict(remove_s=remove_s, recall=rec)
+        log(f"{what}: remove_ids of {dead.size} ids in {remove_s:.3f} s; no deleted id in "
+            f"the top-10 of 1000 queries; recall@10 {rec:.4f} over the survivors, on {card}")
+        if iid == "knnlm":
+            if rec < 0.95:
+                raise AssertionError(f"{what}: recall@10 {rec:.4f} < 0.95 over the survivors")
+            t0 = time.perf_counter()
+            if client.compact_index(iid) != [True]:
+                raise AssertionError(f"{what}: compact_index committed nothing")
+            row["compact_s"] = time.perf_counter() - t0
+            d2, meta2 = client.search(q_eval, 10, iid)
+            same_sets(meta1, d1, meta2, d2, f"{what} across the compaction")
+            log(f"{what}: compact_index in {row['compact_s']:.3f} s; same ids and distances "
+                f"before and after, on {card}")
+        row["counts"] = read_counts(counters)
+        log(f"{what}: launches over the phase {row['counts']}")
+        if row["counts"][kernel] <= 0:
+            raise AssertionError(f"{what}: {kernel} was not launched in this phase")
+        out[iid] = row
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1432,6 +1679,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sq_out = ivfsq_path(args, counters, card)
     log(f"ivfsq path: {time.perf_counter() - t0:.1f} s")
+    outs = None
     try:
         t0 = time.perf_counter()
         outs = knnlm_path(args, counters, card)
@@ -1445,15 +1693,21 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             phase()
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
-    finally:
-        sq_out["serving"].close()
 
-    k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])
-    k3 = adc_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"], "knnlm")
-    k3_lists = lists_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"])
-    k2 = adc_main_shape(adc_scan, ivf, k2_out["model"], k2_out["q_block"],
-                        "IVF1024,PQ12,RFlat")
-    k4 = shared_main_shape(adc_scan, ivf, flat_out["model"], flat_out["q_block"])
+        k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])
+        k3 = adc_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"], "knnlm")
+        k3_lists = lists_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"])
+        k2 = adc_main_shape(adc_scan, ivf, k2_out["model"], k2_out["q_block"],
+                            "IVF1024,PQ12,RFlat")
+        k4 = shared_main_shape(adc_scan, ivf, flat_out["model"], flat_out["q_block"])
+
+        t0 = time.perf_counter()
+        mutation_phase(args, sq_out, outs, counters, card)
+        log(f"mutation phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        if outs is not None:
+            outs["serving"].close()
+        sq_out["serving"].close()
     kernels = [
         dict(name="flat_list_scan", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
              launches=sq_out["counts"]["K1"], **k1, library_ms=None),

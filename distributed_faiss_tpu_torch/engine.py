@@ -1,6 +1,6 @@
 """Per-(server, index_id) shard engine: buffer, state machine, async
-train/add, persistence (counterpart of distributed_faiss_tpu/engine.py,
-core only).
+train/add, mutation, persistence (counterpart of
+distributed_faiss_tpu/engine.py, one rank).
 
 Behavior kept from the JAX package (and its reference,
 distributed_faiss/index.py:111-508): ingest buffer + positional metadata,
@@ -15,14 +15,24 @@ every interval while rows keep arriving, and ``search`` goes through the
 in-process natural batcher (utils/batching.py) so concurrent callers share
 device launches.
 
-Not ported yet: mutation (remove/upsert, tombstones, compaction), per-id
-versions, replica digests, shard transfer and generation-pinned reads. A
-storage dir whose tombstone set is not empty is refused with a clear
-error, because serving it without the deletes would resurrect deleted
-rows.
+Mutation (mutation/): ``remove_ids`` and ``upsert`` tombstone rows by
+metadata id, masked on the device under ``index_lock`` (the lock every
+device search holds, so a coalesced window is wholly before or wholly
+after a delete) and made durable in the standalone sidecar before the
+call returns; rows still in the add buffer are masked when their chunk
+drains. ``compact`` rebuilds the index without its dead rows into a fresh
+generation, by hand or from the watcher thread (DFT_COMPACT*). Writes may
+carry hybrid-logical-clock versions: the last-writer-wins gates make
+replays no-ops and let an upsert outrun a delete, the per-writer
+watermarks back read-your-writes (``assert_min_version``), and
+``search_at_generation`` serves a retained committed generation exactly
+as it was committed (DFT_RETAIN_GENERATIONS).
+
+Not ported yet: replica digests and the anti-entropy delta protocol
+(``replica_digest``, ``export_rows``, ``reconcile_deletes``,
+``prune_ledger``), shard transfer and the pre-manifest flat layout.
 """
 
-import json
 import logging
 import os
 import pickle
@@ -32,43 +42,39 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from distributed_faiss_tpu_torch.models.factory import build_index, index_from_state_dict
+from distributed_faiss_tpu_torch.models.factory import (
+    build_index,
+    index_from_state_dict,
+    remove_rows_unsupported,
+)
+from distributed_faiss_tpu_torch.mutation import compaction as _compaction
+from distributed_faiss_tpu_torch.mutation import tombstones as _tombstones
+from distributed_faiss_tpu_torch.mutation import versions as _versions
+from distributed_faiss_tpu_torch.mutation.tombstones import TombstoneSet
 from distributed_faiss_tpu_torch.utils import serialization
 from distributed_faiss_tpu_torch.utils.batching import SearchBatcher
-from distributed_faiss_tpu_torch.utils.config import IndexCfg
+from distributed_faiss_tpu_torch.utils.config import IndexCfg, MutationCfg, VersioningCfg
 from distributed_faiss_tpu_torch.utils.device import resolve_device
 from distributed_faiss_tpu_torch.utils.serialization import atomic_write, load_state, save_state
-from distributed_faiss_tpu_torch.utils.state import NOT_TRAINED_REJECTION_FMT, IndexState
+from distributed_faiss_tpu_torch.utils.state import (
+    NOT_TRAINED_REJECTION_FMT,
+    STALE_READ_REJECTION_FMT,
+    IndexState,
+)
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
 
 logger = logging.getLogger()
 
 _IVF_BUILDERS = ("ivf_simple", "knnlm", "ivfsq", "ivf_tpu")
 
-# the standalone tombstone sidecar and the empty payload a generation
-# commits with it (the JAX package's mutation/tombstones.py format 2)
-TOMBSTONE_SIDECAR = "tombstones.json"
-EMPTY_TOMBSTONES = {"format": 2, "layout": 0, "dead_rows": [], "dead_ids": [],
-                    "dead_ledger": [], "dead_versions": [], "live_versions": []}
-
-
-def _dump_tombstones(payload: dict) -> str:
-    return json.dumps(payload, default=str, sort_keys=True)
-
-
-def _refuse_tombstones(payload: Optional[dict], where: str) -> None:
-    if payload and (payload.get("dead_rows") or payload.get("dead_ledger")):
-        raise RuntimeError(
-            f"{where} holds a nonempty tombstone set "
-            f"({len(payload.get('dead_rows') or [])} dead rows): deletes are "
-            "not yet ported to distributed_faiss_tpu_torch, and serving this "
-            "shard without them would resurrect deleted rows")
+_id_match_key = _tombstones.id_match_key
 
 
 class _MetaStore:
     """Growable object-ndarray metadata store. Append-only: ``snapshot``
     hands out (array, length) that is safe to read outside the lock,
-    because slots below the snapshotted length are never rewritten."""
+    because slots below the snapshotted length are never rewritten (a
+    compaction replaces the whole store)."""
 
     __slots__ = ("_arr", "_n")
 
@@ -104,6 +110,69 @@ class _MetaStore:
         return self._arr[: self._n].tolist()
 
 
+# what _meta_id returns for a row without an id (None is a legal id)
+_NO_ID = object()
+
+
+def _meta_id(m, id_idx: int):
+    """The metadata id of one row, or ``_NO_ID`` for a row that has none
+    (empty metadata, or metadata the id index does not reach)."""
+    if not m:
+        return _NO_ID
+    try:
+        return m[id_idx]
+    except (TypeError, IndexError, KeyError):
+        return _NO_ID
+
+
+def _iter_live_ids(meta_arr, meta_n: int, dead_rows, id_idx: int):
+    """``(position, id)`` of every live row that has a metadata id."""
+    for p in range(meta_n):
+        if p in dead_rows:
+            continue
+        mid = _meta_id(meta_arr[p], id_idx)
+        if mid is not _NO_ID:
+            yield p, mid
+
+
+def _normalize_batch_versions(version, n: int):
+    """``add_batch``'s ``version``: None (unversioned), one version for the
+    whole batch (a client call ticks once), or a per-row list. Returns
+    ``(vlist, per_row)``: None or n normalized versions, and whether they
+    were per row, which is also what allows a row to replace an older
+    live row of its id (metadata ids need not be unique, so a plain batch
+    never does)."""
+    if version is None:
+        return None, False
+    if (isinstance(version, (list, tuple)) and len(version) == 3
+            and all(isinstance(c, (int, np.integer)) for c in version)):
+        return [_versions.version_key(version)] * n, False
+    out = [_versions.version_key(v) for v in version]
+    if len(out) != n:
+        raise RuntimeError("versions length should match the batch size of the embeddings")
+    return out, True
+
+
+def _apply_sidecar_by_id(tomb: TombstoneSet, side: dict, meta: list, id_idx: int,
+                         storage_dir: str) -> None:
+    """Re-apply a standalone sidecar whose positions belong to a layout that
+    did not survive (a compacted generation torn before a crash) by id:
+    its ids are layout-free. Conservative: an id deleted and re-added in
+    the lost layout is deleted again (a delete must never resurrect)."""
+    ids = {_id_match_key(v) for v in side.get("dead_ids", ()) if v is not None}
+    if not ids:
+        return
+    hits = 0
+    for p, m in enumerate(meta):
+        mid = _meta_id(m, id_idx)
+        if mid is not _NO_ID and _id_match_key(mid) in ids and p not in tomb:
+            tomb.add([p], [mid])
+            hits += 1
+    logger.warning("tombstone sidecar at %s is keyed to layout %s but the generation's "
+                   "layout is %s: re-applied %d delete(s) by id", storage_dir,
+                   side.get("layout"), tomb.layout, hits)
+
+
 def infer_n_centroids(total_data_size: int) -> int:
     """Centroid-count tiers (reference index.py:497-508)."""
     if total_data_size < 10e5:
@@ -126,18 +195,53 @@ class Index:
         self.index_lock = threading.Lock()
         self.state = IndexState.NOT_TRAINED
         self.model = None  # models.base.TorchIndex once trained
-        # set when a server replaces this engine (drop_index): no further saves
+        # set when a server replaces this engine (drop_index): no further
+        # saves or compactions
         self._retired = threading.Event()
         self._train_thread: Optional[threading.Thread] = None
         self._add_thread: Optional[threading.Thread] = None
         self._save_thread: Optional[threading.Thread] = None
+        self._compaction_thread: Optional[threading.Thread] = None
         self.index_save_time = time.time()
         self.index_saved_size = 0
         self.perf = LatencyStats()  # device-search latency, served via get_perf_stats
         self._generation = 0  # newest committed snapshot generation
         # bumped under both locks whenever the positional layout is replaced
-        # (drop_index): a search that launched on the old layout re-joins
+        # (compaction, drop_index): a search that launched on the old layout
+        # re-joins
         self._meta_epoch = 0
+
+        # ---- mutation (guarded by index_lock unless noted) ----
+        self.tombstones = TombstoneSet()
+        self._mutation_counters = {
+            "compactions": 0, "compactions_aborted": 0, "load_fallbacks": 0,
+            # versioned writes that no-op'd (replays, outrun deletes) and
+            # adds that replaced an older live row in place
+            "version_noop_adds": 0, "version_noop_deletes": 0, "version_replaced": 0,
+        }
+        self.versioning = VersioningCfg.from_env()
+        # writer id -> (wall_ms, counter) of the newest version incorporated
+        self._version_watermark = {}
+        # one cached snapshot of a retained generation for pinned reads,
+        # under its own lock: a pinned read never contends with serving
+        self._pinned_lock = threading.Lock()
+        self._pinned_cache = None
+        # the standalone sidecar is written outside the serving locks, by
+        # version: a payload snapshotted later is a superset (the set only
+        # shrinks at a compaction swap, which bumps the version), so an
+        # older writer skips
+        self._tombstone_io_lock = threading.Lock()
+        self._tombstone_version = 0
+        self._tombstone_written = 0  # under _tombstone_io_lock
+        # the tombstone version the last committed generation captured: a
+        # delete alone (ntotal unchanged) still commits on the next save
+        self._saved_tombstone_version = 0
+        # a replicated deployment's compaction lease; None compacts freely
+        self.compaction_gate = None
+        self.mutation_cfg = MutationCfg.from_env()
+        if self.mutation_cfg.compact and cfg.index_storage_dir:
+            self._run_compaction_watcher()
+
         # concurrent searches coalesce into shared device launches; window 0
         # = natural batching only, no added latency
         self._batcher = SearchBatcher(
@@ -156,23 +260,37 @@ class Index:
         with self.index_lock:
             self.model = None
             self.state = IndexState.NOT_TRAINED
+            self.tombstones = TombstoneSet(layout=self.tombstones.layout)
 
     def add_batch(self, embeddings: np.ndarray, metadata: Optional[List[object]],
                   train_async_if_triggered: bool = True, version=None) -> None:
-        if version is not None:
-            raise RuntimeError("versioned writes are not yet ported to "
-                               "distributed_faiss_tpu_torch")
         n = embeddings.shape[0]
         if not metadata:
             metadata = [None] * n
         if n != len(metadata):
             raise RuntimeError("metadata length should match the batch size of the embeddings")
         embeddings = np.asarray(embeddings, np.float32)
-        with self.buffer_lock:
-            self.embeddings_buffer.append(embeddings)
-            self.id_to_metadata.extend(metadata)
-            self.total_data += n
-            total_data = self.total_data
+        vlist, per_row = _normalize_batch_versions(version, n)
+        if vlist is not None:
+            total_data = self._add_batch_versioned(embeddings, metadata, vlist, per_row)
+        else:
+            with self.buffer_lock:
+                self.embeddings_buffer.append(embeddings)
+                self.id_to_metadata.extend(metadata)
+                self.total_data += n
+                total_data = self.total_data
+            # a re-added id is live again: drop its ledger entry, durably
+            # like the delete it reverses (only when anything was deleted)
+            payload = None
+            with self.index_lock:
+                if self.tombstones.ledger_size():
+                    id_idx = self.cfg.custom_meta_id_idx
+                    keys = [k for k in (_meta_id(m, id_idx) for m in metadata)
+                            if k is not _NO_ID]
+                    if self.tombstones.unledger(keys):
+                        payload, sc_version = self._tombstone_payload_locked()
+            if payload is not None:
+                self._write_tombstone_sidecar(payload, sc_version)
 
         state = self.get_state()
         if state == IndexState.TRAINED:
@@ -187,6 +305,102 @@ class Index:
             else:
                 self.train()
 
+    def _scan_ids(self, meta_arr, lo: int, hi: int, match) -> list:
+        """``(position, id)`` of the rows in [lo, hi) whose id ``match``
+        accepts."""
+        id_idx = self.cfg.custom_meta_id_idx
+        found = []
+        for p in range(lo, hi):
+            mid = _meta_id(meta_arr[p], id_idx)
+            if mid is not _NO_ID and match(mid):
+                found.append((p, mid))
+        return found
+
+    def _add_batch_versioned(self, embeddings: np.ndarray, metadata: list, vlist: list,
+                             allow_replace: bool) -> int:
+        """Append under the last-writer-wins gate, per id: a row whose
+        version loses to the id's live or deleted version no-ops. With
+        ``allow_replace`` (per-row versions) a row that wins displaces the
+        live rows of its id in place (they are tombstoned in the same lock
+        hold); a single-stamp batch never displaces. Decide and apply run
+        under both locks; the sidecar write, when the ledger changed, after
+        them. Returns the buffered total (the training trigger)."""
+        id_idx = self.cfg.custom_meta_id_idx
+        keys = []
+        for m in metadata:
+            mid = _meta_id(m, id_idx)
+            keys.append(None if mid is _NO_ID else _id_match_key(mid))
+        batch_keys = {k for k in keys if k is not None}
+
+        def in_batch(mid):
+            return _id_match_key(mid) in batch_keys
+
+        # the O(rows) candidate scan runs lock-free over the append-only
+        # snapshot; the locked section rescans only the tail since
+        candidates = []
+        if allow_replace and batch_keys:
+            with self.buffer_lock:
+                epoch0 = self._meta_epoch
+                meta_arr0, meta_n0 = self.id_to_metadata.snapshot()
+            candidates = self._scan_ids(meta_arr0, 0, meta_n0, in_batch)
+        with self.buffer_lock, self.index_lock:
+            tomb = self.tombstones
+            keep = [True] * len(metadata)
+            replace_keys = set()
+            noop = 0
+            for i, (k, v) in enumerate(zip(keys, vlist)):
+                self._observe_version_locked(v)
+                if k is None or v is None:
+                    continue
+                if _versions.add_loses(v, tomb.live_version(k), tomb.ledger_version(k)):
+                    keep[i] = False
+                    noop += 1
+                elif allow_replace:
+                    replace_keys.add(k)
+            self._mutation_counters["version_noop_adds"] += noop
+            replaced_rows = 0
+            if replace_keys:
+                meta_arr, meta_n = self.id_to_metadata.snapshot()
+                if self._meta_epoch != epoch0:
+                    candidates = self._scan_ids(meta_arr, 0, meta_n, in_batch)
+                else:
+                    candidates += self._scan_ids(meta_arr, meta_n0, meta_n, in_batch)
+                hit = [(p, mid) for p, mid in candidates
+                       if p not in tomb and _id_match_key(mid) in replace_keys]
+                if hit:
+                    self._check_remove_supported_locked()
+                    self._mask_indexed_locked([p for p, _ in hit])
+                    tomb.add([p for p, _ in hit], [mid for _, mid in hit])
+                    replaced_rows = len(hit)
+                    self._mutation_counters["version_replaced"] += replaced_rows
+            kept_n = sum(keep)
+            unledgered = 0
+            if kept_n:
+                if kept_n == len(metadata):
+                    kept_emb, kept_meta = embeddings, metadata
+                else:
+                    kept_emb = embeddings[np.asarray(keep, bool)]
+                    kept_meta = [m for i, m in enumerate(metadata) if keep[i]]
+                self.embeddings_buffer.append(kept_emb)
+                self.id_to_metadata.extend(kept_meta)
+                self.total_data += kept_n
+                for i, (k, v) in enumerate(zip(keys, vlist)):
+                    if not keep[i] or k is None:
+                        continue
+                    if v is not None:
+                        tomb.set_live_version(k, _versions.newest(tomb.live_version(k), v))
+                    # the landing write outranks any recorded delete
+                    unledgered += tomb.unledger([k])
+            total_data = self.total_data
+            # the sidecar is rewritten only when the deletion state moved;
+            # plain appends' live versions become durable at the next commit
+            payload = None
+            if replaced_rows or unledgered:
+                payload, sc_version = self._tombstone_payload_locked()
+        if payload is not None:
+            self._write_tombstone_sidecar(payload, sc_version)
+        return total_data
+
     def _thread_tag(self) -> str:
         return os.path.basename(self.cfg.index_storage_dir or "") or f"mem-{id(self):x}"
 
@@ -196,6 +410,340 @@ class Index:
         with self.index_lock:
             index_total = self.model.ntotal if self.model is not None else 0
         return buf_total, index_total
+
+    # ---------------------------------------------------------------- mutation
+
+    def remove_ids(self, ids, version=None) -> int:
+        """Tombstone every row whose metadata id (``cfg.custom_meta_id_idx``)
+        is in ``ids``; returns the rows newly tombstoned.
+
+        ``version`` (one version for the call) makes the delete LWW-gated:
+        an id live at a same-or-newer version no-ops, a replay no-ops, and
+        every id the delete wins is ledgered at ``version``, rows here or
+        not, so a stale add arriving later is gated too. Unversioned calls
+        keep the legacy delete-wins semantics.
+
+        Indexed rows are masked on the device at once, under ``index_lock``;
+        buffered rows keep their positions and are masked when their chunk
+        drains. The O(rows) id scan runs lock-free over the append-only
+        metadata snapshot (only the tail appended since is rescanned under
+        the locks), and the sidecar is written after the locks are released
+        but before this returns: an acknowledged delete survives a crash."""
+        id_set = ids if isinstance(ids, (set, frozenset)) else set(ids)
+        if not id_set:
+            return 0
+
+        def wanted(mid):
+            return mid in id_set
+
+        with self.buffer_lock:
+            epoch0 = self._meta_epoch
+            meta_arr0, meta_n0 = self.id_to_metadata.snapshot()
+        candidates = self._scan_ids(meta_arr0, 0, meta_n0, wanted)
+
+        vk = _versions.version_key(version)
+        with self.buffer_lock, self.index_lock:
+            meta_arr, meta_n = self.id_to_metadata.snapshot()
+            if self._meta_epoch != epoch0:
+                # a compaction or drop replaced the layout since the scan
+                candidates = self._scan_ids(meta_arr, 0, meta_n, wanted)
+            else:
+                candidates += self._scan_ids(meta_arr, meta_n0, meta_n, wanted)
+            eligible_keys = None
+            if vk is not None:
+                # the gate runs per requested id, not per matched row
+                self._observe_version_locked(vk)
+                eligible_keys, gated = set(), 0
+                for raw in id_set:
+                    k = _id_match_key(raw)
+                    if _versions.delete_loses(vk, self.tombstones.live_version(k),
+                                              self.tombstones.ledger_version(k)):
+                        gated += 1
+                    else:
+                        eligible_keys.add(k)
+                self._mutation_counters["version_noop_deletes"] += gated
+            rows, rids = [], []
+            for p, mid in candidates:
+                if p in self.tombstones:
+                    continue
+                if eligible_keys is not None and _id_match_key(mid) not in eligible_keys:
+                    continue
+                rows.append(p)
+                rids.append(mid)
+            if not rows and not eligible_keys:
+                return 0
+            if rows:
+                self._check_remove_supported_locked()
+                self._mask_indexed_locked(rows)
+                self.tombstones.add(rows, rids, version=vk)
+                if vk is None:
+                    # legacy delete-wins: a live version must not outlive
+                    # its rows
+                    for mid in rids:
+                        self.tombstones.drop_live_version(mid)
+            if eligible_keys:
+                self.tombstones.ledger_update_versioned((k, vk) for k in eligible_keys)
+                for k in eligible_keys:
+                    self.tombstones.drop_live_version(k)
+            payload, sc_version = self._tombstone_payload_locked()
+            removed = len(rows)
+        self._write_tombstone_sidecar(payload, sc_version)
+        return removed
+
+    def upsert(self, ids, embeddings: np.ndarray, metadata: Optional[List[object]] = None,
+               version=None) -> int:
+        """Delete + add: tombstone every live row of ``ids``, then ingest
+        the replacements through the add path (fresh positions, so the
+        ids' positional tombstones do not cover them). The old rows stop
+        serving before this returns; the new ones serve once their chunk
+        drains; never both. ``metadata`` defaults to ``(id,)`` tuples when
+        the id rides at position 0. ``version`` stamps both halves; the tie
+        rules make a replayed upsert a no-op."""
+        ids = list(ids)
+        embeddings = np.asarray(embeddings, np.float32)
+        if embeddings.shape[0] != len(ids):
+            raise RuntimeError("upsert ids length should match the batch size of the embeddings")
+        if metadata is None:
+            if self.cfg.custom_meta_id_idx != 0:
+                raise RuntimeError("upsert needs explicit metadata when custom_meta_id_idx != 0")
+            metadata = [(i,) for i in ids]
+        removed = self.remove_ids(ids, version=version)
+        self.add_batch(embeddings, metadata, version=version)
+        return removed
+
+    def _mask_indexed_locked(self, rows: list) -> None:
+        """Mask the already-indexed ones of ``rows`` on the device (caller
+        holds index_lock; the buffered ones are masked when they drain)."""
+        indexed_n = self.model.ntotal if self.model is not None else 0
+        device_rows = [p for p in rows if p < indexed_n]
+        if device_rows:
+            self.model.remove_rows(np.asarray(device_rows, np.int64))
+
+    def _check_remove_supported_locked(self) -> None:
+        """Refuse a delete on an index kind without a tombstone mask before
+        any tombstone is recorded, also while every row is still buffered:
+        a tombstone the drain could not mask would serve the row."""
+        if self.model is not None:
+            if not self.model.supports_remove_rows():
+                raise RuntimeError(
+                    f"{type(self.model).__name__} does not support remove/upsert "
+                    "(no tombstone mask for this index kind)")
+        elif remove_rows_unsupported(self.cfg):
+            kind = self.cfg.index_builder_type or self.cfg.faiss_factory
+            raise RuntimeError(f"index kind {kind!r} does not support remove/upsert "
+                               "(no tombstone mask for this index kind)")
+
+    def _tombstone_payload_locked(self):
+        """The sidecar payload and a monotonic version, taken under
+        index_lock; the disk write happens outside it."""
+        self._tombstone_version += 1
+        return self.tombstones.to_payload(), self._tombstone_version
+
+    def _write_tombstone_sidecar(self, payload: dict, version: int) -> None:
+        """Rewrite the standalone sidecar unless a newer payload already
+        landed. No-op without a storage dir (the set stays in memory)."""
+        storage_dir = self.cfg.index_storage_dir
+        if not storage_dir:
+            return
+        with self._tombstone_io_lock:
+            if version <= self._tombstone_written:
+                return
+            os.makedirs(storage_dir, exist_ok=True)
+            _tombstones.write_sidecar(storage_dir, payload)
+            self._tombstone_written = version
+
+    def tombstone_fraction(self) -> float:
+        """Tombstoned share of the indexed rows (the compaction trigger)."""
+        with self.index_lock:
+            indexed_n = self.model.ntotal if self.model is not None else 0
+            if indexed_n == 0:
+                return 0.0
+            return self.tombstones.count_below(indexed_n) / indexed_n
+
+    def mutation_stats(self) -> dict:
+        """The ``mutation`` perf-stats key: tombstone counts, the live
+        fraction, the compaction and version counters, the layout epoch,
+        ``compaction_s`` once a pass ran, and the version watermark."""
+        with self.index_lock:
+            indexed_n = self.model.ntotal if self.model is not None else 0
+            dead_indexed = self.tombstones.count_below(indexed_n)
+            out = {
+                "tombstoned_rows": len(self.tombstones),
+                "tombstoned_indexed": dead_indexed,
+                "live_fraction": 1.0 - dead_indexed / indexed_n if indexed_n else 1.0,
+                "layout_generation": self.tombstones.layout,
+                **self._mutation_counters,
+            }
+        comp = self.perf.summary().get("compaction_s")
+        if comp:
+            out["compaction_s"] = comp
+        wm = self.version_watermark()
+        out["version_watermark"] = list(wm) if wm is not None else None
+        return out
+
+    # ------------------------------------------------------------- versioning
+
+    def _observe_version_locked(self, vk) -> None:
+        """Fold a presented version into its writer's watermark, applied or
+        gated alike: a gated replay is covered by a same-or-newer write."""
+        if vk is None:
+            return
+        cur = self._version_watermark.get(vk[2])
+        pair = (vk[0], vk[1])
+        if cur is None or pair > cur:
+            self._version_watermark[vk[2]] = pair
+
+    def version_watermark(self):
+        """The newest version incorporated here across all writers (None
+        before any): what a client's clock seeds from."""
+        with self.index_lock:
+            items = list(self._version_watermark.items())
+        if not items:
+            return None
+        return max((ms, ctr, w) for w, (ms, ctr) in items)
+
+    def assert_min_version(self, min_version) -> None:
+        """Read-your-writes gate: raise the stale-read rejection unless this
+        shard has incorporated ``min_version``. Watermarks are per writer,
+        so another writer's newer version never satisfies it."""
+        vk = _versions.version_key(min_version)
+        if vk is None:
+            return
+        with self.index_lock:
+            wm = self._version_watermark.get(vk[2])
+        if wm is None or wm < (vk[0], vk[1]):
+            raise RuntimeError(STALE_READ_REJECTION_FMT.format(
+                version=list(vk), watermark=list(wm) if wm else None))
+
+    def id_sets(self) -> dict:
+        """The live ids (buffered ones included) and the deletion ledger,
+        normalized; the version planes; and ``watermark``, the newest
+        incorporated version, which a client's clock seeds from."""
+        with self.buffer_lock, self.index_lock:
+            meta_arr, meta_n = self.id_to_metadata.snapshot()
+            dead_rows = frozenset(self.tombstones.rows())
+            ledger_items = self.tombstones.ledger_items()
+            live_vmap = dict(self.tombstones.live_versions())
+        live = [_id_match_key(mid) for _p, mid in
+                _iter_live_ids(meta_arr, meta_n, dead_rows, self.cfg.custom_meta_id_idx)]
+        live_keys = set(live)
+        wm = self.version_watermark()
+        return {
+            "live": live,
+            "dead": sorted((k for k, _v in ledger_items), key=repr),
+            "live_versions": sorted(([k, v] for k, v in live_vmap.items()
+                                     if v is not None and k in live_keys), key=repr),
+            "dead_versions": sorted(([k, v] for k, v in ledger_items if v is not None),
+                                    key=repr),
+            "watermark": list(wm) if wm is not None else None,
+        }
+
+    # ---------------------------------------------------------------- compaction
+
+    def compact(self) -> bool:
+        """Rewrite the tombstoned rows out of the index as a fresh MANIFEST
+        generation, swapped in atomically; True when one committed.
+
+        1. Under both locks: snapshot the state dict, row count and dead set.
+        2. Without locks, serving on: filter the state to the survivors and
+           build the new model on the engine's device.
+        3. Under both locks again: abort if an add drained rows since (the
+           watcher retries later); carry deletes that arrived meanwhile
+           onto the new layout; commit the generation (rows, compacted
+           metadata, buffer and the remapped tombstones with the new layout
+           epoch); swap model, metadata and tombstones; bump the layout
+           epoch so in-flight joins retry.
+
+        A crash in 2 leaves orphan files (quarantined at load; the previous
+        generation and its sidecar serve). A crash in 3 after the manifest
+        landed loads the new generation, whose own payload has the catch-up
+        set; the standalone sidecar, still of the old layout, is then
+        re-applied by id."""
+        storage_dir = self.cfg.index_storage_dir
+        if not storage_dir:
+            return False
+        t0 = time.perf_counter()
+        with self.buffer_lock, self.index_lock:
+            if self.model is None or self.state != IndexState.TRAINED:
+                return False
+            n0 = int(self.model.ntotal)
+            dead0 = np.asarray([p for p in self.tombstones.rows() if p < n0], np.int64)
+            if dead0.size == 0:
+                return False
+            state = self.model.state_dict()
+
+        keep = np.ones(n0, bool)
+        keep[dead0] = False
+        try:
+            new_state = _compaction.compact_state(state, keep)
+        except _compaction.CompactionUnsupported as e:
+            logger.info("compaction skipped: %s", e)
+            return False
+        new_model = index_from_state_dict(new_state, device=self.device)
+        self._apply_runtime_knobs(new_model)
+        new_n = int(keep.sum())
+        old2new = np.full(n0, -1, np.int64)
+        old2new[keep] = np.arange(new_n)
+
+        with self.buffer_lock, self.index_lock:
+            if (self.model is None or self.state != IndexState.TRAINED
+                    or int(self.model.ntotal) != n0):
+                self._mutation_counters["compactions_aborted"] += 1
+                logger.info("compaction aborted: index changed mid-rebuild")
+                return False
+            meta = self.id_to_metadata.tolist()
+            new_meta = [meta[p] for p in range(n0) if keep[p]] + meta[n0:]
+            # deletes since the snapshot, remapped (buffered rows shift down)
+            shift = new_n - n0
+            carried = {}
+            for p, mid in self.tombstones.items():
+                if p >= n0:
+                    carried[p + shift] = mid
+                elif keep[p]:
+                    carried[int(old2new[p])] = mid
+            new_tomb = TombstoneSet(carried)
+            # the ledger and both version planes are position-free and
+            # survive the swap
+            new_tomb.ledger_update_versioned(self.tombstones.ledger_items())
+            new_tomb.live_versions_update(self.tombstones.live_versions())
+            carried_indexed = [r for r in carried if r < new_n]
+            if carried_indexed:
+                new_model.remove_rows(np.asarray(carried_indexed, np.int64))
+            disk_gens = serialization.list_generations(storage_dir)
+            gen = max(self._generation, disk_gens[0][0] if disk_gens else 0) + 1
+            new_tomb.layout = gen
+            # claim the sidecar version before the commit writes the
+            # remapped payload: a writer that snapshotted the old layout
+            # skips afterwards
+            self._tombstone_version += 1
+            with self._tombstone_io_lock:
+                self._tombstone_written = max(self._tombstone_written,
+                                              self._tombstone_version)
+            self._commit_generation(
+                storage_dir, gen, new_state, new_meta, self.embeddings_buffer, self.cfg,
+                extra={"ntotal": new_n, "layout": gen, "compacted": True},
+                tombstones=new_tomb.to_payload(), io_lock=self._tombstone_io_lock,
+                keep=self.versioning.retain_generations)
+            self.model = new_model
+            self.id_to_metadata = _MetaStore(new_meta)
+            self.tombstones = new_tomb
+            self._generation = gen
+            self.index_saved_size = new_n
+            self._saved_tombstone_version = self._tombstone_version
+            self.index_save_time = time.time()
+            self._meta_epoch += 1
+            self._mutation_counters["compactions"] += 1
+        dt = time.perf_counter() - t0
+        self.perf.record("compaction_s", dt)
+        logger.info("compacted %d tombstoned rows out (%d -> %d) into generation %d "
+                    "in %.3fs", n0 - new_n, n0, new_n, gen, dt)
+        return True
+
+    def _run_compaction_watcher(self) -> None:
+        t = threading.Thread(target=_compaction.run_watcher, args=(self, self.mutation_cfg),
+                             name=f"compaction:{self._thread_tag()}", daemon=True)
+        self._compaction_thread = t
+        t.start()
 
     # ------------------------------------------------------------------ train
 
@@ -305,6 +853,17 @@ class Index:
                     return
                 self.model.add(add_data)
                 ntotal = self.model.ntotal
+                # rows deleted while buffered are masked in the same lock
+                # hold that adds them: no search window sees them live
+                dead_new = self.tombstones.rows_in_range(ntotal - add_data.shape[0], ntotal)
+                if dead_new:
+                    # unreachable for kinds without a mask (remove_ids refuses
+                    # them up front); a failure must not kill the drain worker
+                    try:
+                        self.model.remove_rows(np.asarray(dead_new, np.int64))
+                    except Exception:
+                        logger.exception("drain-time tombstone mask failed for rows %s: "
+                                         "rows serve until compaction", dead_new)
             logger.info("added %d vectors in %.3fs (ntotal=%d)",
                         add_data.shape[0], time.time() - start_time, ntotal)
             self._maybe_save(ignore_time=False)
@@ -322,7 +881,8 @@ class Index:
 
     def _device_search(self, query_batch: np.ndarray, top_k: int):
         """The locked device launch: one in-flight search per index (the
-        lock also serializes against add and list growth)."""
+        lock also serializes against add, list growth and the tombstone
+        masks)."""
         with self.index_lock:
             if self.state != IndexState.TRAINED:
                 raise RuntimeError(NOT_TRAINED_REJECTION_FMT.format(state=self.state))
@@ -332,24 +892,30 @@ class Index:
             self.perf.record("device_search_rows", float(query_batch.shape[0]))
             return out
 
+    @staticmethod
+    def _search_and_reconstruct(model, query_batch: np.ndarray, top_k: int):
+        """(scores, ids, embeddings) from one model state; missing slots
+        reconstruct as zeros."""
+        scores, indexes = model.search(query_batch, top_k)
+        flat = indexes.reshape(-1)
+        if model.ntotal == 0:
+            rec = np.zeros((flat.shape[0], query_batch.shape[1]), np.float32)
+        else:
+            rec = np.array(model.reconstruct_batch(np.where(flat >= 0, flat, 0)))
+            rec[flat < 0] = 0.0
+        return scores, indexes, rec.reshape(indexes.shape + (query_batch.shape[1],))
+
     def _search_reconstruct(self, query_batch: np.ndarray, top_k: int):
         """Search + embedding reconstruction from one atomic index state."""
         with self.index_lock:
             if self.state != IndexState.TRAINED:
                 raise RuntimeError(NOT_TRAINED_REJECTION_FMT.format(state=self.state))
-            scores, indexes = self.model.search(query_batch, top_k)
-            flat = indexes.reshape(-1)
-            if self.model.ntotal == 0:
-                rec = np.zeros((flat.shape[0], query_batch.shape[1]), np.float32)
-            else:
-                rec = np.array(self.model.reconstruct_batch(np.where(flat >= 0, flat, 0)))
-                rec[flat < 0] = 0.0
-        return scores, indexes, rec.reshape(indexes.shape + (query_batch.shape[1],))
+            return self._search_and_reconstruct(self.model, query_batch, top_k)
 
     def _run_and_join(self, run, return_embeddings: bool):
-        """Launch + metadata join under the layout-epoch check: a drop
-        between the launch and the join relaunches on the new layout instead
-        of pairing old positional ids with new metadata."""
+        """Launch + metadata join under the layout-epoch check: a compaction
+        or drop between the launch and the join relaunches on the new
+        layout instead of pairing old positional ids with new metadata."""
         for _ in range(8):
             with self.buffer_lock:
                 epoch0 = self._meta_epoch
@@ -387,6 +953,68 @@ class Index:
             run = lambda: self._device_search(query_batch, top_k) + (None,)  # noqa: E731
         return self._run_and_join(run, return_embeddings)
 
+    # ------------------------------------------------- generation-pinned reads
+
+    def current_generation(self) -> int:
+        """Newest committed generation (0 = none): what a client pins."""
+        with self.index_lock:
+            return self._generation
+
+    def search_at_generation(self, query_batch: np.ndarray, top_k: int = 100,
+                             generation: int = 0, return_embeddings: bool = False):
+        """Search a retained committed generation as it was committed: its
+        indexed rows and its own tombstones, whatever changed since. The
+        snapshot loads lazily on the engine's device, one cached at a time
+        under its own lock; a pruned or unknown generation raises."""
+        query_batch = np.asarray(query_batch, np.float32)
+        gen = int(generation)
+        with self._pinned_lock:
+            cached = self._pinned_cache
+            if cached is None or cached[0] != gen:
+                self._pinned_cache = cached = (gen, self._load_generation_snapshot(gen))
+            snap, meta_arr, meta_n = cached[1]
+            if return_embeddings:
+                scores, indexes, embs_arr = self._search_and_reconstruct(
+                    snap, query_batch, top_k)
+            else:
+                (scores, indexes), embs_arr = snap.search(query_batch, top_k), None
+        return self._join_results(scores, indexes, embs_arr, return_embeddings,
+                                  meta_arr, meta_n)
+
+    def _load_generation_snapshot(self, gen: int):
+        """One retained generation, read-only: (model with the generation's
+        own tombstones masked, metadata array, length). A second resident
+        copy of the shard."""
+        storage_dir = self.cfg.index_storage_dir
+        if not storage_dir:
+            raise RuntimeError("generation-pinned reads need a persistent shard "
+                               "(no index_storage_dir configured)")
+        manifest = None
+        for g, mpath in serialization.list_generations(storage_dir):
+            if g == gen:
+                manifest = serialization.load_manifest(mpath)
+                break
+        if manifest is None:
+            raise RuntimeError(f"generation {gen} is not retained at {storage_dir} (pruned "
+                               "or never committed; raise DFT_RETAIN_GENERATIONS to keep a "
+                               "deeper point-in-time window)")
+
+        def gen_path(key):
+            return os.path.join(storage_dir, manifest["files"][key]["name"])
+
+        snap = index_from_state_dict(load_state(gen_path("index")), device=self.device)
+        with open(gen_path("meta"), "rb") as f:
+            meta = pickle.load(f)[: snap.ntotal]
+        tomb = TombstoneSet.from_payload(
+            _tombstones.load_generation_payload(storage_dir, manifest))
+        dead = [p for p in tomb.rows() if p < snap.ntotal]
+        if dead:
+            snap.remove_rows(np.asarray(dead, np.int64))
+        meta_arr, meta_n = _MetaStore(meta).snapshot()
+        logger.info("pinned generation %d of %s for point-in-time reads (%d rows, %d "
+                    "tombstoned)", gen, storage_dir, snap.ntotal, len(dead))
+        return snap, meta_arr, meta_n
+
     def _join_results(self, scores, indexes, embs_arr, return_embeddings, meta_arr, meta_n):
         valid = indexes != -1
         max_id = np.max(indexes, initial=-1)
@@ -411,15 +1039,17 @@ class Index:
             return self.model.get_centroids()
 
     def get_ids(self) -> set:
-        """The ``cfg.custom_meta_id_idx`` field of every indexed or buffered
-        row's metadata. The store is snapshotted under both locks and the
-        set is built outside them, so a long iteration does not stall
-        concurrent adds (slots below the snapshotted length are never
-        rewritten). Deletes are not ported, so no row is dead."""
+        """The ``cfg.custom_meta_id_idx`` field of every live indexed or
+        buffered row's metadata. The store and the dead rows are
+        snapshotted under both locks and the set is built outside them, so
+        a long iteration does not stall concurrent adds (slots below the
+        snapshotted length are never rewritten)."""
         id_idx = self.cfg.custom_meta_id_idx
         with self.buffer_lock, self.index_lock:
             meta_arr, meta_n = self.id_to_metadata.snapshot()
-        return {meta[id_idx] for meta in meta_arr[:meta_n].tolist() if meta}
+            dead = frozenset(self.tombstones.rows())
+        return {meta[id_idx] for p, meta in enumerate(meta_arr[:meta_n].tolist())
+                if meta and p not in dead}
 
     def set_nprobe(self, nprobe: int) -> None:
         self.cfg.nprobe = nprobe
@@ -452,13 +1082,14 @@ class Index:
         return False
 
     def retire(self) -> None:
-        """Stop persistence for this engine (the server swapped it out) and
-        join its workers, bounded: the save watcher wakes on the retired
-        event and exits at once; a train or add worker still running past
-        the timeout is harmless, since ``_maybe_save`` no-ops once
-        retired."""
+        """Stop persistence and compaction for this engine (the server
+        swapped it out) and join its workers, bounded: the watchers wake on
+        the retired event and exit at once; a train or add worker still
+        running past the timeout is harmless, since ``_maybe_save`` no-ops
+        once retired."""
         self._retired.set()
-        for t in (self._save_thread, self._train_thread, self._add_thread):
+        for t in (self._save_thread, self._compaction_thread, self._train_thread,
+                  self._add_thread):
             if t is not None and t is not threading.current_thread():
                 t.join(timeout=1.0)
 
@@ -471,7 +1102,9 @@ class Index:
             if time.time() - self.index_save_time < self.cfg.save_interval_sec:
                 return False
         with self.buffer_lock, self.index_lock:
-            if self.model is None or self.model.ntotal == self.index_saved_size:
+            if self.model is None or (
+                    self.model.ntotal == self.index_saved_size
+                    and self._tombstone_version == self._saved_tombstone_version):
                 return False
             storage_dir = self.cfg.index_storage_dir
             # never recycle a generation number already on disk
@@ -480,9 +1113,12 @@ class Index:
             self._commit_generation(
                 storage_dir, gen, self.model.state_dict(), self.id_to_metadata.tolist(),
                 self.embeddings_buffer, self.cfg,
-                extra={"ntotal": int(self.model.ntotal), "layout": 0})
+                extra={"ntotal": int(self.model.ntotal), "layout": self.tombstones.layout},
+                tombstones=self.tombstones.to_payload(), io_lock=self._tombstone_io_lock,
+                keep=self.versioning.retain_generations)
             self._generation = gen
             self.index_saved_size = self.model.ntotal
+            self._saved_tombstone_version = self._tombstone_version
             self.index_save_time = time.time()
             logger.info("saved index (%d vectors) to %s as generation %d",
                         self.index_saved_size, storage_dir, gen)
@@ -503,21 +1139,25 @@ class Index:
     @staticmethod
     def _commit_generation(storage_dir: str, gen: int, state: dict, meta: list,
                            buffer: list, cfg: IndexCfg, extra: Optional[dict] = None,
+                           tombstones: Optional[dict] = None, io_lock=None,
                            keep: int = 2) -> None:
         """The torn-snapshot commit protocol (the JAX engine's file set):
         every file of generation ``gen`` is written tmp+fsync+rename, and
-        the generation becomes loadable only when its MANIFEST — with each
-        file's sha256 — lands last. Then the standalone tombstone sidecar
-        and the cfg.json convenience copy are refreshed and the dir is
-        pruned to the newest ``keep`` (>= 2) generations."""
+        the generation becomes loadable only when its MANIFEST, with each
+        file's sha256, lands last. ``tombstones`` is the payload committed
+        with the generation (valid for its positions); after the manifest
+        the standalone sidecar is rewritten from it, under ``io_lock`` (the
+        per-mutation writer's lock), then the cfg.json convenience copy,
+        and the dir is pruned to the newest ``keep`` (>= 2) generations."""
         os.makedirs(storage_dir, exist_ok=True)
+        ts_payload = tombstones if tombstones is not None else TombstoneSet().to_payload()
+        ts_text = _tombstones.dump_payload(ts_payload) + "\n"
         plan = {
             "index": ("npz", "wb", lambda f: save_state(f, state)),
             "meta": ("pkl", "wb", lambda f: pickle.dump(meta, f)),
             "buffer": ("pkl", "wb", lambda f: pickle.dump(buffer, f)),
             "cfg": ("json", "w", lambda f: f.write(cfg.to_json_string() + "\n")),
-            "tombstones": ("json", "w",
-                           lambda f: f.write(_dump_tombstones(EMPTY_TOMBSTONES) + "\n")),
+            "tombstones": ("json", "w", lambda f: f.write(ts_text)),
         }
         entries = {}
         for key, (ext, mode, write_fn) in plan.items():
@@ -525,8 +1165,11 @@ class Index:
             digest = atomic_write(os.path.join(storage_dir, name), write_fn, mode)
             entries[key] = {"name": name, "sha256": digest}
         serialization.write_manifest(storage_dir, gen, entries, extra=extra)
-        atomic_write(os.path.join(storage_dir, TOMBSTONE_SIDECAR),
-                     lambda f: f.write(_dump_tombstones(EMPTY_TOMBSTONES) + "\n"), "w")
+        if io_lock is not None:
+            with io_lock:
+                _tombstones.write_sidecar(storage_dir, ts_payload)
+        else:
+            _tombstones.write_sidecar(storage_dir, ts_payload)
         atomic_write(os.path.join(storage_dir, "cfg.json"),
                      lambda f: f.write(cfg.to_json_string() + "\n"), "w")
         serialization.prune_generations(storage_dir, keep=max(2, int(keep)))
@@ -536,12 +1179,15 @@ class Index:
                          ignore_buffer: bool = True, device="cuda") -> Optional["Index"]:
         """Restore a shard from its newest complete generation. A generation
         whose files fail the sha256 check is quarantined and the previous
-        one loads instead. Returns None when no committed generation exists
+        one loads instead. The generation's own tombstones apply, and the
+        standalone sidecar merges in positionally when its layout matches,
+        by id otherwise. Returns None when no committed generation exists
         (the JAX package's pre-manifest flat layout is not ported)."""
         stale = serialization.quarantine_stale_tmps(index_storage_dir)
         if stale:
             logger.warning("quarantined %d abandoned .tmp file(s): %s", len(stale), stale)
         chosen = None
+        fallbacks = 0
         for gen, mpath in serialization.list_generations(index_storage_dir):
             try:
                 manifest = serialization.load_manifest(mpath)
@@ -555,6 +1201,7 @@ class Index:
             logger.warning("generation %d at %s is torn (%s): quarantining and "
                            "falling back", gen, index_storage_dir, reason)
             serialization.quarantine_generation(index_storage_dir, gen, reason)
+            fallbacks += 1
         if chosen is None:
             logger.info("no committed generation at %s", index_storage_dir)
             return None
@@ -566,13 +1213,6 @@ class Index:
         def gen_path(key):
             return os.path.join(index_storage_dir, manifest["files"][key]["name"])
 
-        if "tombstones" in manifest["files"]:
-            with open(gen_path("tombstones")) as f:
-                _refuse_tombstones(json.load(f), f"generation {gen} at {index_storage_dir}")
-        sidecar = os.path.join(index_storage_dir, TOMBSTONE_SIDECAR)
-        if os.path.exists(sidecar):
-            with open(sidecar) as f:
-                _refuse_tombstones(json.load(f), sidecar)
         model = index_from_state_dict(load_state(gen_path("index")), device=device)
         with open(gen_path("meta"), "rb") as f:
             meta = pickle.load(f)
@@ -585,20 +1225,41 @@ class Index:
                 buffer = pickle.load(f)
         if cfg is None:
             cfg = IndexCfg.from_json(gen_path("cfg"))
-        result = cls._restore(cfg, model, meta, buffer, device)
+        committed = _tombstones.load_generation_payload(index_storage_dir, manifest)
+        tomb = TombstoneSet.from_payload(committed)
+        side = _tombstones.load_sidecar(index_storage_dir)
+        if side is not None:
+            if int(side.get("layout", 0)) == tomb.layout:
+                tomb.merge_payload(side)
+            else:
+                _apply_sidecar_by_id(tomb, side, meta, cfg.custom_meta_id_idx,
+                                     index_storage_dir)
+        result = cls._restore(cfg, model, meta, buffer, device, tombstones=tomb)
         result._generation = gen
         result.index_saved_size = model.ntotal
+        if side is not None and side != committed:
+            # mutations acknowledged after the commit: the next save commits them
+            result._tombstone_version = 1
+        result._mutation_counters["load_fallbacks"] = fallbacks
         return result
 
     @classmethod
-    def _restore(cls, cfg: IndexCfg, model, meta: list, buffer: list, device) -> "Index":
+    def _restore(cls, cfg: IndexCfg, model, meta: list, buffer: list, device,
+                 tombstones: Optional[TombstoneSet] = None) -> "Index":
         """Wire a loaded (model, meta, buffer) triple into a TRAINED engine,
         re-adding a consistent leftover buffer and truncating metadata
-        otherwise."""
+        otherwise. The recovered tombstones are masked on the device before
+        the buffer replay starts, so a dead buffered row is masked when its
+        chunk lands."""
         result = cls(cfg, device)
         result.model = model
         result.state = IndexState.TRAINED
         result.upd_cfg(cfg)
+        if tombstones is not None:
+            result.tombstones = tombstones
+            dead_indexed = [p for p in tombstones.rows() if p < model.ntotal]
+            if dead_indexed:
+                model.remove_rows(np.asarray(dead_indexed, np.int64))
         buffer_size = sum(v.shape[0] for v in buffer)
         if len(meta) == model.ntotal + buffer_size:
             result.id_to_metadata = _MetaStore(meta)
@@ -611,4 +1272,26 @@ class Index:
                 logger.warning("metadata size %d != index+buffer %d: ignoring buffer, "
                                "truncating meta", len(meta), model.ntotal + buffer_size)
             result.id_to_metadata = _MetaStore(meta[: model.ntotal])
+        result._seed_version_state()
         return result
+
+    def _seed_version_state(self) -> None:
+        """After a restore: re-seed the per-writer watermarks from the
+        recovered version planes, and drop live versions whose rows did not
+        survive (a truncated buffer)."""
+        with self.buffer_lock, self.index_lock:
+            pairs = self.tombstones.ledger_items() + self.tombstones.live_versions()
+            if not pairs:
+                return
+            for _k, v in pairs:
+                self._observe_version_locked(_versions.version_key(v))
+            live_pairs = self.tombstones.live_versions()
+            if not live_pairs:
+                return
+            meta_arr, meta_n = self.id_to_metadata.snapshot()
+            dead_rows = frozenset(self.tombstones.rows())
+            live_keys = {_id_match_key(mid) for _p, mid in
+                         _iter_live_ids(meta_arr, meta_n, dead_rows, self.cfg.custom_meta_id_idx)}
+            for k, _v in live_pairs:
+                if k not in live_keys:
+                    self.tombstones.drop_live_version(k)

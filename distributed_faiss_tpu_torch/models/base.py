@@ -3,18 +3,23 @@ of distributed_faiss_tpu/models/base.py).
 
 - ``DeviceVectorStore``: a flat corpus as one (capacity, ...) device tensor,
   grown by power-of-two reallocation; rows past ``ntotal`` are masked in
-  every scan.
+  every scan, and so are the rows ``mask_rows`` tombstones (the ``live``
+  mask, allocated at the first delete).
 - ``PaddedLists``: ``nlist`` inverted lists as rectangular (nlist, cap, ...)
   device tensors with a per-list fill count. Capacity starts at
   ``MIN_CAP`` = 64 and doubles when the fullest list would overflow, as in
   the JAX package, so both packages place every row in the same
   (list, slot). The ids plane starts at -1, so every never-written slot is
-  masked by ``id < 0`` in the scan. Appends are planned on the host
-  (``plan_append``) and land as one scatter.
+  masked by ``id < 0`` in the scan, and so is every cell ``mask_cells``
+  tombstones. Appends are planned on the host (``plan_append``) and land
+  as one scatter.
 
-The JAX package's write/append bucketing and pow2 query-block padding
+The JAX package's write/append/mask bucketing and pow2 query-block padding
 existed to bound XLA recompiles; PyTorch runs eagerly, so they are not
-carried over.
+carried over. The masks scatter exactly the addresses given, checked on
+the host first: the JAX package pads its scatters with an address one
+past the end that XLA drops, where a CUDA index kernel would trip a
+device-side assert instead.
 
 Convention: models speak FAISS-style at their boundary — ``search`` returns
 (D, I) with D ascending for l2 / descending inner products for dot, ids are
@@ -62,6 +67,9 @@ class DeviceVectorStore:
         self.cap = 0
         self.ntotal = 0
         self.data: Optional[torch.Tensor] = None  # (cap, *row_shape)
+        # (cap,) bool tombstone mask, False = deleted; None until the first
+        # delete, so an index nothing was deleted from scans without it
+        self.live: Optional[torch.Tensor] = None
 
     def _ensure(self, needed_rows: int) -> None:
         target = self.ntotal + needed_rows
@@ -72,7 +80,22 @@ class DeviceVectorStore:
         if self.data is not None:
             new[: self.ntotal] = self.data[: self.ntotal]
         self.data = new
+        if self.live is not None:
+            live = torch.ones(newcap, dtype=torch.bool, device=self.device)
+            live[: self.cap] = self.live
+            self.live = live
         self.cap = newcap
+
+    def mask_rows(self, rows) -> None:
+        """Tombstone ``rows`` (positions < ntotal): one scatter of False
+        into the live mask. Idempotent; ``ntotal`` does not shrink, so
+        every position stays stable."""
+        rows = _checked_addresses(rows, self.ntotal, "row")
+        if rows.size == 0:
+            return
+        if self.live is None:
+            self.live = torch.ones(self.cap, dtype=torch.bool, device=self.device)
+        self.live[torch.as_tensor(rows, device=self.device)] = False
 
     def add(self, rows) -> Tuple[int, int]:
         """Append rows (array or tensor); returns the (start, end) id range."""
@@ -131,6 +154,16 @@ class PaddedLists:
         ids[:, : self.cap] = self.ids
         self.data, self.ids, self.cap = data, ids, newcap
 
+    def mask_cells(self, cells) -> None:
+        """Tombstone list cells (flat ``list * cap + pos`` addresses): one
+        scatter of -1 into the ids plane. Sizes are not decremented: a dead
+        slot stays occupied, and masked, until compaction rewrites the
+        list, so every live (list, pos) address stays stable."""
+        cells = _checked_addresses(cells, self.nlist * self.cap, "list cell")
+        if cells.size == 0:
+            return
+        self.ids.view(-1)[torch.as_tensor(cells, device=self.device)] = -1
+
     @staticmethod
     def plan_append(list_idx: np.ndarray, nlist: int, cap: int, sizes_host: np.ndarray):
         """Host-side offset planning: sort the batch by target list and give
@@ -176,6 +209,15 @@ class PaddedLists:
         self.sizes_host = new_sizes
         self.sizes = torch.as_tensor(new_sizes.astype(np.int32), device=self.device)
         return within
+
+
+def _checked_addresses(addresses, end: int, what: str) -> np.ndarray:
+    """int64 addresses, each checked to lie in [0, end) on the host."""
+    a = np.asarray(addresses, np.int64).reshape(-1)
+    if a.size and (a.min() < 0 or a.max() >= end):
+        raise IndexError(f"{what} address out of range [0, {end}): "
+                         f"{int(a.min())}..{int(a.max())}")
+    return a
 
 
 def gather_list_rows(lists: PaddedLists, assign, pos) -> np.ndarray:
@@ -228,6 +270,21 @@ class TorchIndex:
 
     def get_centroids(self) -> Optional[np.ndarray]:
         return None
+
+    def supports_remove_rows(self) -> bool:
+        """True when this model carries a tombstone mask (overrides
+        ``remove_rows``). The engine asks before it records any tombstone,
+        also for rows still in the add buffer."""
+        return type(self).remove_rows is not TorchIndex.remove_rows
+
+    def remove_rows(self, rows: np.ndarray) -> None:
+        """Tombstone rows (positional ids) out of every scan: a masked row
+        never surfaces in a top-k, even when k exceeds the live rows.
+        ``ntotal`` does not shrink (the positional metadata join);
+        compaction reclaims the rows. Idempotent."""
+        raise RuntimeError(
+            f"{type(self).__name__} does not support remove/upsert "
+            "(no tombstone mask for this index kind)")
 
     def state_dict(self) -> Dict[str, np.ndarray]:
         raise NotImplementedError

@@ -240,6 +240,22 @@ def parse_factory(cfg: IndexCfg, device):
     return PreTransformIndex(core, cfg.dim, pca=True)
 
 
+def remove_rows_unsupported(cfg: IndexCfg) -> bool:
+    """True when ``cfg`` resolves to a model without a tombstone mask: the
+    host HNSW graph (``hnswsq``, ``HNSW<M>``), whose traversal cannot skip
+    masked nodes without losing recall. Checkable before the model exists,
+    so the engine refuses a delete while every row is still buffered. The
+    JAX package answers False where it has no C++ compiler, because its
+    graph builders then fall back to a maskable sq8 flat scan; the port
+    has no such fallback, so it always answers True for these kinds."""
+    if cfg.index_builder_type == "hnswsq":
+        return True
+    spec = cfg.faiss_factory or ""
+    if "{centroids}" in spec:
+        spec = spec.format(centroids=int(cfg.centroids or 0))
+    return any(_HNSW_RE.match(p.strip()) for p in spec.split(","))
+
+
 def build_index(cfg: IndexCfg, device="cuda"):
     """Resolve cfg -> index model. The engine resolves cfg.centroids first."""
     if cfg.index_builder_type:

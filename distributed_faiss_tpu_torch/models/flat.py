@@ -4,7 +4,8 @@ FAISS IndexFlatIP/IndexFlatL2 parity).
 Honors the configured metric (the reference's ``flat`` builder always
 built IndexFlatIP; the JAX package fixed that and so does the port).
 Storage codecs: fp32 / fp16 / bf16 (cast to fp32 inside the scan) and sq8
-(per-dim affine, decoded in the scan). This is the port's recall ground
+(per-dim affine, decoded in the scan). Deleted rows are masked by the
+store's ``live`` mask inside the scan. This is the port's recall ground
 truth.
 """
 
@@ -70,9 +71,12 @@ class FlatIndex(base.TorchIndex):
 
         def run(qb):
             return distance.knn(qb, self.store.data, k, metric=self.metric,
-                                ntotal=self.store.ntotal, **kwargs)
+                                ntotal=self.store.ntotal, live=self.store.live, **kwargs)
 
         return base.blocked_search(q, k, self.metric, run, self.device, block=nb)
+
+    def remove_rows(self, rows: np.ndarray) -> None:
+        self.store.mask_rows(rows)
 
     def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
         rows = self.store.rows(ids)

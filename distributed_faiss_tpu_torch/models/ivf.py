@@ -314,6 +314,21 @@ class _IVFBase(base.TorchIndex):
             self._host_pos = [np.concatenate(self._host_pos)]
         return self._host_pos[0] if self._host_pos else np.zeros((0,), np.int32)
 
+    def remove_rows(self, rows: np.ndarray) -> None:
+        """Tombstone rows out of the inverted lists: -1 into the ids plane
+        at each row's (list, pos) cell, from the host map. K1 and K3 mask
+        id < 0 inside the kernel, K2's and K4's paths right after it, so a
+        dead cell is padding to every scan; this covers flat ``PQ<m>`` (one
+        list) too."""
+        rows = np.asarray(rows, np.int64)
+        if rows.size == 0 or self.lists is None:
+            return
+        if rows.min() < 0 or rows.max() >= self._n:
+            raise IndexError(f"row out of range [0, {self._n})")
+        assign = self._host_assign_array()[rows].astype(np.int64)
+        pos = self._host_pos_array()[rows].astype(np.int64)
+        self.lists.mask_cells(assign * self.lists.cap + pos)
+
     def _rows_in_insertion_order(self, chunk: int = 1 << 20, lists=None) -> np.ndarray:
         """Stream the stored payload back from the device in id order
         (persistence); ``lists`` selects a sidecar with the payload lists'

@@ -110,6 +110,14 @@ class PreTransformIndex(base.TorchIndex):
     def search(self, q: np.ndarray, k: int):
         return self.inner.search(self.apply(q), k)
 
+    def supports_remove_rows(self) -> bool:
+        return self.inner.supports_remove_rows()
+
+    def remove_rows(self, rows: np.ndarray) -> None:
+        # the transform maps vectors, not positions: the mask is the inner
+        # index's
+        self.inner.remove_rows(rows)
+
     def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
         return self.apply_inverse(self.inner.reconstruct_batch(ids))
 

@@ -106,14 +106,18 @@ def segmented_topk_rows(s: torch.Tensor, k: int, ids: torch.Tensor):
 
 
 def _knn_scan(q, x, ntotal: int, k: int, metric: str, chunk: int,
-              codec: str = "raw", vmin=None, span=None):
+              codec: str = "raw", vmin=None, span=None, live=None):
     """Chunked corpus scan with a running top-k.
 
     q: (nq, d); x: (cap, d) with cap % chunk == 0; rows >= ntotal are masked
     to -inf. codec 'raw' (any float dtype, cast to fp32) or 'sq8' (uint8
-    codes decoded with per-dim vmin/span). Chunks wholly past ``ntotal``
-    hold only masked rows and are skipped: they could only add -inf slots,
-    which the running top-k already holds with id -1.
+    codes decoded with per-dim vmin/span). ``live``: the optional (cap,)
+    bool tombstone mask (False = deleted), ANDed into each chunk's mask
+    before the chunk's top-k, so a deleted row never surfaces even when k
+    exceeds the live rows; None (nothing deleted) runs the scan without
+    it. Chunks wholly past ``ntotal`` hold only masked rows and are
+    skipped: they could only add -inf slots, which the running top-k
+    already holds with id -1.
     Returns (scores (nq, k), ids (nq, k) int32) sorted descending."""
     nq = q.shape[0]
     q = q.float()
@@ -131,19 +135,23 @@ def _knn_scan(q, x, ntotal: int, k: int, metric: str, chunk: int,
             xn = (xc * xc).sum(1)
             s = -(qn - 2.0 * ip + xn[None, :])
         gids = ci * chunk + torch.arange(chunk, dtype=torch.int32, device=q.device)
-        s = torch.where((gids < ntotal)[None, :], s, torch.full_like(s, NEG_INF))
+        ok = gids < ntotal
+        if live is not None:
+            ok = ok & live[ci * chunk:(ci + 1) * chunk]
+        s = torch.where(ok[None, :], s, torch.full_like(s, NEG_INF))
         cv, cids = segmented_topk(s, min(k, chunk), gids)
         best_v, best_i = merge_topk(best_v, best_i, cv, cids, k)
     return best_v, best_i
 
 
 def knn(q, x, k: int, metric: str = "l2", ntotal: int = None, chunk: int = 65536,
-        codec: str = "raw", vmin=None, span=None):
+        codec: str = "raw", vmin=None, span=None, live=None):
     """Exact k-nearest-neighbour scan of a (possibly capacity-padded) corpus.
 
     Returns bigger-is-better (scores, ids int32). ``ntotal`` masks padding
     rows and defaults to the full array; ``chunk`` bounds the transient
-    (nq, chunk) score block."""
+    (nq, chunk) score block; ``live`` is the optional (cap,) bool
+    tombstone mask (False rows are masked like padding)."""
     cap = x.shape[0]
     if ntotal is None:
         ntotal = cap
@@ -151,4 +159,6 @@ def knn(q, x, k: int, metric: str = "l2", ntotal: int = None, chunk: int = 65536
     if cap % chunk:
         newcap = -(-cap // chunk) * chunk
         x = torch.nn.functional.pad(x, (0, 0, 0, newcap - cap))
-    return _knn_scan(q, x, int(ntotal), k, metric, chunk, codec, vmin, span)
+        if live is not None:
+            live = torch.nn.functional.pad(live, (0, newcap - cap), value=False)
+    return _knn_scan(q, x, int(ntotal), k, metric, chunk, codec, vmin, span, live)

@@ -16,9 +16,19 @@ metadata-filtered search with over-fetch and requery
 ``add_buffer_to_index``, ``set_omp_num_threads`` and the cluster state
 aggregation. Each rank is its own shard (one replica per group).
 
-Not ported yet: replication groups and repair, versioned writes and
-read-your-writes (``min_version``), mutation ops, generation-pinned reads
-and trace export.
+Mutation and versions: every add, upsert and delete call ticks the
+client's hybrid logical clock once (DFT_VERSIONING, seeded per index from
+the ranks' ``get_id_sets`` watermarks on first use) and carries that one
+version to every rank; ``remove_ids`` goes to every rank, since
+round-robin placement can put an id anywhere, and raises a
+``MultiRankError`` naming the transport-dead ranks after every rank was
+tried. ``search(read_your_writes=True)`` demands this client's last
+acknowledged version (``min_version``) of every rank;
+``pin_generations`` and ``search_at_generation`` serve each rank's pinned
+committed generation.
+
+Not ported yet: replication groups, quorums and the repair queue,
+anti-entropy and trace export.
 """
 
 import itertools
@@ -32,8 +42,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from distributed_faiss_tpu_torch.mutation import versions as _versions
 from distributed_faiss_tpu_torch.parallel import rpc
-from distributed_faiss_tpu_torch.utils.config import IndexCfg
+from distributed_faiss_tpu_torch.utils.config import IndexCfg, VersioningCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
 logger = logging.getLogger()
@@ -128,7 +139,8 @@ class IndexClient:
     """Handle to a cluster of index servers (one shard each)."""
 
     def __init__(self, server_list_path: str, cfg_path: Optional[str] = None,
-                 retry_policy: Optional[rpc.RetryPolicy] = None):
+                 retry_policy: Optional[rpc.RetryPolicy] = None,
+                 versioning_cfg: Optional[VersioningCfg] = None):
         machine_ports = IndexClient.read_server_list(server_list_path)
         self.sub_indexes = IndexClient.setup_connection(machine_ports)
         self.num_indexes = len(self.sub_indexes)
@@ -141,8 +153,15 @@ class IndexClient:
         self.index_rank_to_id = {r: i for i, r in enumerate(ranks)}
         self.cur_server_ids = {}
         self._rng = random.Random()  # private: placement never touches the global RNG
-        self._lock = threading.Lock()  # guards cur_server_ids and reroutes
+        # guards cur_server_ids, reroutes and the version bookkeeping
+        self._lock = threading.Lock()
         self.reroutes: List[dict] = []
+        # one clock per client stamps every mutation call; None when
+        # versioning is off (the frames then carry no version)
+        self.vcfg = versioning_cfg if versioning_cfg is not None else VersioningCfg.from_env()
+        self._hlc = _versions.HLC() if self.vcfg.enabled else None
+        self._seeded = set()  # index ids whose clock seed ran
+        self._last_write_version = {}  # index id -> newest acked stamp
         self.cfg = IndexCfg.from_json(cfg_path) if cfg_path is not None else None
 
     # ------------------------------------------------------------ discovery
@@ -256,7 +275,10 @@ class IndexClient:
         """Round-robin placement: the first target is random, then cyclic;
         each call lands on ONE server. A rank that stays transport-dead
         after retries is skipped (recorded in ``self.reroutes``) and the
-        batch goes to the next rank; an application error propagates."""
+        batch goes to the next rank; an application error propagates. The
+        batch carries one version, stamped before placement, so a retry or
+        reroute carries the same one."""
+        version = self._stamp(index_id)
         n = self.num_indexes
         with self._lock:
             if index_id not in self.cur_server_ids:
@@ -267,8 +289,9 @@ class IndexClient:
             pos = (start + offset) % n
             stub = self.sub_indexes[pos]
             try:
-                self._call_with_retry(stub, "add_index_data",
-                                      (index_id, embeddings, metadata, train_async_if_triggered))
+                self._mutation_call(pos, "add_index_data",
+                                    (index_id, embeddings, metadata, train_async_if_triggered),
+                                    version)
             except rpc.TRANSPORT_ERRORS + (rpc.BusyError,) as e:
                 logger.warning("add_index_data: rank %s (%s:%s) unreachable after retries, "
                                "rerouting batch: %s", stub.id, stub.host, stub.port, e)
@@ -280,8 +303,135 @@ class IndexClient:
                 continue
             with self._lock:
                 self.cur_server_ids[index_id] = (pos + 1) % n
+            self._note_write_acked(index_id, version)
             return
         raise RuntimeError(f"add_index_data for {index_id!r} failed on every rank") from last_exc
+
+    # ------------------------------------------------------------ versions
+
+    def _stamp(self, index_id: str):
+        """One fresh version for a mutation call (None with versioning
+        off). The first use per index seeds the clock from the ranks'
+        watermarks. The stamp becomes the read-your-writes floor only once
+        the write is acknowledged (``_note_write_acked``)."""
+        if self._hlc is None:
+            return None
+        with self._lock:
+            need_seed = index_id not in self._seeded
+        if need_seed:
+            self._seed_clock(index_id)
+        return self._hlc.tick()
+
+    def _note_write_acked(self, index_id: str, version) -> None:
+        """Record an acknowledged stamp as the index's read-your-writes
+        floor (monotone: fan-out threads may finish out of order)."""
+        if version is None:
+            return
+        with self._lock:
+            if _versions.compare(version, self._last_write_version.get(index_id)) > 0:
+                self._last_write_version[index_id] = version
+
+    def _seed_clock(self, index_id: str) -> None:
+        """Observe every reachable rank's watermark (``get_id_sets``), so a
+        client restarted on a machine whose clock went backward still
+        stamps ahead of its earlier writes. A rank that answers with an
+        error (no such index) has nothing to observe; when no rank answers
+        at all the seed is retried on the next mutation."""
+
+        def one(stub):
+            try:
+                return True, stub.generic_fun("get_id_sets", (index_id,), timeout=30.0)
+            except rpc.ServerException:
+                return True, None
+            except rpc.TRANSPORT_ERRORS:
+                return False, None
+
+        answered = False
+        for ok, sets in self.pool.map(one, self.sub_indexes):
+            answered = answered or ok
+            try:
+                self._hlc.observe((sets or {}).get("watermark"))
+            except (ValueError, TypeError):
+                pass  # a garbled watermark
+        if not answered:
+            logger.warning("clock seed for %r reached no rank; retrying on the next "
+                           "mutation", index_id)
+            return
+        with self._lock:
+            self._seeded.add(index_id)
+
+    def _mutation_call(self, pos: int, fname: str, args, version):
+        """One rank's mutation RPC, ``version`` as a keyword unless None
+        (versioning off: the frame is the unversioned one)."""
+        kwargs = {"version": version} if version is not None else None
+        return self._call_with_retry(self.sub_indexes[pos], fname, args, kwargs)
+
+    def last_write_version(self, index_id: str):
+        """The newest acknowledged version this client stamped onto
+        ``index_id`` (None before any): what ``read_your_writes`` demands."""
+        with self._lock:
+            return self._last_write_version.get(index_id)
+
+    # ------------------------------------------------------------ mutation
+
+    def remove_ids(self, index_id: str, ids) -> int:
+        """Delete by metadata id on every rank (round-robin placement puts
+        an id anywhere); returns the rows tombstoned, summed. One version
+        for the call. Every rank is tried; a rank that stays transport-dead
+        makes the call raise ``MultiRankError`` afterwards, naming the
+        ranks that missed the delete (it applied on the others; ids are
+        safe to retry). An application error propagates at once."""
+        ids = list(ids)
+        if not ids:
+            return 0
+        version = self._stamp(index_id)
+
+        def one(pos):
+            try:
+                return True, self._mutation_call(pos, "remove_ids", (index_id, ids), version)
+            except rpc.TRANSPORT_ERRORS + (rpc.BusyError,) as e:
+                return False, e
+
+        outcomes = []
+        for stub, (ok, val) in zip(self.sub_indexes,
+                                   self.pool.map(one, range(self.num_indexes))):
+            o = {"server": stub.id, "host": stub.host, "port": stub.port, "ok": ok}
+            if ok:
+                o["result"] = val
+            else:
+                o["error"] = f"{type(val).__name__}: {val}"
+                o["exception"] = val
+            outcomes.append(o)
+        if not all(o["ok"] for o in outcomes):
+            raise MultiRankError("remove_ids", outcomes)
+        self._note_write_acked(index_id, version)
+        return sum(int(o["result"]) for o in outcomes)
+
+    def upsert(self, index_id: str, ids, embeddings: np.ndarray,
+               metadata: Optional[List[object]] = None) -> int:
+        """Delete + add: tombstone every live row of ``ids`` on every rank,
+        then place the replacements through ``add_index_data``. The old
+        rows stop serving before this returns, the new ones serve once
+        their chunk drains; never both. Returns the rows tombstoned."""
+        ids = list(ids)
+        embeddings = np.asarray(embeddings, np.float32)
+        if embeddings.shape[0] != len(ids):
+            raise RuntimeError("upsert ids length should match the batch size of the embeddings")
+        if metadata is None:
+            if self.cfg is None:
+                # without the cfg the id's position in the metadata is unknown
+                raise RuntimeError("upsert without explicit metadata needs the client cfg "
+                                   "(cfg_path) to know custom_meta_id_idx; pass metadata")
+            if self.cfg.custom_meta_id_idx != 0:
+                raise RuntimeError("upsert needs explicit metadata when custom_meta_id_idx != 0")
+            metadata = [(i,) for i in ids]
+        removed = self.remove_ids(index_id, ids)
+        self.add_index_data(index_id, embeddings, metadata)
+        return removed
+
+    def compact_index(self, index_id: str) -> list:
+        """A compaction pass on every rank now; the per-rank booleans."""
+        return self._broadcast("compact_index", (index_id,))
 
     def sync_train(self, index_id: str) -> None:
         self._broadcast("sync_train", (index_id,))
@@ -297,7 +447,8 @@ class IndexClient:
     def search(self, query: np.ndarray, topk: int, index_id: str,
                return_embeddings: bool = False, allow_partial: bool = False,
                partial_timeout: Optional[float] = None,
-               deadline: Optional[float] = None) -> tuple:
+               deadline: Optional[float] = None, min_version=None,
+               read_your_writes: bool = False) -> tuple:
         """Fan-out search with the client-side top-k merge; returns (D, meta)
         or (D, meta, embs), plus a trailing ``missing`` list with
         ``allow_partial``.
@@ -316,7 +467,19 @@ class IndexClient:
         ``deadline`` (seconds of budget) rides every per-rank frame so an
         overloaded rank can shed the request before it reaches the device;
         BUSY rejections retry under the RetryPolicy backoff, never past the
-        deadline."""
+        deadline.
+
+        ``read_your_writes=True`` demands every rank reflect this client's
+        last acknowledged versioned write: each per-rank call carries
+        ``min_version`` (which may also be passed, e.g. handed over from
+        another client), and a rank behind it answers with the stale-read
+        error, which raises here (one rank per shard: nothing to fail over
+        to)."""
+        if read_your_writes:
+            own = self.last_write_version(index_id)
+            if min_version is None or _versions.compare(own, min_version) > 0:
+                min_version = own
+        search_kwargs = {"min_version": min_version} if min_version is not None else None
         if self.cfg is None:
             # without the metric the merge cannot be right (dot is negated)
             raise RuntimeError("IndexClient has no cfg for this index: pass cfg_path at "
@@ -327,7 +490,7 @@ class IndexClient:
         def call_stub(stub, timeout=None):
             return self.retry.run_filtered(
                 (rpc.BusyError,), abs_deadline, stub.generic_fun, "search",
-                (index_id, query, topk, return_embeddings), None, timeout=timeout,
+                (index_id, query, topk, return_embeddings), search_kwargs, timeout=timeout,
                 deadline=abs_deadline)
 
         if not allow_partial:
@@ -436,6 +599,50 @@ class IndexClient:
             logger.info("%d samples returned fewer than %d results after filtering",
                         len(short_ids), top_k)
         return new_scores, new_meta
+
+    # ------------------------------------------------- generation-pinned reads
+
+    def pin_generations(self, index_id: str) -> dict:
+        """``{stub position: generation}``: each reachable rank's newest
+        committed generation (ranks with none committed, or unreachable,
+        are left out). Take it before a burst of mutations and pass it to
+        ``search_at_generation`` after."""
+
+        def one(stub):
+            try:
+                gen = self._call_with_retry(stub, "get_generation", (index_id,))
+            except rpc.TRANSPORT_ERRORS + (rpc.ServerException,):
+                return None
+            return int(gen) if gen else None
+
+        return {pos: gen for pos, gen in enumerate(self.pool.map(one, self.sub_indexes))
+                if gen is not None}
+
+    def search_at_generation(self, query: np.ndarray, topk: int, index_id: str,
+                             pins: Optional[dict] = None) -> tuple:
+        """Point-in-time fan-out search: every rank serves the committed
+        generation ``pins`` names for it (``pin_generations``; fetched now
+        when None), whatever changed since. A rank without a pin, or one
+        that no longer retains its pinned generation, raises. Merged like
+        ``search``; returns ``(D, meta)``."""
+        query = np.asarray(query, np.float32)
+        if self.cfg is None:
+            raise RuntimeError("IndexClient has no cfg for this index: pass cfg_path at "
+                               "construction, or call create_index/load_index first")
+        if pins is None:
+            pins = self.pin_generations(index_id)
+        missing = [pos for pos in range(self.num_indexes) if pos not in pins]
+        if missing:
+            raise RuntimeError(f"ranks at positions {missing} have no pinned committed "
+                               f"generation for {index_id!r}")
+
+        def one(pos):
+            return self._call_with_retry(self.sub_indexes[pos], "search_at_generation",
+                                         (index_id, query, topk, pins[pos]))
+
+        results = self.pool.map(one, range(self.num_indexes))
+        return IndexClient._aggregate_results(results, topk, query.shape[0],
+                                              self.cfg.metric == "dot", False)
 
     # ------------------------------------------------------------ observability
 

@@ -6,9 +6,14 @@ Multi-index registry guarded by a lock, storage path convention
 create/add/search/sync_train/async_train/add_buffer_to_index/get_state/
 get_ntotal/get_aggregated_ntotal/get_ids/get_centroids/index_loaded/
 set_nprobe/set_omp_num_threads/save/load/drop/ping (plus get_rank and
-get_config_path, which the client's construction and load path use).
-Searches go through the ``SearchScheduler``; with DFT_SCHEDULER=0 they are
-served through ``engine.Index.search`` and its natural batcher.
+get_config_path, which the client's construction and load path use), and
+the mutation ops: remove_ids/upsert/compact_index, ``version=`` on
+add_index_data, a search's ``min_version`` (read-your-writes, checked
+before the scheduler sees the request), get_generation/
+search_at_generation (pinned reads, never through the scheduler) and
+get_id_sets. Searches go through the ``SearchScheduler``; with
+DFT_SCHEDULER=0 they are served through ``engine.Index.search`` and its
+natural batcher.
 
 One serving loop: thread-per-connection (``start_blocking``). Calls whose
 frame meta carries a ``req_id`` are dispatched without blocking the
@@ -20,8 +25,9 @@ skeletons (the ``wire`` CALL-meta key, or a binary frame itself) gets its
 search responses in binary (parallel/wire.py) unless DFT_RPC_WIRE=pickle;
 every other response stays pickle.
 
-Not ported yet: the selector loop, replication membership, anti-entropy,
-mutation ops, shard transfer, tracing export, generation-pinned reads.
+Not ported yet: the selector loop, replication membership, anti-entropy
+(and with it the compaction lease: every engine compacts on its own
+watcher), shard transfer, tracing export.
 """
 
 import logging
@@ -51,12 +57,12 @@ from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
 
 logger = logging.getLogger()
 
-_SEARCH_ARGS = ("index_id", "query_batch", "top_k", "return_embeddings")
+_SEARCH_ARGS = ("index_id", "query_batch", "top_k", "return_embeddings", "min_version")
 
 
 def _search_args(args, kwargs) -> dict:
-    """A search call's arguments by name; an unknown keyword (a read-your-
-    writes ``min_version``, say) is refused, not dropped."""
+    """A search call's arguments by name; an unknown keyword is refused,
+    not dropped."""
     vals = dict(zip(_SEARCH_ARGS, args))
     vals.update(kwargs or {})
     unknown = sorted(set(vals) - set(_SEARCH_ARGS))
@@ -131,19 +137,69 @@ class IndexServer:
         return False
 
     def add_index_data(self, index_id: str, embeddings: np.ndarray, metadata=None,
-                       train_async_if_triggered: bool = True) -> None:
-        self._get_index(index_id).add_batch(embeddings, metadata, train_async_if_triggered)
+                       train_async_if_triggered: bool = True, version=None) -> None:
+        self._get_index(index_id).add_batch(embeddings, metadata, train_async_if_triggered,
+                                            version=version)
 
     def search(self, index_id: str, query_batch: np.ndarray, top_k: int,
-               return_embeddings: bool = False):
-        return self._get_index(index_id).search(query_batch, top_k=top_k,
-                                                return_embeddings=return_embeddings)
+               return_embeddings: bool = False, min_version=None):
+        index = self._get_index(index_id)
+        if min_version is not None:
+            # read-your-writes: refused before the device when this shard
+            # has not incorporated the demanded version
+            index.assert_min_version(min_version)
+        return index.search(query_batch, top_k=top_k, return_embeddings=return_embeddings)
+
+    def _checked_search_args(self, args, kwargs) -> dict:
+        """A scheduled search's arguments, its ``min_version`` checked and
+        taken off: the check needs no device and must not hold a window."""
+        vals = _search_args(args, kwargs)
+        min_version = vals.pop("min_version", None)
+        if min_version is not None:
+            self._get_index(vals["index_id"]).assert_min_version(min_version)
+        return vals
 
     def _engine_search_batched(self, index_id: str, query_batch: np.ndarray, top_k: int,
                                return_embeddings: bool):
         """The scheduler's launch target (one coalesced window)."""
         return self._get_index(index_id).search_batched(
             query_batch, top_k=top_k, return_embeddings=return_embeddings)
+
+    # ------------------------------------------------------------ mutation
+
+    def remove_ids(self, index_id: str, ids, version=None) -> int:
+        """Tombstone rows by metadata id: masked on the device at once and
+        in the sidecar before the ack; ``version`` makes the delete
+        LWW-gated (engine.remove_ids)."""
+        return self._get_index(index_id).remove_ids(ids, version=version)
+
+    def upsert(self, index_id: str, ids, embeddings, metadata=None, version=None) -> int:
+        """Delete + add: the ids' old rows stop serving before the ack, the
+        replacements serve once their chunk drains."""
+        return self._get_index(index_id).upsert(ids, embeddings, metadata, version=version)
+
+    def compact_index(self, index_id: str) -> bool:
+        """A compaction pass now (the watcher runs one past
+        DFT_COMPACT_THRESHOLD)."""
+        return self._get_index(index_id).compact()
+
+    def get_id_sets(self, index_id: str) -> dict:
+        """Live ids, deletion ledger, version planes and the watermark a
+        client's clock seeds from (engine.id_sets)."""
+        return self._get_index(index_id).id_sets()
+
+    def get_generation(self, index_id: str) -> int:
+        """Newest committed generation of this rank's shard (0 = none)."""
+        return self._get_index(index_id).current_generation()
+
+    def search_at_generation(self, index_id: str, query_batch: np.ndarray, top_k: int,
+                             generation: int, return_embeddings: bool = False):
+        """Search a retained committed generation as it was committed
+        (engine.search_at_generation). Not through the scheduler: pinned
+        reads never share a window with live traffic."""
+        return self._get_index(index_id).search_at_generation(
+            query_batch, top_k=top_k, generation=generation,
+            return_embeddings=return_embeddings)
 
     def sync_train(self, index_id: str) -> None:
         self._get_index(index_id).train()
@@ -228,7 +284,8 @@ class IndexServer:
         """Per-RPC latency summaries; ``"scheduler"`` its queue and batch
         distributions, ``"rpc"`` the wire encoding this rank is willing to
         speak (the use is per connection), ``"engine"`` each index's
-        device-launch latencies."""
+        device-launch latencies, ``"mutation"`` each index's tombstone,
+        compaction and version counters."""
         out = self.perf.summary()
         if self.scheduler is not None:
             out["scheduler"] = self.scheduler.perf_stats()
@@ -236,6 +293,7 @@ class IndexServer:
         with self.indexes_lock:
             snapshot = list(self.indexes.items())
         out["engine"] = {iid: idx.perf_stats() for iid, idx in snapshot}
+        out["mutation"] = {iid: idx.mutation_stats() for iid, idx in snapshot}
         return out
 
     def ping(self) -> dict:
@@ -377,7 +435,7 @@ class IndexServer:
             if fname.startswith("unknown:"):
                 raise AttributeError(f"IndexServer has no RPC op {fname[8:]!r}")
             if fname == "search" and self.scheduler is not None:
-                vals = _search_args(args, kwargs)
+                vals = self._checked_search_args(args, kwargs)
                 ret = self.scheduler.submit(
                     vals["index_id"], vals["query_batch"], vals["top_k"],
                     bool(vals.get("return_embeddings", False)), deadline=deadline)
@@ -419,7 +477,7 @@ class IndexServer:
                 pass  # pool shut down (server stopping): the client sees the drop
 
         try:
-            vals = _search_args(args, kwargs)
+            vals = self._checked_search_args(args, kwargs)
             self.scheduler.submit_async(
                 vals["index_id"], vals["query_batch"], vals["top_k"],
                 bool(vals.get("return_embeddings", False)), deadline=deadline,

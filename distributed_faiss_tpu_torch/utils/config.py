@@ -7,10 +7,10 @@
 ``to_json_string``) writes the same text as the JAX package, so a
 ``cfg.json`` written by either package loads in the other.
 
-``SchedulerCfg`` and ``WireCfg`` read the same environment variables with
-the same defaults. The other Cfg classes of the JAX package (mesh,
-replication, anti-entropy, mutation, versioning, tracing) belong to
-subsystems this slice does not port.
+``SchedulerCfg``, ``WireCfg``, ``MutationCfg`` and ``VersioningCfg`` read
+the same environment variables with the same defaults and validation. The
+other Cfg classes of the JAX package (mesh, replication, anti-entropy,
+tracing) belong to subsystems not ported yet.
 """
 
 import json
@@ -148,3 +148,43 @@ class WireCfg(_EnvCfg):
             raise ValueError(
                 f"wire encoding must be one of {_WIRE_ENCODINGS}, "
                 f"got {self.encoding!r}")
+
+
+class MutationCfg(_EnvCfg):
+    """Mutable-corpora knobs, per rank (every engine on a rank shares the
+    compaction policy): the background compaction watcher's switch, the
+    tombstoned/indexed fraction that triggers it, and its wake interval."""
+
+    _SCHEMA = {
+        # 0 leaves tombstones masked until compact_index is called
+        "compact": (bool, "DFT_COMPACT", True),
+        "threshold": (float, "DFT_COMPACT_THRESHOLD", 0.25),
+        "interval_s": (float, "DFT_COMPACT_INTERVAL", 5.0),
+    }
+    _KIND = "mutation"
+
+    def _validate(self) -> None:
+        if not 0.0 < self.threshold <= 1.0:
+            raise ValueError("compaction threshold must be in (0, 1]")
+        if self.interval_s <= 0:
+            raise ValueError("compaction interval must be > 0 seconds")
+
+
+class VersioningCfg(_EnvCfg):
+    """Per-id mutation versions: whether a client stamps its adds, upserts
+    and deletes with hybrid-logical-clock versions (read by the client),
+    and how many committed generations each shard retains for
+    generation-pinned reads (read by the engine)."""
+
+    _SCHEMA = {
+        "enabled": (bool, "DFT_VERSIONING", True),
+        "retain_generations": (int, "DFT_RETAIN_GENERATIONS", 2),
+    }
+    _KIND = "versioning"
+
+    def _validate(self) -> None:
+        if self.retain_generations < 2:
+            # the prune floor is 2 whatever is asked (the crash-fallback pair)
+            raise ValueError(
+                "retain_generations must be >= 2 (the newest generation "
+                "plus its crash-fallback predecessor are always kept)")

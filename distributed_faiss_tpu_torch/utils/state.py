@@ -14,6 +14,12 @@ from typing import List
 # as the JAX package, so operators grep one message for both).
 NOT_TRAINED_REJECTION_FMT = "Server index is not trained. state: {state}"
 
+# The read-your-writes rejection of a replica that has not incorporated a
+# search's ``min_version`` (same text as the JAX package).
+STALE_READ_REJECTION_PREFIX = "Server replica has not applied version"
+STALE_READ_REJECTION_FMT = (
+    STALE_READ_REJECTION_PREFIX + " {version} (watermark: {watermark})")
+
 
 class IndexState(Enum):
     NOT_TRAINED = 1

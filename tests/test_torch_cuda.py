@@ -26,10 +26,14 @@ the shared-memory edge of m and above it, where the wrapper launches the
 kernel once per subspace slice. Then whole indexes on the card against
 the CPU: IVF-Flat, IVF-PQ, flat PQ (K4), OPQ in front of flat PQ, PCA in
 front of IVF-SQfp16 (K1), and flat PQ128 and IVF16,PQ256 at d = 768.
-Last, the host-side surface on the card: an ``hnswsq`` index (host C++
+Then the host-side surface on the card: an ``hnswsq`` index (host C++
 graph, exact rerank on the card) serves the CPU's ids, and an ``ivfsq``
 server on the card answers a negotiated (binary wire) client and a
 pickle-only client with the same results, its searches launching K1.
+Last, tombstoned lists: K1 and K3 over lists in which whole 256-row tiles
+are -1, the flat-PQ path (K4) with a chunk of the list that is wholly -1,
+and indexes compacted to capacities that are no multiple of 256, each
+against the plain versions or the CPU.
 """
 
 import numpy as np
@@ -630,3 +634,132 @@ def test_negotiated_search_matches_pickle_on_a_card_server(card, tmp_path):
         pickled.close()
         srv.stop()
         thread.join(10)
+
+
+# (list, first row, last row) of each wholly dead 256-row tile, in lists of
+# 1000 rows: the first tile, a middle one, the last partial one, and all of
+# list 3
+DEAD_TILES = [(0, 0, 256), (1, 256, 512), (2, 768, 1000), (3, 0, 1000)]
+
+
+def _kill_tiles(ids: torch.Tensor) -> torch.Tensor:
+    ids = ids.clone()
+    for lst, lo, hi in DEAD_TILES:
+        ids[lst, lo:hi] = -1
+    return ids
+
+
+@pytest.mark.parametrize("codec", ["f16", "sq8"])
+def test_flat_scan_over_dead_tiles(card, codec):
+    """K1 over full lists of 1000 rows in which whole 256-row tiles (and one
+    whole list) are tombstones: identical -inf masks, scores within
+    rtol/atol 1e-4. The dead tiles are still scanned (the kernel's early
+    exit keys on the list size), only masked."""
+    q, data, ids, _, _, norms, vmin, span = flat_scan_inputs(
+        11, codec, "l2", True, 128, nq=6, nlist=5, cap=1000, g=4)
+    ids = _kill_tiles(ids)
+    li = torch.tensor([[0, 1, 2, 3], [3, 2, 1, 0], [4, 4, 3, 1], [1, 3, 0, 2], [2, 4, 0, 3],
+                       [3, 3, 3, 3]], dtype=torch.int32)
+    sizes_g = torch.full(li.shape, 1000, dtype=torch.int32)
+    args = [None if a is None else a.to(card)
+            for a in (q, data, ids, li, sizes_g, norms, vmin, span)]
+    got = flat_scan.flat_list_scan(*args, metric="l2", codec=codec)
+    want = flat_scan.flat_list_scan_plain(*args, metric="l2", codec=codec)
+    assert_scores_match(got, want, 1e-4, 1e-4)
+    assert torch.isneginf(got[5]).all()  # every probe of query 5 is list 3
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_adc_lists_over_dead_tiles(card, lut_dtype):
+    """K3 over the probed lists when whole 256-row tiles of them are
+    tombstones: identical -inf masks, scores within rtol/atol 1e-4."""
+    lut, codes, _, _, ids = lists_inputs(12, 6, 4, 64, lut_dtype, sizes=(1000,) * 5)
+    ids = _kill_tiles(ids)
+    li = torch.tensor([[0, 1, 2, 3], [3, 2, 1, 0], [4, 4, 3, 1], [1, 3, 0, 2], [2, 4, 0, 3],
+                       [3, 3, 3, 3]], dtype=torch.int32)
+    sizes_g = torch.full(li.shape, 1000, dtype=torch.int32)
+    args = [t.to(card) for t in (lut, codes, li, sizes_g, ids)]
+    got = adc_scan.adc_scan_lists(*args)
+    assert_scores_match(got, adc_scan.adc_scan_lists_plain(*args), 1e-4, 1e-4)
+    assert torch.isneginf(got[5]).all()
+
+
+def _mutated(cpu_index, dead, device):
+    """The CPU index's state on ``device`` with the same rows removed from
+    both."""
+    on = factory.index_from_state_dict(cpu_index.state_dict(), device=device)
+    on.set_nprobe(cpu_index.nprobe)
+    cpu_index.remove_rows(dead)
+    on.remove_rows(dead)
+    return on
+
+
+def test_flat_pq_path_with_a_dead_chunk(card, monkeypatch):
+    """Flat PQ on the card with 512-row chunks, one of which is wholly
+    deleted, and every 5th row deleted besides: the CPU's ids, distances
+    within 1e-3; K4 launched on every chunk, the dead one included."""
+    from distributed_faiss_tpu_torch.models import ivf
+
+    monkeypatch.setattr(ivf, "shared_chunk_rows", lambda nb: 512)
+    x, q = correlated_corpus(8)
+    cpu = factory.build_index(IndexCfg(faiss_factory="PQ8", dim=32, metric="l2"), device="cpu")
+    cpu.train(x[:2000])
+    cpu.add(x)
+    dead = np.union1d(np.arange(512, 1024), np.arange(0, 3000, 5))
+    on_card = _mutated(cpu, dead, card)
+    before = adc_scan.adc_scan_shared.launches
+    d_card, i_card = on_card.search(q, 10)
+    assert adc_scan.adc_scan_shared.launches - before == -(-3000 // 512)
+    d_cpu, i_cpu = cpu.search(q, 10)
+    np.testing.assert_array_equal(i_card, i_cpu)
+    np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+    assert not np.intersect1d(i_card, dead).size
+
+
+@pytest.mark.parametrize("spec", ["IVF16,SQfp16", "IVF16,SQ8", "IVF16,PQ8", "IVF16,PQ4"])
+def test_compacted_index_on_card_matches_plain(card, spec):
+    """An index with 60% of its rows deleted, compacted: its lists come back
+    at a capacity that is no multiple of 256. On the card against the CPU
+    (same ids, distances within 1e-3), and the path's kernel on the
+    compacted lists against its plain version (identical -inf masks,
+    scores within rtol/atol 1e-4)."""
+    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.mutation.compaction import compact_state
+
+    x, q = correlated_corpus(9)
+    cpu = factory.build_index(IndexCfg(faiss_factory=spec, dim=32, metric="l2",
+                                       kmeans_iters=4), device="cpu")
+    cpu.train(x[:2000])
+    cpu.add(x)
+    cpu.set_nprobe(4)
+    keep = np.random.default_rng(9).random(3000) >= 0.6
+    state = compact_state(cpu.state_dict(), keep)
+    small_cpu = factory.index_from_state_dict(state, device="cpu")
+    small = factory.index_from_state_dict(state, device=card)
+    assert small.lists.cap % 256 != 0 and small.ntotal == keep.sum()
+    d_card, i_card = small.search(q, 10)
+    d_cpu, i_cpu = small_cpu.search(q, 10)
+    np.testing.assert_array_equal(i_card, i_cpu)
+    np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+    qt = torch.as_tensor(q[:32], device=card)
+    nprobe, _, g = small._search_plan()
+    li = ivf._probe_groups(small.centroids, qt, nprobe, g, "l2")[0].contiguous()
+    sizes = small.lists.sizes[li.long()].contiguous()
+    if isinstance(small, IVFFlatIndex):
+        opts = small._scan_options()
+        args = (qt, small.lists.data, small.lists.ids, li, sizes, opts["list_norms"],
+                opts.get("vmin"), opts.get("span"))
+        kw = dict(metric="l2", codec=small.codec)
+        got = flat_scan.flat_list_scan(*args, **kw)
+        want = flat_scan.flat_list_scan_plain(*args, **kw)
+    else:
+        lut, codes = ivf._pq_group_inputs(small.centroids, small.codebooks, small.lists.data,
+                                          qt, li, "l2", small.lut_bf16)
+        if adc_scan.nibble_supported(small.m, 256):
+            args = (lut, small.lists.data, li, sizes, small.lists.ids)
+            got = adc_scan.adc_scan_lists(*args)
+            want = adc_scan.adc_scan_lists_plain(*args)
+        else:
+            got = adc_scan.adc_scan(lut, codes)
+            want = adc_scan.adc_scan_plain(lut, codes)
+    assert_scores_match(got, want, 1e-4, 1e-4)

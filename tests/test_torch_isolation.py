@@ -29,7 +29,8 @@ print(len(names), bad, ",".join(names))
 # modules the isolation check must reach by name (the walk imports all)
 _NAMED = ("distributed_faiss_tpu_torch.parallel.wire",
           "distributed_faiss_tpu_torch.utils.batching",
-          "distributed_faiss_tpu_torch.models.hnsw")
+          "distributed_faiss_tpu_torch.models.hnsw",
+          "distributed_faiss_tpu_torch.mutation.tombstones")
 
 
 def test_port_modules_import_without_jax():

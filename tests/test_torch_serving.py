@@ -119,8 +119,9 @@ def test_jax_storage_dir_served_by_port(rng, cluster, tmp_path):
 
 
 def test_engine_refuses_tombstoned_dir(rng, tmp_path):
-    """A JAX-written dir whose tombstone set is not empty is refused:
-    serving it without the deletes would resurrect deleted rows."""
+    """A JAX-written dir whose tombstone set is not empty is no longer
+    refused: the port loads it with the deletes and never serves a
+    deleted row, as the JAX engine does from that dir."""
     storage = str(tmp_path / "shard")
     x = rng.standard_normal((200, D)).astype(np.float32)
     cfg = JCfg(index_builder_type="flat", dim=D, metric="l2", train_num=100,
@@ -131,8 +132,17 @@ def test_engine_refuses_tombstoned_dir(rng, tmp_path):
     assert jidx.remove_ids([3, 4]) == 2
     assert jidx.save() is True
     jidx.retire()
-    with pytest.raises(RuntimeError, match="tombstone"):
-        TIndex.from_storage_dir(storage, device="cpu")
+    tidx = TIndex.from_storage_dir(storage, device="cpu")
+    want = JIndex.from_storage_dir(storage)
+    try:
+        _, got_m, _ = tidx.search(x[:6], 3)
+        _, want_m, _ = want.search(x[:6], 3)
+        assert got_m == want_m
+        assert not {m[0] for row in got_m for m in row} & {3, 4}
+        assert tidx.get_ids() == set(range(200)) - {3, 4}
+    finally:
+        tidx.retire()
+        want.retire()
 
 
 def test_port_engine_dir_loads_in_jax(rng, tmp_path):

@@ -344,8 +344,9 @@ def test_env_pickle_client_sends_no_advert(tmp_path, monkeypatch):
 
 def test_per_frame_fallback_on_a_negotiated_connection(tmp_path):
     """On a negotiated connection a result outside the schema (dict
-    metadata) and a call outside it (an extra kwarg) ride pickle for that
-    frame; the connection keeps serving."""
+    metadata) and a call outside it (an extra kwarg: a read-your-writes
+    ``min_version``, answered, or an unknown one, refused) ride pickle for
+    that frame; the connection keeps serving."""
     idx, queries = make_trained_engine(tmp_path / "eng", meta_fn=lambda i: {"doc": i})
     with Served(tmp_path / "s", idx) as s:
         stub = rpc.Client(0, "localhost", s.port)
@@ -356,8 +357,11 @@ def test_per_frame_fallback_on_a_negotiated_connection(tmp_path):
             assert stub.rpc_stats()["peer_wire"] is False
             out = stub.generic_fun("search", ("wire", queries[0], 5))
             assert all(isinstance(m, dict) for m in out[1][0])
+            # a read-your-writes min_version rides pickle and is answered
+            ryw = stub.generic_fun("search", ("wire", queries[0], 5), {"min_version": None})
+            assert ryw[1] == out[1]
             with pytest.raises(rpc.ServerException, match="unexpected keyword"):
-                stub.generic_fun("search", ("wire", queries[0], 5), {"min_version": 3})
+                stub.generic_fun("search", ("wire", queries[0], 5), {"bogus": 3})
             assert stub.generic_fun("get_rank", ()) == 0
         finally:
             stub.close()
@@ -365,10 +369,12 @@ def test_per_frame_fallback_on_a_negotiated_connection(tmp_path):
     with Served(tmp_path / "s2", idx) as s:
         stub = rpc.Client(0, "localhost", s.port)
         try:
-            stub.generic_fun("search", ("wire", queries[0], 5))
+            out = stub.generic_fun("search", ("wire", queries[0], 5))
             assert stub.rpc_stats()["peer_wire"] is True
+            ryw = stub.generic_fun("search", ("wire", queries[0], 5), {"min_version": None})
+            assert ryw[1] == out[1]
             with pytest.raises(rpc.ServerException, match="unexpected keyword"):
-                stub.generic_fun("search", ("wire", queries[0], 5), {"min_version": 3})
+                stub.generic_fun("search", ("wire", queries[0], 5), {"bogus": 3})
             assert stub.generic_fun("get_rank", ()) == 0
         finally:
             stub.close()
