@@ -135,6 +135,31 @@ e. Mutation: on phase 3's index, ``save_index`` and ``pin_generations``;
    compacted with the same ids. Every index's metadata is ``(row,)``: the
    id sits at ``custom_meta_id_idx`` 0.
 
+After phase e, its servers closed:
+
+f. Replicas: phase 3's corpus and cfg on ``REPLICA_RANKS`` (4) rank
+   processes on the card (the port's ``ServerHarness``, ``--device cuda
+   --discovery``, DFT_ANTIENTROPY_INTERVAL=1), two groups of R = 2 under an
+   ``IndexClient`` with ``ReplicationCfg(replication=2, write_quorum=1)``:
+   ingest in 10,000-row batches (500,000 rows a group, on both replicas),
+   save, recall@10 >= 0.95 on the eval queries, each replica's own top-10
+   compared with its twin's, ``--nq`` queries served (QPS, p50/p99), K1
+   launched on every rank (``ping()["kernels"]``). SIGKILL of one replica
+   of group 0 under an 8-thread ``QueryStorm``: no request fails; ``--nq``
+   queries served during the outage; 1000 rows, 1000 deletes (ids the
+   healthy cluster served) and 20 upserts into group 0 at quorum 1; the
+   victim restarted with its storage (``--load-index``,
+   DFT_SHARD_GROUP=0) heals by delta under a storm pinned on it (its drain
+   refusals fail over), digests polled equal within
+   ``CONVERGE_LIMIT_S``. SIGKILL of one replica of group 1, 20,000 rows
+   into the group, the victim restarted empty heals by a full shard
+   transfer (rows, MB of arrays, seconds, the donor's peak RSS). Pinned on
+   both healed ranks: no deleted id, every upserted row top-1, recall@10
+   >= 0.95 over the survivors, the full-transfer rank serving its donor's
+   ids (the delta-healed one its twin's where the healthy twins agreed),
+   K1 launches rising; ``--nq`` queries served healed; who holds each
+   group's compaction lease (``get_health``).
+
 Before each of phases 3-8, a-d and each part of e every kernel's launch
 count is zeroed (phase b reads none), and it is read after the phase: K1
 must have launched on the ivfsq path, the surface index, the direct path
@@ -143,7 +168,8 @@ and the ivfsq part of phase e, K3 on the knnlm path through
 geometry) and on phase e's knnlm part, K2 on the K2 path, K4 on the
 flat-PQ path (and neither K2 nor K3), the pre-transform path, the wide
 flat-PQ path and phase e's PQ64,RFlat part; on the hnswsq path no kernel
-may launch (its graph is host C++).
+may launch (its graph is host C++). Phase f's launches happen in its rank
+processes, which start at 0 and report them through ``ping``.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -155,6 +181,7 @@ import functools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -1602,6 +1629,348 @@ def mutation_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase f
+
+# the replicated cluster: 2 groups x 2 replicas, each rank its own process on
+# the card; batches of REPLICA_BATCH rows alternate between the groups
+REPLICA_RANKS = 4
+REPLICA_BATCH = 10_000
+# group 0's divergence while one replica is down: below the sweeper's
+# delta bound (DFT_ANTIENTROPY_DELTA_MAX, 1024 missing rows), so it heals by
+# delta; group 1's (FULL_ROWS new rows) above it, after an empty restart
+DELTA_ROWS, DELTA_DELETES, DELTA_UPSERTS = 1000, 1000, 20
+FULL_ROWS = 20_000
+# the time the sweepers (DFT_ANTIENTROPY_INTERVAL=1) get to make a healed
+# replica's digests equal its survivor's
+CONVERGE_LIMIT_S = 180.0
+
+
+def free_base(n: int) -> int:
+    """A base port below the ephemeral range whose next ``n`` ports bind now."""
+    rng = np.random.default_rng()
+    while True:
+        base = int(rng.integers(20000, 29000))
+        try:
+            for p in range(base, base + n):
+                socket.create_server(("", p)).close()
+            return base
+        except OSError:
+            continue
+
+
+def rank_call(client, pos_of, rank: int, fname: str, *args, timeout: float = 120.0):
+    return client.sub_indexes[pos_of[rank]].generic_fun(fname, args, timeout=timeout)
+
+
+def wait_answers(client, pos_of, rank: int, timeout: float = 300.0) -> None:
+    """Until the rank's stub answers (its redial cooldown after the failed
+    dials of the outage is over)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            rank_call(client, pos_of, rank, "get_rank", timeout=5.0)
+            return
+        except Exception:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def wait_converged(h, a: int, b: int, iid: str, what: str) -> float:
+    """Poll both ranks' digests (digest_exchange) until live_hash,
+    live_vhash and dead_hash are equal; the seconds it took."""
+    from distributed_faiss_tpu_torch.parallel import rpc
+
+    keys = ("live_n", "live_hash", "live_vhash", "dead_hash")
+    t0 = time.perf_counter()
+    while True:
+        try:
+            da, db = (rpc.digest_exchange("localhost", h.port(r), {"want": [iid]},
+                                          timeout=30.0)["digests"].get(iid)
+                      for r in (a, b))
+        except rpc.TRANSPORT_ERRORS:
+            da = db = None
+        if da and db and all(da[k] == db[k] for k in keys):
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > CONVERGE_LIMIT_S:
+            raise AssertionError(f"{what}: digests of ranks {a} and {b} not equal within "
+                                 f"{CONVERGE_LIMIT_S:.0f} s: {da} vs {db}")
+        time.sleep(0.2)
+
+
+def rank_ids(client, pos_of, rank: int, iid: str, q: np.ndarray) -> list:
+    """One rank's own top-10 ids for ``q`` (its group's rows only)."""
+    _d, meta, _e = rank_call(client, pos_of, rank, "search", iid, q, 10, False)
+    return [[m[0] for m in row if m is not None] for row in meta]
+
+
+def sweeper_cost(client, pos_of, ranks) -> dict:
+    """Per rank: the digest requests it answered (count, seconds on its host
+    clock), its own sweeps, and the seconds its add_index_data calls took."""
+    out = {}
+    for r in ranks:
+        st = rank_call(client, pos_of, r, "get_perf_stats")
+        dg, add = st.get("digest_exchange", {}), st.get("add_index_data", {})
+        out[r] = {"digests": dg.get("count", 0), "digest_s": round(dg.get("total_s", 0.0), 3),
+                  "sweeps": st["antientropy"].get("sweeps", 0),
+                  "add_s": round(add.get("total_s", 0.0), 3)}
+    return out
+
+
+def same_share(ids_a: list, ids_b: list) -> float:
+    return sum(set(a) == set(b) for a, b in zip(ids_a, ids_b)) / max(1, len(ids_a))
+
+
+def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
+    """Phase f: phase 3's corpus on four rank processes in two groups of
+    R = 2 (``ServerHarness``), a SIGKILL under a query storm, a delta heal
+    and a full shard transfer, through the client."""
+    from distributed_faiss_tpu_torch.parallel.client import IndexClient
+    from distributed_faiss_tpu_torch.testing.chaos import QueryStorm, ServerHarness
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg
+
+    what = "replicas"
+    x, q_all, nprobe = sq["x"], sq["q_all"], sq["nprobe"]
+    n, d = x.shape
+    q_eval = q_all[:1000]
+    rng = np.random.default_rng(args.seed + 7)
+    work = os.path.join(REPO, "build", "chip_smoke_replicas")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    disc, store = os.path.join(work, "discovery.txt"), os.path.join(work, "store")
+    env = {"PYTHONPATH": REPO, "DFT_ANTIENTROPY_INTERVAL": "1"}
+    h = ServerHarness(REPLICA_RANKS, disc, store, base_port=free_base(REPLICA_RANKS), env=env,
+                      device=device)
+    out = {}
+    client = None
+    t_phase = time.perf_counter()
+    h.start()
+    try:
+        t0 = time.perf_counter()
+        for r in range(REPLICA_RANKS):
+            h.wait_port(r, timeout=300)
+        client = IndexClient(disc, replication_cfg=ReplicationCfg(replication=2, write_quorum=1))
+        pos_of = client.index_rank_to_id
+        groups = {g: [r for r in range(REPLICA_RANKS)
+                      if client.membership.group_of(pos_of[r]) == g] for g in (0, 1)}
+        devices = {r: rank_call(client, pos_of, r, "ping")["device"] for r in range(REPLICA_RANKS)}
+        if any(not str(dv).startswith(device) for dv in devices.values()) or any(
+                len(g) != 2 for g in groups.values()):
+            raise AssertionError(f"{what}: ranks {devices}, groups {groups}")
+        log(f"{what}: {REPLICA_RANKS} rank processes up in {time.perf_counter() - t0:.2f} s on "
+            f"{devices}; groups (by rank) {groups}, write quorum {client.quorum}")
+
+        # ---- ingest and the healthy cluster ----
+        iid = "default"  # what a restarted rank's --load-index loads
+        cfg = IndexCfg(index_builder_type="ivfsq", dim=d, metric="l2", train_num=100_000,
+                       centroids=1024, nprobe=nprobe, pallas_flat=True)
+        if client.create_index(iid, cfg) != [True] * REPLICA_RANKS:
+            raise AssertionError(f"{what}: create_index failed")
+        client.cur_server_ids[iid] = 0  # batch b lands on group b % 2
+        t0 = time.perf_counter()
+        for s in range(0, n, REPLICA_BATCH):
+            client.add_index_data(iid, x[s:s + REPLICA_BATCH],
+                                  [(r,) for r in range(s, min(n, s + REPLICA_BATCH))])
+        sent_s = time.perf_counter() - t0
+        from distributed_faiss_tpu_torch.utils.state import IndexState
+
+        deadline = time.monotonic() + 900
+        while not (client.get_state(iid) == IndexState.TRAINED
+                   and client.get_buffer_depth(iid) == 0 and client.get_ntotal(iid) == n):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: the replicas never built the index")
+            time.sleep(0.2)
+        per_rank = {r: rank_call(client, pos_of, r, "get_ntotal", iid)
+                    for r in range(REPLICA_RANKS)}
+        log(f"{what}: ingested {n} rows as {REPLICA_BATCH}-row batches to both replicas of a "
+            f"group in {sent_s:.2f} s of RPC; trained + indexed on every rank after "
+            f"{time.perf_counter() - t0:.2f} s; rows per rank {per_rank}; get_ntotal "
+            f"{client.get_ntotal(iid)}")
+        cost = sweeper_cost(client, pos_of, range(REPLICA_RANKS))
+        log(f"{what}: the sweepers during the ingest, per rank: digest requests answered and "
+            f"their seconds, sweeps, add_index_data seconds: {cost}")
+        out["sweeper_ingest"] = cost
+        client.save_index(iid)
+        gt_ids = exact_ground_truth(x, q_eval, 10, what)
+        d0, meta0 = client.search(q_eval, 10, iid)
+        check_result(d0, meta0, 1000, 10, f"{what} healthy search")
+        rec0 = recall_at_10(meta0, gt_ids)
+        if rec0 < 0.95:
+            raise AssertionError(f"{what}: recall@10 {rec0:.4f} < 0.95 on the healthy cluster")
+        # each replica's own answers: every rank serves, and whether the two
+        # replicas of a group (each trained its own k-means) agree
+        own = {r: rank_ids(client, pos_of, r, iid, q_eval) for r in range(REPLICA_RANKS)}
+        twin = {g: same_share(own[a], own[b]) for g, (a, b) in groups.items()}
+        log(f"{what}: healthy recall@10 {rec0:.4f} at nprobe={nprobe}; share of eval queries "
+            f"whose top-10 ids are the same on both replicas of a group {twin}")
+        serve_queries(client, q_all[:1000], iid, 100, 8)  # warm
+        qps_h, p50_h, p99_h, _m = timed_serve(client, q_all, iid, f"{what} healthy", card)
+        k1 = {r: rank_call(client, pos_of, r, "ping")["kernels"]["flat_list_scan"]
+              for r in range(REPLICA_RANKS)}
+        log(f"{what}: K1 launches per rank (ping) after the healthy serving: {k1}")
+        if min(k1.values()) <= 0:
+            raise AssertionError(f"{what}: a rank that served launched no K1")
+        out.update(recall_healthy=rec0, qps_healthy=qps_h, p50_healthy_ms=p50_h,
+                   p99_healthy_ms=p99_h, k1_healthy=k1, twin_share=twin)
+
+        # ---- SIGKILL one replica of group 0 under a query storm ----
+        v0, s0 = groups[0]
+        storm = QueryStorm(client, iid, q_all[:100], 10, threads=8).start()
+        time.sleep(2.0)
+        h.kill(v0)
+        t_kill = time.perf_counter()
+        time.sleep(3.0)
+        results, errors = storm.stop()
+        if errors:
+            raise AssertionError(f"{what}: {len(errors)} storm requests failed across the "
+                                 f"SIGKILL, first {errors[0]!r}")
+        for D, meta in results:
+            check_result(D, meta, 100, 10, f"{what} storm search")
+        log(f"{what}: SIGKILL of rank {v0} (group 0) under an 8-thread storm: {len(results)} "
+            f"requests answered, 0 failed ({time.perf_counter() - t_kill:.1f} s after the kill "
+            f"included)")
+        qps_o, p50_o, p99_o, _m = timed_serve(client, q_all, iid, f"{what} outage", card,
+                                              f", rank {v0} dead")
+        # the divergence: rows, deletes and upserts into group 0 at quorum 1
+        grp0 = sorted({m[0] for row in meta0 for m in row if m is not None
+                       and (m[0] // REPLICA_BATCH) % 2 == 0})
+        deleted = np.asarray(grp0[:DELTA_DELETES], np.int64)
+        upserted = [r for r in range(0, n, REPLICA_BATCH * 2)
+                    if r not in set(deleted.tolist())][:DELTA_UPSERTS]
+        if deleted.size < DELTA_DELETES:
+            raise AssertionError(f"{what}: only {deleted.size} group-0 ids served to delete")
+        new0 = (x[rng.integers(0, n, DELTA_ROWS)]
+                + rng.standard_normal((DELTA_ROWS, d)).astype(np.float32) * 0.5)
+        client.cur_server_ids[iid] = 0
+        client.add_index_data(iid, new0, [(n + i,) for i in range(DELTA_ROWS)])
+        client.remove_ids(iid, deleted.tolist())
+        client.cur_server_ids[iid] = 0
+        client.upsert(iid, upserted, q_eval[:DELTA_UPSERTS])
+        repl = client.get_replication_stats()
+        if repl["counters"]["under_replicated"] < 3:
+            raise AssertionError(f"{what}: the writes missing rank {v0} were not recorded: "
+                                 f"{repl['counters']}")
+        log(f"{what}: with rank {v0} down: {DELTA_ROWS} rows added, {deleted.size} ids deleted, "
+            f"{len(upserted)} upserted, acked at quorum {client.quorum}; client counters "
+            f"{repl['counters']}, repair queue {repl['repair']}")
+
+        # ---- restart it with its storage: the sweeper heals it by delta ----
+        t0 = time.perf_counter()
+        h.restart(v0, load_index=True, extra_env={"DFT_SHARD_GROUP": "0"})
+        h.wait_port(v0, timeout=300)
+        up_s = time.perf_counter() - t0
+        wait_answers(client, pos_of, v0)
+        with client._lock:
+            client._preferred[0] = pos_of[v0]  # its drain refusals must fail over
+        storm = QueryStorm(client, iid, q_all[:100], 10, threads=4).start()
+        delta_s = wait_converged(h, v0, s0, iid, f"{what} delta heal")
+        results, errors = storm.stop()
+        if errors:
+            raise AssertionError(f"{what}: {len(errors)} requests failed during the delta heal, "
+                                 f"first {errors[0]!r}")
+        ae0 = rank_call(client, pos_of, v0, "get_perf_stats")["antientropy"]
+        if ae0["full_syncs"] != 0 or ae0["rows_repaired"] < DELTA_ROWS:
+            raise AssertionError(f"{what}: rank {v0} did not heal by delta: {ae0}")
+        log(f"{what}: rank {v0} back with its storage in {up_s:.2f} s (load included); "
+            f"digests equal to rank {s0}'s {delta_s:.2f} s later by delta: "
+            f"{ae0['rows_repaired']} rows pulled, {ae0['rows_refreshed']} refreshed, "
+            f"{ae0['full_syncs']} full syncs; {len(results)} storm requests answered during "
+            f"the heal, 0 failed")
+        cost = sweeper_cost(client, pos_of, (v0, s0))
+        log(f"{what}: the sweepers of group 0 since rank {v0}'s restart (its own) and since the "
+            f"start (rank {s0}): {cost}")
+        out.update(qps_outage=qps_o, p50_outage_ms=p50_o, p99_outage_ms=p99_o,
+                   restart_load_s=up_s, delta_converge_s=delta_s, sweeper_delta=cost)
+
+        # ---- SIGKILL one replica of group 1, add FULL_ROWS, restart it empty ----
+        v1, s1 = groups[1]
+        h.kill(v1)
+        new1 = (x[rng.integers(0, n, FULL_ROWS)]
+                + rng.standard_normal((FULL_ROWS, d)).astype(np.float32) * 0.5)
+        base1 = n + DELTA_ROWS
+        for s in range(0, FULL_ROWS, REPLICA_BATCH):
+            client.cur_server_ids[iid] = 1
+            client.add_index_data(iid, new1[s:s + REPLICA_BATCH],
+                                  [(base1 + r,) for r in range(s, s + REPLICA_BATCH)])
+        shutil.rmtree(os.path.join(store, iid, str(v1)), ignore_errors=True)
+        t0 = time.perf_counter()
+        h.restart(v1, extra_env={"DFT_SHARD_GROUP": "1"})
+        h.wait_port(v1, timeout=300)
+        full_s = wait_converged(h, v1, s1, iid, f"{what} full transfer")
+        wait_answers(client, pos_of, v1)
+        st1 = rank_call(client, pos_of, v1, "get_perf_stats")
+        xfer, ae1 = st1["replication"]["last_transfer"], st1["antientropy"]
+        if ae1["full_syncs"] != 1 or not xfer:
+            raise AssertionError(f"{what}: rank {v1} did not heal by a full transfer: {ae1}")
+        donor_rss = rank_call(client, pos_of, s1, "get_perf_stats")["process"]["peak_rss_mb"]
+        log(f"{what}: rank {v1} restarted empty; digests equal to rank {s1}'s "
+            f"{time.perf_counter() - t0:.2f} s after the restart ({full_s:.2f} s after its port "
+            f"opened): full shard transfer of {xfer['ntotal']} rows, "
+            f"{xfer['array_bytes'] / 1e6:.1f} MB of arrays in {xfer['seconds']:.2f} s "
+            f"(fetch {xfer['fetch_seconds']:.2f} s, then commit + restore); donor rank {s1} "
+            f"peak RSS {donor_rss:.0f} MB")
+        out.update(full_converge_s=full_s, transfer_s=xfer["seconds"],
+                   transfer_fetch_s=xfer["fetch_seconds"], transfer_mb=xfer["array_bytes"] / 1e6,
+                   transfer_rows=xfer["ntotal"], donor_rss_mb=donor_rss)
+
+        # ---- correctness on the healed ranks ----
+        k1_before = {r: rank_call(client, pos_of, r, "ping")["kernels"]["flat_list_scan"]
+                     for r in (v0, v1)}
+        with client._lock:
+            client._preferred.update({0: pos_of[v0], 1: pos_of[v1]})
+        d1, meta1 = client.search(q_eval, 10, iid)
+        check_result(d1, meta1, 1000, 10, f"{what} search pinned on the healed ranks")
+        dead_set = set(deleted.tolist())
+        if served_ids(meta1) & dead_set:
+            raise AssertionError(f"{what}: a healed rank served a deleted id")
+        top1 = [meta1[i][0][0] if meta1[i][0] else None for i in range(len(upserted))]
+        if top1 != upserted:
+            raise AssertionError(f"{what}: upserted rows not top-1 on the healed ranks: {top1}")
+        x_full = np.concatenate([x, new0, new1])
+        x_full[upserted] = q_eval[:len(upserted)]
+        gt1 = survivors_ground_truth(x_full, q_eval, deleted, f"{what} survivors")
+        rec1 = recall_at_10(meta1, gt1)
+        if rec1 < 0.95:
+            raise AssertionError(f"{what}: recall@10 {rec1:.4f} < 0.95 over the survivors")
+        same = {}
+        for g, (healed, surv) in ((0, (v0, s0)), (1, (v1, s1))):
+            same[g] = same_share(rank_ids(client, pos_of, healed, iid, q_eval),
+                                 rank_ids(client, pos_of, surv, iid, q_eval))
+        # a carried state (the full transfer) serves its donor's ids; a
+        # delta-healed replica kept its own k-means, so it matches its peer
+        # only as far as the healthy twins did
+        if same[1] != 1.0 or (twin[0] == 1.0 and same[0] != 1.0):
+            raise AssertionError(f"{what}: pinned ids of healed vs survivor replicas {same}, "
+                                 f"healthy twins {twin}")
+        k1_after = {r: rank_call(client, pos_of, r, "ping")["kernels"]["flat_list_scan"]
+                    for r in (v0, v1)}
+        if any(k1_after[r] <= k1_before[r] for r in (v0, v1)):
+            raise AssertionError(f"{what}: K1 launches did not rise on the healed ranks: "
+                                 f"{k1_before} -> {k1_after}")
+        log(f"{what}: pinned on the healed ranks {v0} and {v1}: no deleted id, every upserted "
+            f"row top-1, recall@10 {rec1:.4f} over the {x_full.shape[0] - deleted.size} "
+            f"survivors; share of queries with the same ids as the survivor replica {same}; "
+            f"K1 launches {k1_before} -> {k1_after}")
+        with client._lock:
+            client._preferred.clear()
+        qps_r, p50_r, p99_r, _m = timed_serve(client, q_all, iid, f"{what} healed", card)
+        k1_end = {r: rank_call(client, pos_of, r, "ping")["kernels"]["flat_list_scan"]
+                  for r in range(REPLICA_RANKS)}
+        lease = {r: rank_call(client, pos_of, r, "get_health")["compaction"]["held"]
+                 for r in range(REPLICA_RANKS)}
+        log(f"{what}: K1 launches per rank at the end {k1_end}; compaction lease held by "
+            f"{sorted(r for r, held in lease.items() if held)} (groups {groups}); phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        out.update(recall_healed=rec1, same_ids=same, qps_healed=qps_r, p50_healed_ms=p50_r,
+                   p99_healed_ms=p99_r, k1_end=k1_end, lease=lease)
+    finally:
+        if client is not None:
+            client.close()
+        h.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1708,6 +2077,12 @@ def main(argv=None) -> int:
         if outs is not None:
             outs["serving"].close()
         sq_out["serving"].close()
+    for o in (sq_out, pq_out, k2_out, flat_out):
+        o.pop("model", None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    replica_phase(args, sq_out, card)
+    log(f"replica phase: {time.perf_counter() - t0:.1f} s")
     kernels = [
         dict(name="flat_list_scan", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
              launches=sq_out["counts"]["K1"], **k1, library_ms=None),

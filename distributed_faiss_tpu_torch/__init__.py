@@ -28,6 +28,9 @@ _LAZY = {
     "IndexServer": ("distributed_faiss_tpu_torch.parallel.server", "IndexServer"),
     "IndexClient": ("distributed_faiss_tpu_torch.parallel.client", "IndexClient"),
     "MultiRankError": ("distributed_faiss_tpu_torch.parallel.client", "MultiRankError"),
+    "QuorumError": ("distributed_faiss_tpu_torch.parallel.client", "QuorumError"),
+    "ReplicationCfg": ("distributed_faiss_tpu_torch.utils.config", "ReplicationCfg"),
+    "AntiEntropyCfg": ("distributed_faiss_tpu_torch.utils.config", "AntiEntropyCfg"),
     "RetryPolicy": ("distributed_faiss_tpu_torch.parallel.rpc", "RetryPolicy"),
     "BusyError": ("distributed_faiss_tpu_torch.parallel.rpc", "BusyError"),
     "DeadlineExceeded": ("distributed_faiss_tpu_torch.parallel.rpc", "DeadlineExceeded"),

@@ -28,11 +28,18 @@ watermarks back read-your-writes (``assert_min_version``), and
 ``search_at_generation`` serves a retained committed generation exactly
 as it was committed (DFT_RETAIN_GENERATIONS).
 
-Not ported yet: replica digests and the anti-entropy delta protocol
-(``replica_digest``, ``export_rows``, ``reconcile_deletes``,
-``prune_ledger``), shard transfer and the pre-manifest flat layout.
+Replication (parallel/antientropy.py): ``replica_digest`` is an
+order-independent hash of the live ids and the deletion ledger (the JAX
+engine's, byte for byte), ``id_sets`` / ``export_rows_versioned`` /
+``reconcile_deletes`` / ``prune_ledger`` are the delta-repair protocol, and
+``export_snapshot`` / ``import_snapshot`` carry a whole shard to a rank
+that commits it as a generation of its own before serving it.
+
+Not ported yet: the pre-manifest flat layout.
 """
 
+import hashlib
+import json
 import logging
 import os
 import pickle
@@ -68,6 +75,15 @@ logger = logging.getLogger()
 _IVF_BUILDERS = ("ivf_simple", "knnlm", "ivfsq", "ivf_tpu")
 
 _id_match_key = _tombstones.id_match_key
+
+# per-id 128-bit hashes summed mod 2^128: the digest does not depend on the
+# rows' order, and unlike XOR a duplicated id cannot cancel out
+_DIGEST_MASK = (1 << 128) - 1
+
+
+def _id_hash(key) -> int:
+    return int.from_bytes(
+        hashlib.sha1(repr(key).encode("utf-8", "backslashreplace")).digest()[:16], "little")
 
 
 class _MetaStore:
@@ -218,6 +234,8 @@ class Index:
             # versioned writes that no-op'd (replays, outrun deletes) and
             # adds that replaced an older live row in place
             "version_noop_adds": 0, "version_noop_deletes": 0, "version_replaced": 0,
+            # deletion-ledger entries every replica had passed (prune_ledger)
+            "ledger_pruned": 0,
         }
         self.versioning = VersioningCfg.from_env()
         # writer id -> (wall_ms, counter) of the newest version incorporated
@@ -238,6 +256,8 @@ class Index:
         self._saved_tombstone_version = 0
         # a replicated deployment's compaction lease; None compacts freely
         self.compaction_gate = None
+        # (cache key, replica_digest) under both locks
+        self._digest_cache = None
         self.mutation_cfg = MutationCfg.from_env()
         if self.mutation_cfg.compact and cfg.index_storage_dir:
             self._run_compaction_watcher()
@@ -637,6 +657,173 @@ class Index:
                                     key=repr),
             "watermark": list(wm) if wm is not None else None,
         }
+
+    # ------------------------------------------------------------ anti-entropy
+
+    def replica_digest(self) -> dict:
+        """Order-independent convergence digest: ``live_hash`` sums per-id
+        hashes of every live id (buffered rows included), ``live_vhash``
+        of every (id, live version), ``dead_hash`` of the deletion ledger.
+        Engine-local counters stay out of it (converged replicas compact at
+        different times) and form the cache key: the digest is cached until
+        a mutation or a new layout moves (layout epoch, tombstone version,
+        metadata length). The O(rows) hashing runs outside the locks, over
+        the append-only metadata snapshot."""
+        with self.buffer_lock, self.index_lock:
+            key = (self._meta_epoch, self._tombstone_version, len(self.id_to_metadata))
+            if self._digest_cache is not None and self._digest_cache[0] == key:
+                return dict(self._digest_cache[1])
+            meta_arr, meta_n = self.id_to_metadata.snapshot()
+            dead_rows = frozenset(self.tombstones.rows())
+            ledger = self.tombstones.ledger()
+            live_vmap = dict(self.tombstones.live_versions())
+        live_sum, live_vsum, live_n = 0, 0, 0
+        for _p, mid in _iter_live_ids(meta_arr, meta_n, dead_rows, self.cfg.custom_meta_id_idx):
+            k = _id_match_key(mid)
+            live_sum = (live_sum + _id_hash(k)) & _DIGEST_MASK
+            live_vsum = (live_vsum + _id_hash((k, live_vmap.get(k)))) & _DIGEST_MASK
+            live_n += 1
+        dead_sum = 0
+        for k in ledger:
+            dead_sum = (dead_sum + _id_hash(k)) & _DIGEST_MASK
+        digest = {
+            "live_n": live_n,
+            "live_hash": format(live_sum, "032x"),
+            "live_vhash": format(live_vsum, "032x"),
+            "dead_n": len(ledger),
+            "dead_hash": format(dead_sum, "032x"),
+        }
+        with self.buffer_lock, self.index_lock:
+            if key == (self._meta_epoch, self._tombstone_version, len(self.id_to_metadata)):
+                self._digest_cache = (key, dict(digest))
+        return digest
+
+    def export_rows(self, ids) -> Tuple[np.ndarray, list]:
+        """``(embeddings, metadata)`` of every live row whose id is in
+        ``ids``: indexed rows reconstructed by the model (exact for raw
+        storage, through the codec otherwise), buffered rows verbatim."""
+        emb, metas, _vers = self._export_rows(ids)
+        return emb, metas
+
+    def export_rows_versioned(self, ids, with_hash: bool = False):
+        """``export_rows`` plus each row's live write version (None where it
+        was never written versioned), and with ``with_hash`` a sha256 of the
+        chunk (``serialization.row_payload_hash``) that the puller checks
+        before it applies any row."""
+        emb, metas, vers = self._export_rows(ids)
+        if not with_hash:
+            return emb, metas, vers
+        return emb, metas, vers, serialization.row_payload_hash(emb, metas, vers)
+
+    def _export_rows(self, ids) -> Tuple[np.ndarray, list, list]:
+        """One capture under both locks: positions must pair with the
+        buffer they index into. A repair path, never a hot one."""
+        want = {_id_match_key(i) for i in ids}
+        id_idx = self.cfg.custom_meta_id_idx
+        with self.buffer_lock, self.index_lock:
+            meta_arr, meta_n = self.id_to_metadata.snapshot()
+            indexed_n = self.model.ntotal if self.model is not None else 0
+            dead_rows = frozenset(self.tombstones.rows())
+            live_vmap = dict(self.tombstones.live_versions())
+            positions, metas, vers = [], [], []
+            for p, mid in _iter_live_ids(meta_arr, meta_n, dead_rows, id_idx):
+                k = _id_match_key(mid)
+                if k in want:
+                    positions.append(p)
+                    metas.append(meta_arr[p])
+                    vers.append(live_vmap.get(k))
+            dim = int(self.cfg.dim)
+            # the buffer concatenate is paid only when a wanted row is in it
+            need_buffer = any(p >= indexed_n for p in positions)
+            flat_buf = (np.concatenate(self.embeddings_buffer, axis=0)
+                        if need_buffer and self.embeddings_buffer
+                        else np.zeros((0, dim), np.float32))
+            out = np.zeros((len(positions), dim), np.float32)
+            keep = np.ones(len(positions), bool)
+            idxed = [(j, p) for j, p in enumerate(positions) if p < indexed_n]
+            if idxed:
+                rec = np.asarray(self.model.reconstruct_batch(
+                    np.asarray([p for _j, p in idxed], np.int64)), np.float32)
+                out[[j for j, _p in idxed]] = rec
+            for j, p in enumerate(positions):
+                if p < indexed_n:
+                    continue
+                off = p - indexed_n
+                if off < flat_buf.shape[0]:
+                    out[j] = flat_buf[off]
+                else:  # metadata longer than index + buffer: skip the row
+                    keep[j] = False
+        if not keep.all():
+            out = out[keep]
+            metas = [m for j, m in enumerate(metas) if keep[j]]
+            vers = [v for j, v in enumerate(vers) if keep[j]]
+        return out, metas, vers
+
+    def prune_ledger(self, min_watermark, min_age_s: float = 0.0) -> int:
+        """Drop the deletion-ledger entries below ``min_watermark`` (the
+        group's lowest replica watermark; the sweeper decides when it is
+        safe) that are at least ``min_age_s`` old, and persist the smaller
+        ledger through the sidecar writer. Returns the entries dropped."""
+        cutoff = int(time.time() * 1000.0 - min_age_s * 1000.0) if min_age_s > 0 else None
+        with self.buffer_lock, self.index_lock:
+            pruned = self.tombstones.prune_ledger(min_watermark, max_wall_ms=cutoff)
+            if not pruned:
+                return 0
+            self._mutation_counters["ledger_pruned"] += pruned
+            self._digest_cache = None
+            payload, sc_version = self._tombstone_payload_locked()
+        self._write_tombstone_sidecar(payload, sc_version)
+        return pruned
+
+    def reconcile_deletes(self, dead_keys, dead_versions=None) -> int:
+        """Apply a peer's deletion ledger. A versioned peer delete is
+        LWW-gated: a local live write at a same-or-newer version wins. An
+        unversioned one deletes (delete wins) unless the local row was
+        written versioned. Every peer key is max-merged into the local
+        ledger, durably, so a stale repair re-send is never pulled back.
+        Returns the rows newly tombstoned."""
+        keys = {_id_match_key(k) for k in dead_keys}
+        if not keys:
+            return 0
+        vmap = {_id_match_key(k): _versions.version_key(v) for k, v in (dead_versions or ())}
+        with self.buffer_lock, self.index_lock:
+            meta_arr, meta_n = self.id_to_metadata.snapshot()
+            dead_rows = frozenset(self.tombstones.rows())
+            live_vmap = dict(self.tombstones.live_versions())
+        raw_by_version, legacy_raw, gated = {}, [], 0
+        for _p, mid in _iter_live_ids(meta_arr, meta_n, dead_rows, self.cfg.custom_meta_id_idx):
+            k = _id_match_key(mid)
+            if k not in keys:
+                continue
+            vd = vmap.get(k)
+            if vd is None:
+                if live_vmap.get(k) is not None:
+                    gated += 1
+                else:
+                    legacy_raw.append(mid)
+            else:
+                raw_by_version.setdefault(vd, []).append(mid)
+        removed = self.remove_ids(legacy_raw) if legacy_raw else 0
+        # one versioned call per peer version: remove_ids re-gates under the
+        # locks, so an upsert landing since the snapshot keeps its rows
+        for vd, raws in sorted(raw_by_version.items()):
+            removed += self.remove_ids(raws, version=vd)
+        with self.buffer_lock, self.index_lock:
+            if gated:
+                self._mutation_counters["version_noop_deletes"] += gated
+            changed = self.tombstones.ledger_update_versioned(
+                (k, vmap.get(k)) for k in keys
+                if not (live_vmap.get(k) is not None
+                        and _versions.compare(live_vmap.get(k), vmap.get(k)) >= 0))
+            for vk in vmap.values():
+                self._observe_version_locked(vk)
+            payload = None
+            if changed:
+                self._digest_cache = None
+                payload, sc_version = self._tombstone_payload_locked()
+        if payload is not None:
+            self._write_tombstone_sidecar(payload, sc_version)
+        return removed
 
     # ---------------------------------------------------------------- compaction
 
@@ -1174,6 +1361,72 @@ class Index:
                      lambda f: f.write(cfg.to_json_string() + "\n"), "w")
         serialization.prune_generations(storage_dir, keep=max(2, int(keep)))
 
+    # ------------------------------------------------------------ shard transfer
+
+    def export_snapshot(self) -> dict:
+        """The shard-transfer unit: the model's state_dict, all metadata, the
+        not-yet-indexed buffer, the cfg and the tombstone payload, captured
+        under both locks at one point (what a committed save writes). It
+        stalls this engine's serving for the capture, as a save does."""
+        with self.buffer_lock, self.index_lock:
+            state = self.model.state_dict() if self.model is not None else None
+            return {
+                "format": 1,
+                "generation": self._generation,
+                "state": state,
+                "state_name": self.state.name,
+                "ntotal": int(self.model.ntotal) if self.model is not None else 0,
+                "meta": self.id_to_metadata.tolist(),
+                "buffer": list(self.embeddings_buffer),
+                "cfg_json": self.cfg.to_json_string(),
+                # a replica joined from the snapshot must not resurrect a delete
+                "tombstones": self.tombstones.to_payload(),
+            }
+
+    @classmethod
+    def import_snapshot(cls, snapshot: dict, storage_dir: str, cfg: IndexCfg = None,
+                        device="cuda") -> "Index":
+        """Install a transferred shard (either package's ``export_snapshot``)
+        on this rank. A trained snapshot is first committed to
+        ``storage_dir`` as a generation of its own (the MANIFEST protocol),
+        so a crash right after the transfer restarts from it; then the
+        engine restores from it on ``device`` and replays the buffer through
+        the add path. An untrained snapshot only replays its buffer."""
+        if cfg is None:
+            kwargs = json.loads(snapshot["cfg_json"])
+            kwargs.update(kwargs.pop("extra", {}))
+            cfg = IndexCfg(**kwargs)
+        cfg.index_storage_dir = storage_dir
+        meta = list(snapshot.get("meta") or [])
+        buffer = [np.asarray(b, np.float32) for b in (snapshot.get("buffer") or [])]
+        tomb = TombstoneSet.from_payload(snapshot.get("tombstones"))
+        state = snapshot.get("state")
+        if state is None:
+            result = cls(cfg, device)
+            result.tombstones = tomb
+            # the rows are replayed next: their live versions are not stale
+            result._seed_version_state(prune=False)
+            offset = 0
+            for chunk in buffer:
+                n = chunk.shape[0]
+                result.add_batch(chunk, meta[offset:offset + n])
+                offset += n
+            return result
+        model = index_from_state_dict(state, device=device)
+        disk_gens = serialization.list_generations(storage_dir)
+        gen = max(int(snapshot.get("generation", 0)), disk_gens[0][0] if disk_gens else 0) + 1
+        cls._commit_generation(
+            storage_dir, gen, state, meta, buffer, cfg,
+            extra={"ntotal": int(model.ntotal), "transferred": True, "layout": tomb.layout},
+            tombstones=tomb.to_payload(), keep=VersioningCfg.from_env().retain_generations)
+        logger.info("imported a transferred shard (%d vectors, %d buffered) into %s as "
+                    "generation %d", model.ntotal, sum(b.shape[0] for b in buffer),
+                    storage_dir, gen)
+        result = cls._restore(cfg, model, meta, buffer, device, tombstones=tomb)
+        result._generation = gen
+        result.index_saved_size = model.ntotal
+        return result
+
     @classmethod
     def from_storage_dir(cls, index_storage_dir: str, cfg: IndexCfg = None,
                          ignore_buffer: bool = True, device="cuda") -> Optional["Index"]:
@@ -1275,10 +1528,10 @@ class Index:
         result._seed_version_state()
         return result
 
-    def _seed_version_state(self) -> None:
+    def _seed_version_state(self, prune: bool = True) -> None:
         """After a restore: re-seed the per-writer watermarks from the
-        recovered version planes, and drop live versions whose rows did not
-        survive (a truncated buffer)."""
+        recovered version planes, and (``prune``) drop live versions whose
+        rows did not survive (a truncated buffer)."""
         with self.buffer_lock, self.index_lock:
             pairs = self.tombstones.ledger_items() + self.tombstones.live_versions()
             if not pairs:
@@ -1286,7 +1539,7 @@ class Index:
             for _k, v in pairs:
                 self._observe_version_locked(_versions.version_key(v))
             live_pairs = self.tombstones.live_versions()
-            if not live_pairs:
+            if not prune or not live_pairs:
                 return
             meta_arr, meta_n = self.id_to_metadata.snapshot()
             dead_rows = frozenset(self.tombstones.rows())

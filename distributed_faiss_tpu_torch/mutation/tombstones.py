@@ -96,6 +96,10 @@ class TombstoneSet:
         """Dead row positions (a copy, safe outside the lock)."""
         return list(self._rows)
 
+    def ids(self) -> list:
+        """Metadata ids of the dead rows (a copy)."""
+        return list(self._rows.values())
+
     def items(self) -> list:
         """(row, metadata id) pairs (a copy)."""
         return list(self._rows.items())
@@ -117,6 +121,10 @@ class TombstoneSet:
 
     # ------------------------------------------------------ deletion ledger
 
+    def ledger(self) -> frozenset:
+        """Normalized ids of every delete recorded here (a copy)."""
+        return frozenset(self._ledger)
+
     def ledger_size(self) -> int:
         return len(self._ledger)
 
@@ -129,13 +137,41 @@ class TombstoneSet:
         """(normalized id, delete version) pairs (a copy)."""
         return list(self._ledger.items())
 
-    def ledger_update_versioned(self, pairs: Iterable) -> None:
+    def ledger_update(self, keys: Iterable) -> int:
+        """Record unversioned deletes a peer observed; returns how many ids
+        were new."""
+        before = len(self._ledger)
+        for k in keys:
+            self._ledger.setdefault(id_match_key(k), None)
+        return len(self._ledger) - before
+
+    def ledger_update_versioned(self, pairs: Iterable) -> int:
         """Record ``(id, version)`` deletes; versions max-merge, so an older
-        replayed delete never rolls a newer one back."""
+        replayed delete never rolls a newer one back. Returns how many ids
+        were new."""
+        before = len(self._ledger)
         for k, v in pairs:
             kk = id_match_key(k)
             self._ledger[kk] = _versions.newest(self._ledger.get(kk),
                                                 _versions.version_key(v))
+        return len(self._ledger) - before
+
+    def prune_ledger(self, min_version, max_wall_ms=None) -> int:
+        """Drop the entries whose delete version is strictly below
+        ``min_version`` (the lowest replica watermark of the group: every
+        replica has incorporated the delete) and, with ``max_wall_ms``, whose
+        wall-clock part is at most that: a client's repair queue may still
+        replay an add the entry gates. Unversioned entries are never pruned.
+        Returns the entries dropped."""
+        mk = _versions.version_key(min_version)
+        if mk is None:
+            return 0
+        victims = [k for k, v in self._ledger.items()
+                   if v is not None and _versions.compare(v, mk) < 0
+                   and (max_wall_ms is None or v[0] <= max_wall_ms)]
+        for k in victims:
+            del self._ledger[k]
+        return len(victims)
 
     def unledger(self, keys: Iterable) -> int:
         """Drop the ledger entries of legally re-added ids; returns how
@@ -169,6 +205,14 @@ class TombstoneSet:
             kk = id_match_key(k)
             self._live_versions[kk] = _versions.newest(
                 self._live_versions.get(kk), _versions.version_key(v))
+
+    def max_version(self):
+        """The newest version recorded anywhere in the set (None when
+        nothing versioned was applied)."""
+        out = None
+        for v in list(self._ledger.values()) + list(self._live_versions.values()):
+            out = _versions.newest(out, v)
+        return out
 
     def count_below(self, n: int) -> int:
         """Dead rows at positions < n (the indexed ones)."""

@@ -110,6 +110,18 @@ KIND_BUSY = 4
 KIND_RESULT_MUX = 5
 KIND_ERROR_MUX = 6
 KIND_BUSY_MUX = 7
+# shard transfer: FETCH carries ``(index_id,)``, SHARD_DATA answers with the
+# engine's export_snapshot dict (its arrays ride the raw tensor planes).
+# Both travel on a dedicated connection, never a serving stub's, so bulk
+# bytes block no mux window and the demux reader never sees them.
+KIND_SHARD_FETCH = 8
+KIND_SHARD_DATA = 9
+# anti-entropy digest exchange, also on a short-lived dedicated connection:
+# DIGEST carries ``{"rank", "group", "want"}``, DIGEST_RESP the peer's
+# ``{"rank", "shard_group", "digests", "watermarks", "compaction"}``. The
+# round trip doubles as the failure detector's heartbeat.
+KIND_DIGEST = 10
+KIND_DIGEST_RESP = 11
 
 # kind-byte flag of a frame whose skeleton is binary (parallel/wire.py);
 # every KIND_* value stays below it
@@ -443,6 +455,52 @@ def recv_frame(sock: socket.socket):
     return FrameReader(sock, bufsize=0).recv_frame()
 
 
+def _dedicated_exchange(host: str, port: int, kind: int, payload, timeout: float,
+                        v6: bool = False):
+    """One request frame and its answer on a connection of their own, the
+    socket deadline bounding every step: ``(kind, payload)`` of the answer."""
+    sock = socket.socket(socket.AF_INET6 if v6 else socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    sock.settimeout(timeout)
+    try:
+        sock.connect((host, port))
+        send_frame(sock, kind, payload)
+        out = recv_frame(sock)
+        try:
+            send_frame(sock, KIND_CLOSE, None)
+        except OSError:
+            pass  # a courtesy: the answer already landed
+    finally:
+        sock.close()
+    return out
+
+
+def fetch_shard(host: str, port: int, index_id: str, timeout: float = 120.0,
+                v6: bool = False) -> dict:
+    """A replica's shard snapshot (its engine's ``export_snapshot``) over a
+    dedicated connection. A server-side failure raises ServerException."""
+    kind, payload = _dedicated_exchange(host, port, KIND_SHARD_FETCH, (index_id,), timeout, v6)
+    if kind == KIND_SHARD_DATA:
+        return payload
+    if kind == KIND_ERROR:
+        raise ServerException(payload)
+    raise FrameError(f"unexpected frame kind {kind} in answer to a shard fetch")
+
+
+def digest_exchange(host: str, port: int, payload: dict, timeout: float = 5.0,
+                    v6: bool = False) -> dict:
+    """One anti-entropy digest round trip on a short-lived dedicated
+    connection. A heartbeat too, so a silent peer fails within ``timeout``
+    (socket.timeout is an OSError, one of TRANSPORT_ERRORS); a garbled
+    answer kind is a FrameError for the same reason."""
+    kind, resp = _dedicated_exchange(host, port, KIND_DIGEST, dict(payload), timeout, v6)
+    if kind == KIND_DIGEST_RESP:
+        return resp
+    if kind == KIND_ERROR:
+        raise ServerException(resp)
+    raise FrameError(f"unexpected frame kind {kind} in answer to a digest exchange")
+
+
 class _PendingCall:
     __slots__ = ("req_id", "fname", "event", "kind", "payload", "error", "sent_t")
 
@@ -657,6 +715,12 @@ class Client:
             raise slot.error
         self.stats.record("round_trip_s", time.perf_counter() - t0)
         return self._interpret(slot.kind, slot.payload, fname)
+
+    def fetch_shard(self, index_id: str, timeout: float = 120.0) -> dict:
+        """This stub's rank's shard snapshot, on a connection of its own (the
+        serving connection's mux window stays free)."""
+        return fetch_shard(self.host, self.port, index_id, timeout,
+                           self._fam == socket.AF_INET6)
 
     def _interpret(self, kind, payload, fname):
         if kind == KIND_RESULT:

@@ -15,6 +15,15 @@ get_id_sets. Searches go through the ``SearchScheduler``; with
 DFT_SCHEDULER=0 they are served through ``engine.Index.search`` and its
 natural batcher.
 
+Replication: the rank's shard group (``DFT_SHARD_GROUP``, or the
+``set_shard_group`` op a client pushes), ``sync_shard_from`` (stream a live
+replica's shard over a dedicated ``KIND_SHARD_FETCH`` connection, commit it
+as a generation here and serve it), the delta-repair ops
+(``export_rows``, ``export_rows_versioned``), ``get_health``, the
+``KIND_DIGEST`` answer, and, given a discovery file, the anti-entropy
+sweeper (parallel/antientropy.py), which also holds the group's compaction
+lease that gates every engine's compaction watcher.
+
 One serving loop: thread-per-connection (``start_blocking``). Calls whose
 frame meta carries a ``req_id`` are dispatched without blocking the
 connection's reader — searches to the scheduler's async completion path,
@@ -25,14 +34,13 @@ skeletons (the ``wire`` CALL-meta key, or a binary frame itself) gets its
 search responses in binary (parallel/wire.py) unless DFT_RPC_WIRE=pickle;
 every other response stays pickle.
 
-Not ported yet: the selector loop, replication membership, anti-entropy
-(and with it the compaction lease: every engine compacts on its own
-watcher), shard transfer, tracing export.
+Not ported yet: the selector loop, tracing export.
 """
 
 import logging
 import os
 import pathlib
+import resource
 import socket
 import threading
 import time
@@ -43,14 +51,20 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from distributed_faiss_tpu_torch.engine import Index
-from distributed_faiss_tpu_torch.parallel import rpc, wire
+from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+from distributed_faiss_tpu_torch.parallel import antientropy, rpc, wire
 from distributed_faiss_tpu_torch.serving.scheduler import (
     DeadlineExpired,
     SchedulerBusy,
     SchedulerStopped,
     SearchScheduler,
 )
-from distributed_faiss_tpu_torch.utils.config import IndexCfg, SchedulerCfg, WireCfg
+from distributed_faiss_tpu_torch.utils.config import (
+    AntiEntropyCfg,
+    IndexCfg,
+    SchedulerCfg,
+    WireCfg,
+)
 from distributed_faiss_tpu_torch.utils.device import resolve_device
 from distributed_faiss_tpu_torch.utils.state import IndexState
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
@@ -94,10 +108,26 @@ class _ConnState:
 class IndexServer:
     def __init__(self, rank: int, index_storage_dir: str,
                  scheduler_cfg: Optional[SchedulerCfg] = None, device="cuda",
-                 wire_cfg: Optional[WireCfg] = None):
+                 wire_cfg: Optional[WireCfg] = None, discovery_path: Optional[str] = None,
+                 antientropy_cfg: Optional[AntiEntropyCfg] = None):
         self.device = resolve_device(device)
         self.indexes: Dict[str, Index] = {}
         self.indexes_lock = threading.Lock()
+        # ids this rank dropped, so the sweeper never pulls one back from a
+        # peer that missed the drop; a re-create, load or resync clears it
+        self._dropped: set = set()
+        # the replica group this rank serves: None until registered
+        group = os.environ.get("DFT_SHARD_GROUP")
+        self.shard_group: Optional[int] = int(group) if group else None
+        # the sweeper resolves its peers from the discovery file; without
+        # one (or with DFT_ANTIENTROPY=0) the rank has none. It starts once
+        # the socket is bound, so it can tell its own discovery entry.
+        self.discovery_path = discovery_path
+        self._antientropy_cfg = (antientropy_cfg if antientropy_cfg is not None
+                                 else AntiEntropyCfg.from_env())
+        self._antientropy: Optional[antientropy.AntiEntropySweeper] = None
+        # the last shard this rank joined by transfer (sync_shard_from)
+        self.last_transfer: Optional[dict] = None
         self.rank = rank
         self.index_storage_dir = index_storage_dir
         self.socket: Optional[socket.socket] = None
@@ -128,9 +158,11 @@ class IndexServer:
         cfg.index_storage_dir = storage
         pathlib.Path(storage).mkdir(parents=True, exist_ok=True)
         index = Index(cfg, self.device)
+        self._wire_engine(index)
         with self.indexes_lock:
             if index_id not in self.indexes:
                 self.indexes[index_id] = index
+                self._dropped.discard(index_id)
                 logger.info("created index %s (storage %s)", index_id, storage)
                 return True
         index.retire()
@@ -257,13 +289,18 @@ class IndexServer:
         index = Index.from_storage_dir(index_dir, cfg, ignore_buffer=False, device=self.device)
         if index is None:
             return False
+        self._wire_engine(index)
         with self.indexes_lock:
             self.indexes[index_id] = index
+            self._dropped.discard(index_id)
         return True
 
     def drop_index(self, index_id: str) -> None:
         with self.indexes_lock:
             old = self.indexes.pop(index_id, None)
+            # marked also when this rank never held the index: the drop may
+            # arrive before a sync would have brought it
+            self._dropped.add(index_id)
         if old is not None:
             old.retire()
 
@@ -272,6 +309,147 @@ class IndexServer:
 
     def get_rank(self) -> int:
         return self.rank
+
+    # ------------------------------------------------------------ replicas
+
+    def get_shard_group(self) -> Optional[int]:
+        """The replica group this rank serves (None: unregistered)."""
+        return self.shard_group
+
+    def set_shard_group(self, group: Optional[int]) -> Optional[int]:
+        """The registration op: a client (or an operator) assigns this
+        rank's group. One reference write; readers tolerate a stale one."""
+        self.shard_group = None if group is None else int(group)
+        logger.info("rank %d registered shard_group=%s", self.rank, self.shard_group)
+        return self.shard_group
+
+    def sync_shard_from(self, index_id: str, host: str, port: int,
+                        shard_group: Optional[int] = None) -> dict:
+        """Online join: fetch a live replica's shard over a dedicated
+        connection, commit it here as a generation, restore it on this
+        rank's device, swap it into the registry (retiring any stale local
+        engine, so it never autosaves over the new state) and register the
+        group. Other calls are served throughout."""
+        t0 = time.perf_counter()
+        snapshot = rpc.fetch_shard(host, port, index_id)
+        t_fetch = time.perf_counter() - t0
+        array_bytes = _array_bytes(snapshot)
+        index = Index.import_snapshot(snapshot, self._get_storage_dir(index_id, None),
+                                      device=self.device)
+        self._wire_engine(index)
+        with self.indexes_lock:
+            old = self.indexes.get(index_id)
+            self.indexes[index_id] = index
+            self._dropped.discard(index_id)
+        if old is not None:
+            old.retire()
+        if shard_group is not None:
+            self.set_shard_group(shard_group)
+        buffered, ntotal = index.get_idx_data_num()
+        dt = time.perf_counter() - t0
+        self.perf.record("sync_shard_from", dt)
+        logger.info("rank %d joined %s via shard transfer from %s:%d: %d rows, %d buffered, "
+                    "%.1f MB of arrays, %.3f s (fetch %.3f s)", self.rank, index_id, host, port,
+                    ntotal, buffered, array_bytes / 1e6, dt, t_fetch)
+        out = {"rank": self.rank, "index_id": index_id, "ntotal": ntotal,
+               "buffered": buffered, "generation": index.current_generation(),
+               "shard_group": self.shard_group, "seconds": dt, "fetch_seconds": t_fetch,
+               "array_bytes": array_bytes, "source": f"{host}:{port}"}
+        self.last_transfer = out
+        return out
+
+    def export_rows(self, index_id: str, ids):
+        """Delta repair's pull side: (embeddings, metadata) of live ids."""
+        return self._get_index(index_id).export_rows(ids)
+
+    def export_rows_versioned(self, index_id: str, ids, with_hash: bool = False):
+        """(embeddings, metadata, versions), and the chunk's sha256 with
+        ``with_hash``: the puller applies the rows through the LWW gates."""
+        return self._get_index(index_id).export_rows_versioned(ids, with_hash=with_hash)
+
+    def get_health(self) -> dict:
+        """This rank's failure-detector view: suspect peers, per-peer
+        failures and whether it holds its group's compaction lease. A
+        suspect is tried last by a client's read walk, never removed."""
+        if self._antientropy is None:
+            return {"enabled": False, "rank": self.rank, "shard_group": self.shard_group,
+                    "peers": {}, "suspects": [], "compaction": {"held": True}}
+        return self._antientropy.health_snapshot()
+
+    def _wire_engine(self, index: Index) -> None:
+        """Gate an engine's compaction watcher on the group's lease (the
+        sweeper re-asserts this each sweep)."""
+        if self._antientropy is not None:
+            index.compaction_gate = self._antientropy.may_compact
+
+    def _start_antientropy(self) -> None:
+        if (self._antientropy is not None or self.discovery_path is None
+                or not self._antientropy_cfg.enabled):
+            return
+        # published before the accept loop admits a connection
+        self._antientropy = antientropy.AntiEntropySweeper(
+            self, self.discovery_path, self._antientropy_cfg)
+        with self.indexes_lock:
+            engines = list(self.indexes.values())
+        for index in engines:
+            self._wire_engine(index)
+        self._antientropy.start()
+        logger.info("anti-entropy sweeper started (rank %d, group %s, interval %.1fs)",
+                    self.rank, self.shard_group, self._antientropy_cfg.interval_s)
+
+    def _serve_digest(self, conn, state: "_ConnState", payload) -> None:
+        """Answer one KIND_DIGEST with this rank's per-index digests and
+        watermarks (a KIND_ERROR on failure), on the worker pool: a digest
+        cache miss hashes O(rows). The contact is itself liveness evidence
+        for this rank's failure detector."""
+        t0 = time.perf_counter()
+        try:
+            req = payload if isinstance(payload, dict) else {}
+            if self._antientropy is not None:
+                self._antientropy.health.note_inbound(req.get("rank"), req.get("group"))
+            want = req.get("want")
+            with self.indexes_lock:
+                snapshot = [(iid, idx) for iid, idx in self.indexes.items()
+                            if want is None or iid in want]
+            resp = {
+                "rank": self.rank,
+                "shard_group": self.shard_group,
+                "digests": {iid: idx.replica_digest() for iid, idx in snapshot},
+                # the peer min-merges these to prune the deletion ledgers
+                "watermarks": {iid: idx.version_watermark() for iid, idx in snapshot},
+                "compaction": {"held": (self._antientropy.may_compact()
+                                        if self._antientropy is not None else True)},
+            }
+            parts = rpc.pack_frame(rpc.KIND_DIGEST_RESP, resp)
+            self.perf.record("digest_exchange", time.perf_counter() - t0)
+        except Exception:
+            tb = traceback.format_exc()
+            logger.error("digest exchange failed: %s", tb)
+            parts = rpc.pack_frame(rpc.KIND_ERROR, tb)
+        self._send_untagged(conn, state, parts, "digest")
+
+    def _serve_shard_fetch(self, conn, state: "_ConnState", payload) -> None:
+        """Answer one KIND_SHARD_FETCH with the engine's export_snapshot as a
+        KIND_SHARD_DATA frame (a KIND_ERROR on failure), on the worker
+        pool."""
+        t0 = time.perf_counter()
+        try:
+            (index_id,) = tuple(payload)[:1]
+            snapshot = self._get_index(index_id).export_snapshot()
+            parts = rpc.pack_frame(rpc.KIND_SHARD_DATA, snapshot)
+            self.perf.record("fetch_shard", time.perf_counter() - t0)
+        except Exception:
+            tb = traceback.format_exc()
+            logger.error("shard fetch failed: %s", tb)
+            parts = rpc.pack_frame(rpc.KIND_ERROR, tb)
+        self._send_untagged(conn, state, parts, "shard transfer")
+
+    def _send_untagged(self, conn, state: "_ConnState", parts, what: str) -> None:
+        try:
+            with state.wlock:
+                rpc.send_parts(conn, parts)
+        except OSError as e:
+            logger.info("%s write failed (peer gone?): %s", what, e)
 
     def get_config_path(self, index_id: str) -> str:
         return os.path.join(self.index_storage_dir, index_id, str(self.rank), "cfg.json")
@@ -285,11 +463,19 @@ class IndexServer:
         distributions, ``"rpc"`` the wire encoding this rank is willing to
         speak (the use is per connection), ``"engine"`` each index's
         device-launch latencies, ``"mutation"`` each index's tombstone,
-        compaction and version counters."""
+        compaction and version counters, ``"replication"`` this rank's group
+        and ``"antientropy"`` the sweeper's counters, suspects and lease,
+        ``"process"`` this process's peak resident set."""
         out = self.perf.summary()
         if self.scheduler is not None:
             out["scheduler"] = self.scheduler.perf_stats()
         out["rpc"] = {"wire": "binary" if self._wire_enabled else "pickle"}
+        out["replication"] = {"rank": self.rank, "shard_group": self.shard_group,
+                              "last_transfer": self.last_transfer}
+        out["antientropy"] = (self._antientropy.stats() if self._antientropy is not None
+                              else {"enabled": False})
+        # ru_maxrss is in KiB on Linux
+        out["process"] = {"peak_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024}
         with self.indexes_lock:
             snapshot = list(self.indexes.items())
         out["engine"] = {iid: idx.perf_stats() for iid, idx in snapshot}
@@ -297,14 +483,27 @@ class IndexServer:
         return out
 
     def ping(self) -> dict:
+        """Liveness probe: this rank, its device, each index's state, and
+        ``kernels``, each kernel wrapper's launches in this process since it
+        started (0 on the CPU, where the wrappers run their plain
+        versions)."""
         with self.indexes_lock:
             snapshot = list(self.indexes.items())
         return {"rank": self.rank, "device": str(self.device),
-                "indexes": {iid: idx.get_state().name for iid, idx in snapshot}}
+                "indexes": {iid: idx.get_state().name for iid, idx in snapshot},
+                "kernels": {"flat_list_scan": flat_scan.flat_list_scan.launches,
+                            "adc_scan": adc_scan.adc_scan.launches,
+                            "adc_scan_nibble": adc_scan.adc_scan_nibble.launches,
+                            "adc_scan_lists": adc_scan.adc_scan_lists.launches,
+                            "adc_scan_shared": adc_scan.adc_scan_shared.launches}}
 
     def stop(self) -> None:
         logger.info("stopping server rank=%d", self.rank)
         self._stopping.set()
+        # first the sweeper: a heal mid-stop would race the saves for the
+        # engine locks (its dials are bounded, so the join is)
+        if self._antientropy is not None:
+            self._antientropy.stop()
         if self.socket is not None:
             try:
                 self.socket.shutdown(socket.SHUT_RDWR)
@@ -355,6 +554,7 @@ class IndexServer:
         if self.socket is None:
             self.bind(port, v6)
         s = self.socket
+        self._start_antientropy()
         logger.info("server rank=%d listening on :%d", self.rank, s.getsockname()[1])
         while not self._stopping.is_set():
             try:
@@ -398,6 +598,13 @@ class IndexServer:
         kind, payload, was_binary = reader.recv_frame_ex()
         if kind == rpc.KIND_CLOSE:
             raise rpc.ClientExit("client closed")
+        if kind == rpc.KIND_SHARD_FETCH:
+            # the bulk export and send must not occupy the reader
+            self._rpc_workers.submit(self._serve_shard_fetch, conn, state, payload)
+            return
+        if kind == rpc.KIND_DIGEST:
+            self._rpc_workers.submit(self._serve_digest, conn, state, payload)
+            return
         if kind != rpc.KIND_CALL:
             raise RuntimeError(f"unexpected frame kind {kind}")
         fname, args, kwargs = payload[:3]
@@ -549,6 +756,18 @@ class IndexServer:
         return os.path.join(base, str(self.rank))
 
 
+def _array_bytes(obj) -> int:
+    """Bytes of the ndarrays in a (nested) snapshot: the bulk of a shard
+    transfer, beside its pickled metadata."""
+    if isinstance(obj, np.ndarray):
+        return int(obj.nbytes)
+    if isinstance(obj, dict):
+        return sum(_array_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_array_bytes(v) for v in obj if isinstance(v, (np.ndarray, dict)))
+    return 0
+
+
 def main(argv=None):
     """Run one index server rank: python -m distributed_faiss_tpu_torch.parallel.server"""
     import argparse
@@ -559,10 +778,13 @@ def main(argv=None):
     parser.add_argument("--storage-dir", required=True)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--load-index", action="store_true")
+    parser.add_argument("--discovery", default=None,
+                        help="discovery file; enables the anti-entropy sweeper (its peers)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="[%(threadName)s] %(asctime)s [%(levelname)s] %(message)s")
-    server = IndexServer(args.rank, args.storage_dir, device=args.device)
+    server = IndexServer(args.rank, args.storage_dir, device=args.device,
+                         discovery_path=args.discovery)
     server.start_blocking(args.port, load_index=args.load_index)
 
 

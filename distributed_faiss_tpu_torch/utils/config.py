@@ -7,10 +7,10 @@
 ``to_json_string``) writes the same text as the JAX package, so a
 ``cfg.json`` written by either package loads in the other.
 
-``SchedulerCfg``, ``WireCfg``, ``MutationCfg`` and ``VersioningCfg`` read
-the same environment variables with the same defaults and validation. The
-other Cfg classes of the JAX package (mesh, replication, anti-entropy,
-tracing) belong to subsystems not ported yet.
+``SchedulerCfg``, ``WireCfg``, ``MutationCfg``, ``VersioningCfg``,
+``ReplicationCfg`` and ``AntiEntropyCfg`` read the same environment
+variables with the same defaults and validation. The other Cfg classes of
+the JAX package (mesh, tracing) belong to subsystems not ported yet.
 """
 
 import json
@@ -188,3 +188,75 @@ class VersioningCfg(_EnvCfg):
             raise ValueError(
                 "retain_generations must be >= 2 (the newest generation "
                 "plus its crash-fallback predecessor are always kept)")
+
+
+class ReplicationCfg(_EnvCfg):
+    """Shard-replication knobs, read by the client: the replica count of
+    each logical shard group, the write quorum (0 = majority), the bound
+    on the under-replicated repair queue and the period of the optional
+    repair loop (0 = off)."""
+
+    _SCHEMA = {
+        # replicas per group; 1 is one owner per shard
+        "replication": (int, "DFT_REPLICATION", 1),
+        # acks before a write reports success; 0 = majority (R // 2 + 1)
+        "write_quorum": (int, "DFT_WRITE_QUORUM", 0),
+        # records hold the batch payload, so this caps a client's memory
+        "repair_queue_len": (int, "DFT_REPAIR_QUEUE", 256),
+        # seconds between passes of the repair thread; 0 = no thread
+        "repair_interval_s": (float, "DFT_REPAIR_INTERVAL", 0.0),
+    }
+    _KIND = "replication"
+
+    def _validate(self) -> None:
+        if self.replication < 1:
+            raise ValueError("replication must be >= 1")
+        if self.write_quorum < 0:
+            raise ValueError("write_quorum must be >= 0 (0 = majority)")
+        if self.write_quorum > self.replication:
+            raise ValueError(
+                f"write_quorum {self.write_quorum} cannot exceed the "
+                f"replication factor {self.replication}")
+        if self.repair_queue_len < 1:
+            raise ValueError("repair_queue_len must be >= 1")
+        if self.repair_interval_s < 0:
+            raise ValueError("repair_interval_s must be >= 0 (0 = off)")
+
+
+class AntiEntropyCfg(_EnvCfg):
+    """Server-side anti-entropy knobs, per rank: the sweeper's switch and
+    period, the failure detector's threshold, the compaction lease's
+    liveness window, the delta-versus-full-sync bound, the digest exchange
+    deadline and the minimum age of a prunable deletion-ledger entry."""
+
+    _SCHEMA = {
+        # the sweeper also needs a discovery file to resolve its peers
+        "enabled": (bool, "DFT_ANTIENTROPY", True),
+        "interval_s": (float, "DFT_ANTIENTROPY_INTERVAL", 2.0),
+        # consecutive failed digest round trips before a peer is suspect
+        "suspect_after": (int, "DFT_SUSPECT_AFTER", 3),
+        # a peer silent longer than this stops counting for the lease
+        "lease_ttl_s": (float, "DFT_COMPACT_LEASE_TTL", 10.0),
+        # more missing rows than this heal by a full shard transfer
+        "delta_max_rows": (int, "DFT_ANTIENTROPY_DELTA_MAX", 1024),
+        "exchange_timeout_s": (float, "DFT_ANTIENTROPY_TIMEOUT", 5.0),
+        # a client's repair queue may replay a pre-delete add this long
+        # after the delete; younger ledger entries are never pruned
+        "ledger_prune_age_s": (float, "DFT_LEDGER_PRUNE_AGE_S", 600.0),
+    }
+    _KIND = "antientropy"
+
+    def _validate(self) -> None:
+        if self.interval_s <= 0:
+            raise ValueError("antientropy interval must be > 0 seconds")
+        if self.suspect_after < 1:
+            raise ValueError("suspect_after must be >= 1")
+        if self.lease_ttl_s <= 0:
+            raise ValueError("lease_ttl_s must be > 0 seconds")
+        if self.delta_max_rows < 1:
+            raise ValueError("delta_max_rows must be >= 1")
+        if self.exchange_timeout_s <= 0:
+            raise ValueError("exchange_timeout_s must be > 0 seconds")
+        if self.ledger_prune_age_s < 0:
+            raise ValueError("ledger_prune_age_s must be >= 0 (0 = no "
+                             "age bound)")

@@ -73,6 +73,37 @@ def sha256_file(path: str, chunk_bytes: int = 1 << 20) -> str:
     return h.hexdigest()
 
 
+def _canon(v):
+    """A metadata value in a form whose ``repr`` is the same in every
+    process: sets sort (their order follows string-hash randomization) and
+    leaves other than basic types reduce to ``str`` (numpy scalars' repr
+    changed between numpy 1 and 2)."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, (tuple, list)):
+        return tuple(_canon(e) for e in v)
+    if isinstance(v, (set, frozenset)):
+        return ("set",) + tuple(sorted((_canon(e) for e in v), key=repr))
+    if isinstance(v, dict):
+        return ("dict",) + tuple(sorted(
+            ((_canon(k), _canon(val)) for k, val in v.items()), key=repr))
+    return str(v)
+
+
+def row_payload_hash(embeddings, metadata, versions) -> str:
+    """sha256 of one anti-entropy row chunk: the float32 embedding plane and
+    the canonical metadata and version lists. The exporting engine sends it
+    beside the rows and the pulling sweeper recomputes it over what arrived
+    before applying anything (the JAX package's hash, byte for byte)."""
+    h = hashlib.sha256()
+    a = np.ascontiguousarray(np.asarray(embeddings, np.float32))
+    h.update(str(a.shape).encode("utf-8"))
+    h.update(a.tobytes())
+    h.update(repr([_canon(m) for m in metadata]).encode("utf-8"))
+    h.update(repr([_canon(v) for v in versions]).encode("utf-8"))
+    return h.hexdigest()
+
+
 def generation_filename(key: str, gen: int, ext: str) -> str:
     return f"{key}-g{gen:08d}.{ext}"
 

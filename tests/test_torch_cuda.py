@@ -33,7 +33,10 @@ pickle-only client with the same results, its searches launching K1.
 Last, tombstoned lists: K1 and K3 over lists in which whole 256-row tiles
 are -1, the flat-PQ path (K4) with a chunk of the list that is wholly -1,
 and indexes compacted to capacities that are no multiple of 256, each
-against the plain versions or the CPU.
+against the plain versions or the CPU. Then replication: an ``ivfsq`` and
+a ``knnlm`` snapshot moved from one card engine to another (served through
+K1 and K3 over the lists with the donor's ids), and a delta heal between
+two card ranks of one group in one process (equal digests, K1 launched).
 """
 
 import numpy as np
@@ -763,3 +766,113 @@ def test_compacted_index_on_card_matches_plain(card, spec):
             got = adc_scan.adc_scan(lut, codes)
             want = adc_scan.adc_scan_plain(lut, codes)
     assert_scores_match(got, want, 1e-4, 1e-4)
+
+
+# ------------------------------------------------------------ replication
+
+
+def _card_engine(storage, kind, device, **kw):
+    from distributed_faiss_tpu_torch.engine import Index
+
+    cfg = IndexCfg(index_builder_type=kind, dim=32, metric="l2", train_num=2000,
+                   centroids=16, nprobe=4, index_storage_dir=storage, **kw)
+    return Index(cfg, device)
+
+
+def _wait_drained(e, n, timeout=120.0):
+    import time
+
+    from distributed_faiss_tpu_torch.utils.state import IndexState
+
+    deadline = time.time() + timeout
+    while not (e.get_state() == IndexState.TRAINED and e.get_idx_data_num() == (0, n)):
+        assert time.time() < deadline, "engine never drained"
+        time.sleep(0.05)
+
+
+@pytest.mark.parametrize("kind,kw,wrapper", [
+    ("ivfsq", {}, flat_scan.flat_list_scan),
+    ("knnlm", {"code_size": 8}, adc_scan.adc_scan_lists)])
+def test_snapshot_moves_between_card_engines(card, tmp_path, monkeypatch, kind, kw, wrapper):
+    """A card engine exports a snapshot after a few deletes; a fresh card
+    engine imports it (a generation committed in its own dir) and serves the
+    donor's ids through the same kernel (K1, or K3 over the lists)."""
+    from distributed_faiss_tpu_torch.engine import Index
+
+    monkeypatch.setenv("DFT_COMPACT", "0")
+    x, q = correlated_corpus(11, n=4000)
+    donor = _card_engine(str(tmp_path / "donor"), kind, card, **kw)
+    donor.add_batch(x, [(i,) for i in range(x.shape[0])], train_async_if_triggered=False)
+    _wait_drained(donor, x.shape[0])
+    donor.remove_ids(list(range(0, 4000, 9)))
+    got = Index.import_snapshot(donor.export_snapshot(), str(tmp_path / "joined"), device=card)
+    try:
+        _wait_drained(got, x.shape[0])
+        want = donor.search(q, 10)
+        before = wrapper.launches
+        res = got.search(q, 10)
+        assert wrapper.launches > before
+        assert res[1] == want[1]
+        np.testing.assert_allclose(res[0], want[0], rtol=1e-5, atol=1e-5)
+        assert got.replica_digest() == donor.replica_digest()
+        assert got.current_generation() >= 1 and str(got.device).startswith("cuda")
+    finally:
+        got.retire()
+        donor.retire()
+
+
+def test_delta_heal_between_two_card_ranks(card, tmp_path, monkeypatch):
+    """Two card ranks of one group in one process: the empty one joins by a
+    full transfer, then rows and deletes land on the other only and its
+    sweep pulls them as a delta; the digests end equal, no deleted id is
+    served, and the healed rank's searches launch K1."""
+    import socket
+    import threading
+
+    from distributed_faiss_tpu_torch.parallel.server import IndexServer
+    from distributed_faiss_tpu_torch.utils.config import AntiEntropyCfg
+
+    monkeypatch.setenv("DFT_COMPACT", "0")
+    monkeypatch.setenv("DFT_SHARD_GROUP", "0")
+    ports = []
+    for _ in range(2):
+        s = socket.socket()
+        s.bind(("", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    disc = tmp_path / "disc.txt"
+    disc.write_text("2\n" + "".join(f"localhost,{p}\n" for p in ports))
+    servers = []
+    for rank, port in enumerate(ports):
+        srv = IndexServer(rank, str(tmp_path / "store"), device=card, discovery_path=str(disc),
+                          antientropy_cfg=AntiEntropyCfg(interval_s=600))
+        srv.bind(port)
+        threading.Thread(target=srv.start_blocking, daemon=True).start()
+        servers.append(srv)
+    a, b = servers
+    try:
+        x, q = correlated_corpus(13, n=5000)
+        a.create_index("h", IndexCfg(index_builder_type="ivfsq", dim=32, metric="l2",
+                                     train_num=2000, centroids=16, nprobe=16))
+        a.add_index_data("h", x[:4000], [(i,) for i in range(4000)], False, version=(1, 0, 1))
+        _wait_drained(a.indexes["h"], 4000)
+        assert any(h.get("full_sync") for h in b._antientropy.sweep_once()["healed"])
+        a.add_index_data("h", x[4000:], [(i,) for i in range(4000, 5000)], False,
+                         version=(2, 0, 1))
+        a.remove_ids("h", list(range(0, 5000, 7)), version=(3, 0, 1))
+        _wait_drained(a.indexes["h"], 5000)
+        healed = [h for h in b._antientropy.sweep_once()["healed"] if h["index_id"] == "h"]
+        assert healed and healed[0]["pulled"] == 1000 - len(range(4004, 5000, 7))
+        _wait_drained(b.indexes["h"], 5000 - len(range(4004, 5000, 7)))
+        assert b.indexes["h"].replica_digest() == a.indexes["h"].replica_digest()
+        before = flat_scan.flat_list_scan.launches
+        got = b.search("h", q, 10)
+        assert flat_scan.flat_list_scan.launches > before
+        served = {m[0] for row in got[1] for m in row if m is not None}
+        assert not served & set(range(0, 5000, 7))
+        want = a.search("h", q, 10)
+        same = sum(set(r1) == set(r2) for r1, r2 in zip(got[1], want[1])) / len(got[1])
+        assert same >= 0.95
+    finally:
+        for srv in servers:
+            srv.stop()

@@ -30,7 +30,11 @@ print(len(names), bad, ",".join(names))
 _NAMED = ("distributed_faiss_tpu_torch.parallel.wire",
           "distributed_faiss_tpu_torch.utils.batching",
           "distributed_faiss_tpu_torch.models.hnsw",
-          "distributed_faiss_tpu_torch.mutation.tombstones")
+          "distributed_faiss_tpu_torch.mutation.tombstones",
+          "distributed_faiss_tpu_torch.parallel.replication",
+          "distributed_faiss_tpu_torch.parallel.antientropy",
+          "distributed_faiss_tpu_torch.parallel.launcher",
+          "distributed_faiss_tpu_torch.testing.chaos")
 
 
 def test_port_modules_import_without_jax():
