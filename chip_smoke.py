@@ -134,8 +134,41 @@ e. Mutation: on phase 3's index, ``save_index`` and ``pin_generations``;
    (>= 0.95 on knnlm, logged on PQ64,RFlat), and the knnlm index
    compacted with the same ids. Every index's metadata is ``(row,)``: the
    id sits at ``custom_meta_id_idx`` 0.
+g. Observability, the serial client, the selector loop and link faults,
+   on the same two servers:
+   1. Traced serving on the ``ivfsq`` (K1) and ``knnlm`` (K3 over the
+      lists) indexes, at nprobe 1 and 32: ``TRACE_PAIRS`` (4) pairs of
+      ``TRACE_QUERIES``-query runs (2000, 100-row requests from 8 threads)
+      with DFT_TRACE_SAMPLE at 0 and 1 in this process, the first side
+      alternating: identical ids, each side's median QPS (the tracing
+      cost, a reading). Then one more traced run under torch.profiler:
+      every request's merged timeline holds the seven spans
+      (``SPAN_NAMES``), queue + device + write <= client.rpc <=
+      client.search within ``CLOCK_SLACK_S``, the median split (queue,
+      device, launch, write, the rest of the wire) is logged, and the
+      run's distinct windows' server.device time must be at least the scan
+      kernel's device time in the profile. The server's e2e_s p99
+      exemplar (``get_perf_stats(raw=True)``; the slowest bucket's
+      exemplar when the p99 of the server's whole life has none) is
+      fetched with ``get_trace_spans`` and checked the same way.
+   2. Phase 3's server, built with a metrics listener on a free port:
+      ``GET /metrics`` answers 200 with ``_bucket{le="`` series and the
+      engine's device_search_s count of ``get_perf_stats``; dfstat's stats
+      view and its ``--trace`` view of the exemplar exit 0.
+   3. A second server runs the selector loop (``IndexServer.start`` in a
+      thread) over phase 3's storage; ``--nq`` queries from 8 threads in
+      four arms, {threaded, selector} x {mux, serial} (DFT_RPC_MUX at each
+      client's construction): identical ids, QPS and p50/p99 of each, K1
+      launched and the calls counted by dialect on each server.
+   4. A ``ChaosProxy`` in front of phase 3's server: latency 0.05 s (an
+      ``IndexClient`` over a discovery file naming the proxy: the same ids,
+      each search >= 0.05 s); a reset on the redial healed by the
+      ``RetryPolicy``; garble, cut and garble-down: the first call fails
+      with a transport error (or answers) and the next connection serves
+      the same ids; a blackhole under a 1 s deadline fails within the
+      deadline + ``DEADLINE_GRACE`` + 0.25 s.
 
-After phase e, its servers closed:
+After phase g, its servers closed:
 
 f. Replicas: phase 3's corpus and cfg on ``REPLICA_RANKS`` (4) rank
    processes on the card (the port's ``ServerHarness``, ``--device cuda
@@ -160,10 +193,12 @@ f. Replicas: phase 3's corpus and cfg on ``REPLICA_RANKS`` (4) rank
    K1 launches rising; ``--nq`` queries served healed; who holds each
    group's compaction lease (``get_health``).
 
-Before each of phases 3-8, a-d and each part of e every kernel's launch
-count is zeroed (phase b reads none), and it is read after the phase: K1
-must have launched on the ivfsq path, the surface index, the direct path
-and the ivfsq part of phase e, K3 on the knnlm path through
+Before each of phases 3-8, a-d and each part of e and g every kernel's
+launch count is zeroed (phase b reads none), and it is read after the
+phase: K1 must have launched on the ivfsq path, the surface index, the
+direct path, the ivfsq part of phase e and each ivfsq part of phase g
+(each nprobe of part 1, parts 2-4), K3 over the lists on phase g's knnlm
+part, K3 on the knnlm path through
 ``adc_scan_lists`` (and neither K2 nor K4: the dispatch is fixed by the
 geometry) and on phase e's knnlm part, K2 on the K2 path, K4 on the
 flat-PQ path (and neither K2 nor K3), the pre-transform path, the wide
@@ -177,6 +212,7 @@ printing any result.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -680,7 +716,7 @@ class Serving:
     """One port IndexServer on a loopback port, serving from a thread, and
     an IndexClient over a discovery file under ``work``; closed on exit."""
 
-    def __init__(self, work: str, store: str = None, scheduler_cfg=None):
+    def __init__(self, work: str, store: str = None, scheduler_cfg=None, tracing_cfg=None):
         from distributed_faiss_tpu_torch.parallel.client import IndexClient
         from distributed_faiss_tpu_torch.parallel.server import IndexServer
 
@@ -688,8 +724,9 @@ class Serving:
         os.makedirs(work)
         self.work = work
         self.store = store or os.path.join(work, "store")
-        self.server = IndexServer(0, self.store, scheduler_cfg=scheduler_cfg, device="cuda")
-        port = self.server.bind(0)
+        self.server = IndexServer(0, self.store, scheduler_cfg=scheduler_cfg, device="cuda",
+                                  tracing_cfg=tracing_cfg)
+        self.port = port = self.server.bind(0)
         self.thread = threading.Thread(target=self.server.start_blocking,
                                        name="smoke-server", daemon=True)
         self.thread.start()
@@ -820,10 +857,10 @@ def save_drop_load(client, iid: str, q_eval: np.ndarray, nprobe: int, what: str)
 
 def ivfsq_path(args, counters, card: str) -> dict:
     """Phase 3: the Quickstart shard on the ivfsq builder (K1). Its server
-    (``out["serving"]``, closed by the caller) stays up for phases b and c,
-    and the corpus's first 200,000 rows and the queries are kept for
-    phases a and d."""
-    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+    (``out["serving"]``, closed by the caller, with a metrics listener on a
+    free port) stays up for phases b, c, e and g, and the corpus's first
+    200,000 rows and the queries are kept for phases a and d."""
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg, TracingCfg
 
     d, n, what = 128, args.n, "ivfsq"
     rng = np.random.default_rng(args.seed)
@@ -834,7 +871,8 @@ def ivfsq_path(args, counters, card: str) -> dict:
     q_eval = q_all[:1000]
     log(f"{what}: made {n} x {d} corpus and {args.nq} queries in "
         f"{time.perf_counter() - t0:.2f} s (seed {args.seed})")
-    s = Serving(os.path.join(REPO, "build", "chip_smoke"))
+    s = Serving(os.path.join(REPO, "build", "chip_smoke"),
+                tracing_cfg=TracingCfg(metrics_port=free_base(1)))
     try:
         iid = "quickstart"
         cfg = IndexCfg(index_builder_type="ivfsq", dim=d, metric="l2", train_num=100_000,
@@ -990,7 +1028,7 @@ def knnlm_path(args, counters, card: str) -> dict:
     except BaseException:
         s.close()
         raise
-    out.update(serving=s, x=x, q_eval=q_eval)
+    out.update(serving=s, x=x, q_eval=q_eval, q_all=q_all, nprobe=nprobe)
     return out
 
 
@@ -1199,7 +1237,7 @@ def host_stats(client) -> dict:
     sections = [("server", {k: v for k, v in stats.items() if isinstance(v, dict)
                             and "count" in v}),
                 ("scheduler", stats.get("scheduler", {}).get("queues", {})),
-                ("client-rpc", stats.get("rpc_client", {}))]
+                ("client-rpc", stats.get("rpc", {}).get("client", {}))]
     sections += [(f"engine[{iid}]", v) for iid, v in stats.get("engine", {}).items()]
     for layer, ops in sections:
         for op, v in ops.items():
@@ -1626,6 +1664,392 @@ def mutation_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
         if row["counts"][kernel] <= 0:
             raise AssertionError(f"{what}: {kernel} was not launched in this phase")
         out[iid] = row
+    return out
+
+
+# ---------------------------------------------------------------- phase g
+
+# traced serving: pairs of runs with DFT_TRACE_SAMPLE at 0 and 1 in this
+# process, each of TRACE_QUERIES queries, at both nprobes
+TRACE_PAIRS = 4
+TRACE_QUERIES = 2000
+TRACE_NPROBES = (1, 32)
+SPAN_NAMES = ("client.search", "client.pack", "client.rpc", "server.queue", "server.device",
+              "engine.launch", "server.write")
+SERVER_STAGES = ("server.queue", "server.device", "server.write")
+# the durations compared come from two monotonic clocks of one host
+# (perf_counter, monotonic) read on several threads
+CLOCK_SLACK_S = 1e-3
+# the CUDA symbol of each traced path's scan kernel, for the profiler
+KERNEL_SYMBOLS = {"K1": "flat_scan_kernel", "K3 lists": "adc_scan_lists_kernel"}
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """``os.environ[name] = value`` for the block, restored after."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
+
+
+def trace_timeline(client, tid: str, timeout: float = 30.0) -> list:
+    """The merged timeline of ``tid`` once the server's write span, which
+    the server records after its send, has landed."""
+    deadline = time.monotonic() + timeout
+    while True:
+        timeline = client.get_trace_spans(tid)
+        if {"server.write", "client.search"} <= {s["name"] for s in timeline}:
+            return timeline
+        if time.monotonic() > deadline:
+            raise AssertionError(f"trace {tid}: spans {sorted({s['name'] for s in timeline})}")
+        time.sleep(0.01)
+
+
+def request_split(timeline: list, what: str) -> dict:
+    """One traced request's ms by stage: queue, device, launch, write, the
+    rest of the wire (client.rpc less the three server stages) and the
+    whole (client.search); raises when the stages do not nest."""
+    by = {}
+    for s in timeline:
+        by.setdefault(s["name"], []).append(s)
+    missing = [n for n in SPAN_NAMES if n not in by]
+    if missing:
+        raise AssertionError(f"{what}: the trace lacks {missing}")
+    dur = {n: max(s["dur_s"] for s in by[n]) for n in SPAN_NAMES}
+    stages = sum(dur[n] for n in SERVER_STAGES)
+    if stages > dur["client.rpc"] + CLOCK_SLACK_S or \
+            dur["client.rpc"] > dur["client.search"] + CLOCK_SLACK_S:
+        raise AssertionError(f"{what}: queue + device + write {stages:.6f} s, client.rpc "
+                             f"{dur['client.rpc']:.6f} s, client.search "
+                             f"{dur['client.search']:.6f} s do not nest")
+    return dict(queue_ms=dur["server.queue"] * 1e3, device_ms=dur["server.device"] * 1e3,
+                launch_ms=dur["engine.launch"] * 1e3, write_ms=dur["server.write"] * 1e3,
+                wire_ms=(dur["client.rpc"] - stages) * 1e3,
+                search_ms=dur["client.search"] * 1e3,
+                window=by["server.device"][0]["extra"]["window"],
+                device_s=dur["server.device"])
+
+
+def fmt_split(split: dict) -> str:
+    return ", ".join(f"{k[:-3]} {split[k]:.3f} ms" for k in
+                     ("queue_ms", "device_ms", "launch_ms", "write_ms", "wire_ms", "search_ms"))
+
+
+def kernel_device_ms(prof, symbol: str) -> tuple:
+    """(launches, summed device ms) of the profiled kernels named ``symbol``."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and symbol in e.name]
+    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+def traced_serving(path: dict, counters, card: str) -> dict:
+    """Phase g part 1 on one path: at each nprobe, TRACE_PAIRS pairs of
+    runs untraced and traced (the first side alternating) with identical
+    ids; then one more traced run under torch.profiler, every request's
+    timeline fetched: the seven spans, their nesting, the median split, and
+    the distinct windows' server.device time against the scan kernel's
+    device time in the same run. Finally the p99 exemplar of the server's
+    e2e_s is fetched and checked the same way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_faiss_tpu_torch.observability import spans as obs_spans
+
+    what, client, iid, q, kernel = (path["what"], path["client"], path["iid"], path["q"],
+                                    path["kernel"])
+    out = {}
+    for nprobe in TRACE_NPROBES:
+        client.set_nprobe(iid, nprobe)
+        with env_set("DFT_TRACE_SAMPLE", "0"):
+            serve_queries(client, q[:1000], iid, 100, 8)  # warm at this nprobe
+        zero_counts(counters)
+        qps, ids = {"0": [], "1": []}, None
+        for pair in range(TRACE_PAIRS):
+            for rate in (("0", "1") if pair % 2 == 0 else ("1", "0")):
+                with env_set("DFT_TRACE_SAMPLE", rate):
+                    wall, _lat, results = serve_queries(client, q, iid, 100, 8)
+                for D, meta in results:
+                    check_result(D, meta, 100, 10, f"{what} traced={rate} search")
+                metas = [m for _d, m in results]
+                if ids is None:
+                    ids = metas
+                elif metas != ids:
+                    raise AssertionError(f"{what} nprobe={nprobe}: ids of the traced and "
+                                         "untraced runs differ")
+                qps[rate].append(q.shape[0] / wall)
+        t_lo = time.time()
+        windows0 = client.get_perf_stats()[0]["scheduler"]["counters"]["batches"]
+        with env_set("DFT_TRACE_SAMPLE", "1"), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall, _lat, results = serve_queries(client, q, iid, 100, 8)
+            torch.cuda.synchronize()
+        windows = client.get_perf_stats()[0]["scheduler"]["counters"]["batches"] - windows0
+        if [m for _d, m in results] != ids:
+            raise AssertionError(f"{what} nprobe={nprobe}: the profiled run's ids differ")
+        counts = read_counts(counters)
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{what}: {kernel} was not launched in the traced runs")
+        tids = [s["trace_id"] for s in obs_spans.local_buffer().snapshot()
+                if s["name"] == "client.search" and s["start_s"] >= t_lo]
+        if len(tids) != len(results):
+            raise AssertionError(f"{what}: {len(tids)} traced searches for {len(results)} "
+                                 "requests")
+        splits = [request_split(trace_timeline(client, t), f"{what} request") for t in tids]
+        med = {k: float(np.median([s[k] for s in splits])) for k in splits[0]
+               if k.endswith("_ms")}
+        device_by_window = {s["window"]: s["device_s"] for s in splits}
+        device_ms = sum(device_by_window.values()) * 1e3
+        k_launches, k_ms = kernel_device_ms(prof, KERNEL_SYMBOLS[kernel])
+        if k_launches == 0:
+            raise AssertionError(f"{what}: the profiler recorded no {kernel} kernel")
+        if device_ms < k_ms:
+            raise AssertionError(f"{what}: server.device over {len(device_by_window)} windows "
+                                 f"{device_ms:.3f} ms < the {kernel} device time {k_ms:.3f} ms")
+        med_qps = {r: float(np.median(v)) for r, v in qps.items()}
+        log(f"{what} traced serving, nprobe={nprobe}: {TRACE_PAIRS} pairs of "
+            f"{q.shape[0]}-query runs, median QPS untraced {med_qps['0']:.1f}, traced "
+            f"{med_qps['1']:.1f} (traced/untraced {med_qps['1'] / med_qps['0']:.4f}; all "
+            f"QPS {qps}); identical ids; launches {counts}, on {card}")
+        log(f"{what} request split, nprobe={nprobe} (median of {len(splits)} traced "
+            f"100-row requests): {fmt_split(med)}; {len(device_by_window)} windows "
+            f"({windows} counted by the scheduler): server.device {device_ms:.3f} ms >= "
+            f"{kernel} device time {k_ms:.3f} ms in {k_launches} launches "
+            f"({100 * k_ms / device_ms:.1f}%), on {card}")
+        out[nprobe] = dict(qps=med_qps, split=med, device_ms=device_ms, kernel_ms=k_ms,
+                           kernel_launches=k_launches, windows=len(device_by_window))
+    raw = client.sub_indexes[0].generic_fun("get_perf_stats", (), {"raw": True})
+    e2e = raw["scheduler"]["queues"]["e2e_s"]
+    exemplar, which = e2e.get("p99_exemplar"), "p99_exemplar"
+    if exemplar is None:
+        # the tail of this server's whole life may predate every sampled
+        # request: take the slowest bucket that holds one
+        if not e2e["exemplars"]:
+            raise AssertionError(f"{what}: e2e_s holds no exemplar")
+        exemplar, which = e2e["exemplars"][max(e2e["exemplars"])], "slowest exemplar"
+    timeline = trace_timeline(client, exemplar)
+    split = request_split(timeline, f"{what} exemplar")
+    log(f"{what}: {which} {exemplar} of e2e_s (p99 {e2e['p99_s'] * 1e3:.3f} ms): spans "
+        f"{sorted({s['name'] for s in timeline})}; {fmt_split(split)}, on {card}")
+    out["exemplar"] = exemplar
+    return out
+
+
+def metrics_and_dfstat(sq: dict, exemplar: str, counters) -> None:
+    """Phase g part 2 on phase 3's server: /metrics and dfstat."""
+    import io
+    import urllib.request
+
+    from distributed_faiss_tpu_torch.observability import dfstat
+
+    s, iid, what = sq["serving"], sq["iid"], "metrics"
+    zero_counts(counters)
+    check_requests(s.client, iid, sq["q_all"], what)
+    port = s.client.get_perf_stats()[0]["tracing"]["metrics_port"]
+    count = s.client.get_perf_stats()[0]["engine"][iid]["device_search_s"]["count"]
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+        status, body = resp.status, resp.read().decode()
+    line = f'dft_engine_{iid}_device_search_s_count{{rank="0"}} {count}'
+    buckets = sum('_bucket{le="' in ln for ln in body.splitlines())
+    log(f"{what}: GET /metrics on :{port} answered {status}, {len(body)} bytes, "
+        f"{buckets} _bucket series; engine device_search_s count {count} in both")
+    if status != 200 or not buckets or line not in body.splitlines():
+        raise AssertionError(f"{what}: /metrics lacks '{line}' or its buckets")
+    for argv, needed in ((["--discovery", s.disc, "--count", "1"], ("srch/s",)),
+                         (["--discovery", s.disc, "--trace", exemplar],
+                          SERVER_STAGES + ("engine.launch",))):
+        buf = io.StringIO()
+        rc = dfstat.main(argv, out=buf)
+        text = buf.getvalue()
+        for ln in text.splitlines():
+            log(f"dfstat {argv[2:]}: {ln}")
+        if rc != 0 or not all(n in text for n in needed):
+            raise AssertionError(f"dfstat {argv[2:]} exited {rc} or lacks {needed}")
+    if read_counts(counters)["K1"] <= 0:
+        raise AssertionError(f"{what}: K1 was not launched in this part")
+
+
+def loops_and_dialects(sq: dict, counters, card: str) -> dict:
+    """Phase g part 3: a second server running the selector loop over phase
+    3's storage, and the four arms {threaded, selector} x {mux, serial},
+    each ``--nq`` queries from 8 threads: identical ids, K1 on both."""
+    from distributed_faiss_tpu_torch.parallel.client import IndexClient
+    from distributed_faiss_tpu_torch.parallel.server import IndexServer
+
+    s, iid, q_all, nprobe = sq["serving"], sq["iid"], sq["q_all"], sq["nprobe"]
+    selector = IndexServer(0, s.store, device="cuda")
+    port = selector.bind(0)
+    thread = threading.Thread(target=selector.start, name="smoke-selector", daemon=True)
+    thread.start()
+    disc = os.path.join(s.work, "discovery_selector.txt")
+    with open(disc, "w") as f:
+        f.write(f"1\nlocalhost,{port}\n")
+    servers = {"threaded": s.server, "selector": selector}
+    clients, out = {}, {}
+    try:
+        for loop, path in (("threaded", s.disc), ("selector", disc)):
+            for dialect in ("mux", "serial"):
+                with env_set("DFT_RPC_MUX", "1" if dialect == "mux" else "0"):
+                    clients[(loop, dialect)] = IndexClient(path)
+        t0 = time.perf_counter()
+        if not clients[("selector", "mux")].load_index(iid):
+            raise AssertionError("selector: load_index of phase 3's snapshot failed")
+        log(f"selector: loaded phase 3's index on the selector-loop server in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for c in clients.values():
+            c.cfg = s.client.cfg
+        s.client.set_nprobe(iid, nprobe)
+        clients[("selector", "mux")].set_nprobe(iid, nprobe)
+        ids = None
+        for (loop, dialect), c in clients.items():
+            what = f"{loop} loop, {dialect} client"
+            if c.sub_indexes[0].rpc_stats()["mux"] != (dialect == "mux"):
+                raise AssertionError(f"{what}: the stub is not {dialect}")
+            serve_queries(c, q_all[:1000], iid, 100, 8)  # warm
+            rpc0 = servers[loop].get_perf_stats()["rpc"]
+            dev0 = servers[loop].indexes[iid].perf_stats()["device_search_s"]["count"]
+            zero_counts(counters)
+            qps, p50, p99, metas = timed_serve(c, q_all, iid, what, card)
+            counts = read_counts(counters)
+            rpc1 = servers[loop].get_perf_stats()["rpc"]
+            dev1 = servers[loop].indexes[iid].perf_stats()["device_search_s"]["count"]
+            served = rpc1[f"{'mux' if dialect == 'mux' else 'legacy'}_calls"] - \
+                rpc0[f"{'mux' if dialect == 'mux' else 'legacy'}_calls"]
+            if ids is None:
+                ids = metas
+            elif metas != ids:
+                raise AssertionError(f"{what}: ids differ from the first arm's")
+            if counts["K1"] <= 0 or dev1 <= dev0:
+                raise AssertionError(f"{what}: K1 was not launched on this server")
+            if served < q_all.shape[0] // 100:
+                raise AssertionError(f"{what}: the server counted {served} calls of this "
+                                     "dialect")
+            log(f"{what}: {dev1 - dev0} engine launches, {served} {dialect} calls; "
+                f"launches {counts}")
+            out[f"{loop}/{dialect}"] = dict(qps=qps, p50_ms=p50, p99_ms=p99)
+    finally:
+        for c in clients.values():
+            c.close()
+        selector.stop()
+        thread.join(timeout=30)
+    log(f"loops x dialects: identical ids in all four arms; {out}, on {card}")
+    return out
+
+
+def link_faults(sq: dict, counters, card: str) -> dict:
+    """Phase g part 4: a ChaosProxy in front of phase 3's server."""
+    from distributed_faiss_tpu_torch.parallel import rpc
+    from distributed_faiss_tpu_torch.parallel.client import IndexClient
+    from distributed_faiss_tpu_torch.testing.chaos import ChaosProxy, Fault
+
+    s, iid, q = sq["serving"], sq["iid"], sq["q_all"][:100]
+    zero_counts(counters)
+    _d, want, _e = s.client.sub_indexes[0].generic_fun("search", (iid, q, 10))
+    out = {}
+    with ChaosProxy("127.0.0.1", s.port) as proxy:
+        proxy.set_fault(Fault("latency", delay=0.05, direction="up"))
+        disc = os.path.join(s.work, "discovery_proxy.txt")
+        with open(disc, "w") as f:
+            f.write(f"1\nlocalhost,{proxy.port}\n")
+        c = IndexClient(disc)
+        try:
+            c.cfg = s.client.cfg
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                _d, meta = c.search(q, 10, iid)
+                times.append(time.perf_counter() - t0)
+                if meta != want:
+                    raise AssertionError("latency: ids differ through the proxy")
+            rt = c.sub_indexes[0].rpc_stats()["round_trip_s"]
+        finally:
+            c.close()
+    if min(times) < 0.05:
+        raise AssertionError(f"latency: a search took {min(times):.4f} s < the 0.05 s injected")
+    out["latency_s"] = times
+    log(f"link latency 0.05 s: 5 searches through the proxy, same ids, "
+        f"{min(times):.4f}-{max(times):.4f} s each; stub round trips p50 "
+        f"{rt.get('p50_s', 0) * 1e3:.3f} ms")
+
+    with ChaosProxy("127.0.0.1", s.port, plan=[None, Fault("reset")]) as proxy:
+        stub = rpc.Client(0, "localhost", proxy.port)
+        try:
+            stub.sock.shutdown(socket.SHUT_RDWR)  # the live connection dies
+            policy = rpc.RetryPolicy(max_attempts=4, base_delay=0.05, jitter=0.0)
+            meta = policy.run(stub.generic_fun, "search", (iid, q, 10))[1]
+            seen = proxy.connections_seen()
+        finally:
+            stub.close()
+    if meta != want or seen < 3:
+        raise AssertionError(f"reset: ids differ or the retry did not redial ({seen})")
+    log(f"link reset: the retry redialed through the RST ({seen} connections) to the same "
+        "ids")
+
+    faults = {"garble": Fault("garble", after_bytes=2, nbytes=6, direction="up"),
+              "cut": Fault("cut", after_bytes=7, direction="up"),
+              "garble-down": Fault("garble", after_bytes=0, nbytes=4, direction="down")}
+    for name, fault in faults.items():
+        with ChaosProxy("127.0.0.1", s.port, plan=[fault]) as proxy:
+            stub = rpc.Client(0, "localhost", proxy.port)
+            try:
+                try:
+                    first = stub.generic_fun("search", (iid, q, 10), timeout=30.0)[1]
+                    outcome = "answered"
+                except rpc.TRANSPORT_ERRORS as e:
+                    first, outcome = None, type(e).__name__
+                meta = stub.generic_fun("search", (iid, q, 10), timeout=30.0)[1]
+            finally:
+                stub.close()
+        if meta != want or first not in (None, want):
+            raise AssertionError(f"{name}: the next connection served other ids")
+        _d, direct, _e = s.client.sub_indexes[0].generic_fun("search", (iid, q, 10))
+        if direct != want:
+            raise AssertionError(f"{name}: the server serves other ids after the fault")
+        out[name] = outcome
+        log(f"link {name}: first call {outcome}; the next connection served the same ids")
+
+    with ChaosProxy("127.0.0.1", s.port, plan=[Fault("blackhole")]) as proxy:
+        stub = rpc.Client(0, "localhost", proxy.port)
+        t0 = time.perf_counter()
+        try:
+            stub.generic_fun("search", (iid, q, 10), deadline=time.time() + 1.0)
+        except (rpc.DeadlineExceeded,) + rpc.TRANSPORT_ERRORS as e:
+            took, err = time.perf_counter() - t0, type(e).__name__
+        else:
+            raise AssertionError("blackhole: the call answered")
+        finally:
+            stub.close()
+    bound = 1.0 + rpc.Client.DEADLINE_GRACE
+    if took > bound + 0.25:
+        raise AssertionError(f"blackhole: {err} after {took:.3f} s > {bound} s")
+    out["blackhole_s"] = took
+    counts = read_counts(counters)
+    log(f"link blackhole under a 1.0 s deadline: {err} after {took:.3f} s (bound "
+        f"{bound} s + 0.25 s); launches over the link faults {counts}, on {card}")
+    if counts["K1"] <= 0:
+        raise AssertionError("link faults: K1 was not launched in this part")
+    return out
+
+
+def observability_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
+    """Phase g, on the servers of phases 3 and 4 after phase e."""
+    out = {}
+    for path in (dict(what="ivfsq", client=sq["serving"].client, iid=sq["iid"],
+                      q=sq["q_all"][:TRACE_QUERIES], kernel="K1"),
+                 dict(what="knnlm", client=pq["serving"].client, iid="knnlm",
+                      q=pq["q_all"][:TRACE_QUERIES], kernel="K3 lists")):
+        t0 = time.perf_counter()
+        out[path["what"]] = traced_serving(path, counters, card)
+        log(f"phase g traced serving on {path['what']}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    metrics_and_dfstat(sq, out["ivfsq"]["exemplar"], counters)
+    out["loops"] = loops_and_dialects(sq, counters, card)
+    out["faults"] = link_faults(sq, counters, card)
+    log(f"phase g metrics, loops and link faults: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2073,6 +2497,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mutation_phase(args, sq_out, outs, counters, card)
         log(f"mutation phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        observability_phase(args, sq_out, outs, counters, card)
+        log(f"observability phase: {time.perf_counter() - t0:.1f} s")
     finally:
         if outs is not None:
             outs["serving"].close()

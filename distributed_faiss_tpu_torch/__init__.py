@@ -31,6 +31,7 @@ _LAZY = {
     "QuorumError": ("distributed_faiss_tpu_torch.parallel.client", "QuorumError"),
     "ReplicationCfg": ("distributed_faiss_tpu_torch.utils.config", "ReplicationCfg"),
     "AntiEntropyCfg": ("distributed_faiss_tpu_torch.utils.config", "AntiEntropyCfg"),
+    "TracingCfg": ("distributed_faiss_tpu_torch.utils.config", "TracingCfg"),
     "RetryPolicy": ("distributed_faiss_tpu_torch.parallel.rpc", "RetryPolicy"),
     "BusyError": ("distributed_faiss_tpu_torch.parallel.rpc", "BusyError"),
     "DeadlineExceeded": ("distributed_faiss_tpu_torch.parallel.rpc", "DeadlineExceeded"),

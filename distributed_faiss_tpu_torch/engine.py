@@ -35,7 +35,15 @@ engine's, byte for byte), ``id_sets`` / ``export_rows_versioned`` /
 ``export_snapshot`` / ``import_snapshot`` carry a whole shard to a rank
 that commits it as a generation of its own before serving it.
 
-Not ported yet: the pre-manifest flat layout.
+Persistence also reads the pre-manifest flat layout (``index.npz``,
+``meta.pkl``, ``buffer.pkl``, ``cfg.json``; ``get_index_files``) when a
+dir holds no committed generation, as the JAX engine does.
+
+Tracing: a server wires its span ring into ``span_buffer``; a launch of a
+window the scheduler marked as sampled (``observability.spans``) records an
+``engine.launch`` span in every sampled request of the window (the JAX
+engine records it in the first one only) and makes the first the exemplar
+of ``device_search_s``.
 """
 
 import hashlib
@@ -58,6 +66,7 @@ from distributed_faiss_tpu_torch.mutation import compaction as _compaction
 from distributed_faiss_tpu_torch.mutation import tombstones as _tombstones
 from distributed_faiss_tpu_torch.mutation import versions as _versions
 from distributed_faiss_tpu_torch.mutation.tombstones import TombstoneSet
+from distributed_faiss_tpu_torch.observability import spans as obs_spans
 from distributed_faiss_tpu_torch.utils import serialization
 from distributed_faiss_tpu_torch.utils.batching import SearchBatcher
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, MutationCfg, VersioningCfg
@@ -189,6 +198,14 @@ def _apply_sidecar_by_id(tomb: TombstoneSet, side: dict, meta: list, id_idx: int
                    side.get("layout"), tomb.layout, hits)
 
 
+def get_index_files(index_storage_dir: str) -> Tuple[str, str, str, str]:
+    """The pre-manifest flat file names of a shard (reference
+    index.py:103-108, .faiss -> .npz). Saves write generation sets under a
+    MANIFEST; these names remain so that pre-manifest dirs still load."""
+    return tuple(os.path.join(index_storage_dir, name)
+                 for name in ("index.npz", "meta.pkl", "buffer.pkl", "cfg.json"))
+
+
 def infer_n_centroids(total_data_size: int) -> int:
     """Centroid-count tiers (reference index.py:497-508)."""
     if total_data_size < 10e5:
@@ -221,6 +238,9 @@ class Index:
         self.index_save_time = time.time()
         self.index_saved_size = 0
         self.perf = LatencyStats()  # device-search latency, served via get_perf_stats
+        # the serving rank's span ring (observability/spans.py); None records
+        # no span
+        self.span_buffer = None
         self._generation = 0  # newest committed snapshot generation
         # bumped under both locks whenever the positional layout is replaced
         # (compaction, drop_index): a search that launched on the old layout
@@ -1073,10 +1093,20 @@ class Index:
         with self.index_lock:
             if self.state != IndexState.TRAINED:
                 raise RuntimeError(NOT_TRAINED_REJECTION_FMT.format(state=self.state))
+            # the sampled trace of the scheduler's window, when a ring is wired
+            trace_id = obs_spans.current_trace() if self.span_buffer is not None else None
+            w0 = time.time() if trace_id is not None else 0.0
             t0 = time.perf_counter()
             out = self.model.search_batched(query_batch, top_k)
-            self.perf.record("device_search_s", time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.perf.record("device_search_s", dt, exemplar=trace_id)
             self.perf.record("device_search_rows", float(query_batch.shape[0]))
+            if trace_id is not None:
+                # one launch serves the whole window: each sampled request
+                # of it gets the span
+                for tid in obs_spans.current_window_traces():
+                    self.span_buffer.record(tid, "engine.launch", w0, dt,
+                                            rows=int(query_batch.shape[0]))
             return out
 
     @staticmethod
@@ -1216,8 +1246,11 @@ class Index:
             embs = [[embs_arr[i, j] for j in range(k)] for i in range(nq)]
         return scores, joined.tolist(), embs
 
-    def perf_stats(self) -> dict:
-        return self.perf.summary()
+    def perf_stats(self, raw: bool = False) -> dict:
+        """Device-launch latencies (``device_search_s``, host clock around
+        the model call, which ends in the results' copy to the host) and
+        rows a launch; ``raw`` adds the bucket histograms."""
+        return self.perf.summary(raw=raw)
 
     def get_centroids(self):
         with self.index_lock:
@@ -1434,8 +1467,9 @@ class Index:
         whose files fail the sha256 check is quarantined and the previous
         one loads instead. The generation's own tombstones apply, and the
         standalone sidecar merges in positionally when its layout matches,
-        by id otherwise. Returns None when no committed generation exists
-        (the JAX package's pre-manifest flat layout is not ported)."""
+        by id otherwise. Without a committed generation the pre-manifest
+        flat layout loads (``_from_legacy_layout``); None when neither
+        exists."""
         stale = serialization.quarantine_stale_tmps(index_storage_dir)
         if stale:
             logger.warning("quarantined %d abandoned .tmp file(s): %s", len(stale), stale)
@@ -1456,8 +1490,7 @@ class Index:
             serialization.quarantine_generation(index_storage_dir, gen, reason)
             fallbacks += 1
         if chosen is None:
-            logger.info("no committed generation at %s", index_storage_dir)
-            return None
+            return cls._from_legacy_layout(index_storage_dir, cfg, ignore_buffer, device)
         gen, manifest = chosen
         orphans = serialization.quarantine_orphans(index_storage_dir, newer_than=gen)
         if orphans:
@@ -1495,6 +1528,36 @@ class Index:
             result._tombstone_version = 1
         result._mutation_counters["load_fallbacks"] = fallbacks
         return result
+
+    @classmethod
+    def _from_legacy_layout(cls, index_storage_dir: str, cfg: Optional[IndexCfg],
+                            ignore_buffer: bool, device) -> Optional["Index"]:
+        """A pre-manifest shard: flat index.npz / meta.pkl / buffer.pkl /
+        cfg.json. Such a dir never compacted, so its layout epoch is 0 and a
+        standalone tombstone sidecar at layout 0 applies as it is."""
+        index_file, meta_file, buffer_file, cfg_file = get_index_files(index_storage_dir)
+        if not os.path.exists(index_file):
+            logger.info("no index found at %s", index_storage_dir)
+            return None
+        model = index_from_state_dict(load_state(index_file), device=device)
+        if not os.path.exists(meta_file):
+            raise RuntimeError(f"no meta file at {meta_file}: cannot use the index")
+        with open(meta_file, "rb") as f:
+            meta = pickle.load(f)
+        if len(meta) < model.ntotal:
+            raise RuntimeError(f"metadata ({len(meta)}) shorter than the index "
+                               f"({model.ntotal}) at {index_storage_dir}")
+        buffer = []
+        if not ignore_buffer and os.path.exists(buffer_file):
+            with open(buffer_file, "rb") as f:
+                buffer = pickle.load(f)
+        if cfg is None:
+            cfg = IndexCfg.from_json(cfg_file) if os.path.isfile(cfg_file) else IndexCfg()
+        tomb = None
+        side = _tombstones.load_sidecar(index_storage_dir)
+        if side is not None and int(side.get("layout", 0)) == 0:
+            tomb = TombstoneSet.from_payload(side)
+        return cls._restore(cfg, model, meta, buffer, device, tombstones=tomb)
 
     @classmethod
     def _restore(cls, cfg: IndexCfg, model, meta: list, buffer: list, device,

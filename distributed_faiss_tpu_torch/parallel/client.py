@@ -40,7 +40,12 @@ with every replica's outcome) when a group missed it.
 version (``min_version``); ``pin_generations`` and
 ``search_at_generation`` serve each replica's pinned committed generation.
 
-Not ported yet: trace export.
+Tracing (observability/): a search samples a trace (DFT_TRACE_SAMPLE) or
+takes one (``trace_id=``), records its ``client.search`` span and a
+``client.failover`` span for each replica it moved past, and sends the id
+to every rank it calls; ``get_trace_spans`` merges this process's spans
+with every reachable rank's. ``get_perf_stats`` answers a dead rank with an
+error row and the survivors' stats.
 """
 
 import itertools
@@ -56,6 +61,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from distributed_faiss_tpu_torch.mutation import versions as _versions
+from distributed_faiss_tpu_torch.observability import spans as obs_spans
 from distributed_faiss_tpu_torch.parallel import replication, rpc
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg, VersioningCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
@@ -692,7 +698,7 @@ class IndexClient:
                return_embeddings: bool = False, allow_partial: bool = False,
                partial_timeout: Optional[float] = None,
                deadline: Optional[float] = None, min_version=None,
-               read_your_writes: bool = False) -> tuple:
+               read_your_writes: bool = False, trace_id: Optional[str] = None) -> tuple:
         """Fan-out search with the client-side top-k merge over ONE replica
         per group; returns (D, meta) or (D, meta, embs), plus a trailing
         ``missing`` list with ``allow_partial``.
@@ -718,7 +724,17 @@ class IndexClient:
         ``read_your_writes=True`` demands this client's last acknowledged
         versioned write (``min_version``, which may also be passed): a
         replica behind it refuses, and the walk moves to a peer that has it
-        (the write acked at quorum); a whole group behind raises."""
+        (the write acked at quorum); a whole group behind raises.
+
+        ``trace_id`` pins the search to a trace; by default one is sampled
+        (DFT_TRACE_SAMPLE; 0 = never, and the frames carry no trace key). A
+        traced search records ``client.search`` over the whole fan-out and
+        ``client.failover`` for each replica it moved past, and sends the id
+        to every rank it calls; ``get_trace_spans(trace_id)`` merges them."""
+        if trace_id is None:
+            trace_id = obs_spans.maybe_sample()
+        fanout_w0 = time.time() if trace_id is not None else 0.0
+        fanout_p0 = time.perf_counter()
         if read_your_writes:
             own = self.last_write_version(index_id)
             if min_version is None or _versions.compare(own, min_version) > 0:
@@ -733,24 +749,43 @@ class IndexClient:
         plan = self._read_plan()
         timeout = partial_timeout if allow_partial else None
 
+        def note_hop(group, stub, error, att_w0, att_p0):
+            """The span of a failed replica attempt: which replica cost how
+            much of the call before the group moved on."""
+            if trace_id is not None:
+                obs_spans.local_buffer().record(
+                    trace_id, "client.failover", att_w0, time.perf_counter() - att_p0,
+                    group=group, replica=stub.id, error=type(error).__name__)
+
+        def record_fanout():
+            if trace_id is not None:
+                obs_spans.local_buffer().record(
+                    trace_id, "client.search", fanout_w0, time.perf_counter() - fanout_p0,
+                    index_id=index_id, groups=len(plan), rows=int(query.shape[0]),
+                    topk=int(topk))
+
         def walk(item):
             """The group's answer, or the list of _FailedRank it tried."""
             group, _pick, ordering = item
             fails = []
             for i, pos in enumerate(ordering):
                 stub = self.sub_indexes[pos]
+                att_w0 = time.time() if trace_id is not None else 0.0
+                att_p0 = time.perf_counter()
                 try:
                     out = self.retry.run_filtered(
                         (rpc.BusyError,), abs_deadline, stub.generic_fun, "search",
                         (index_id, query, topk, return_embeddings), search_kwargs,
-                        timeout=timeout, deadline=abs_deadline)
+                        timeout=timeout, deadline=abs_deadline, trace_id=trace_id)
                 except rpc.DeadlineExceeded as e:
                     # the budget is spent: no replica answers sooner
+                    note_hop(group, stub, e, att_w0, att_p0)
                     fails.append(_FailedRank(stub, e))
                     break
                 except rpc.TRANSPORT_ERRORS + (rpc.BusyError,) as e:
                     logger.warning("replica %s (%s:%s) of group %s failed during search: %s",
                                    stub.id, stub.host, stub.port, group, e)
+                    note_hop(group, stub, e, att_w0, att_p0)
                     fails.append(_FailedRank(stub, e))
                     continue
                 except rpc.ServerException as e:
@@ -759,6 +794,7 @@ class IndexClient:
                             and i + 1 < len(ordering)):
                         logger.info("replica %s of group %s cannot serve this search yet; "
                                     "failing over: %s", stub.id, group, e)
+                        note_hop(group, stub, e, att_w0, att_p0)
                         fails.append(_FailedRank(stub, e))
                         continue
                     raise
@@ -774,8 +810,10 @@ class IndexClient:
             for r in raw:
                 if isinstance(r, list):
                     raise r[-1].error
-            return IndexClient._aggregate_results(raw, topk, query.shape[0], maximize_metric,
-                                                  return_embeddings)
+            merged = IndexClient._aggregate_results(raw, topk, query.shape[0],
+                                                    maximize_metric, return_embeddings)
+            record_fanout()
+            return merged
         ok = [r for r in raw if not isinstance(r, list)]
         missing = [{"server": f.stub.id, "host": f.stub.host, "port": f.stub.port,
                     "error": f"{type(f.error).__name__}: {f.error}"}
@@ -784,6 +822,7 @@ class IndexClient:
             raise RuntimeError(f"search failed on every rank: {[m['error'] for m in missing]}")
         merged = IndexClient._aggregate_results(iter(ok), topk, query.shape[0],
                                                 maximize_metric, return_embeddings)
+        record_fanout()
         return merged + (missing,)
 
     @staticmethod
@@ -979,18 +1018,47 @@ class IndexClient:
         self._broadcast("set_omp_num_threads", (num_threads,))
 
     def get_perf_stats(self) -> list:
-        """Per-server latency summaries; each entry gains this client's view
-        of the stub (``rpc.Client.rpc_stats``: wire encoding, whether the
-        peer answered in binary, pipelining depth, wire round trips) under
-        ``"rpc_client"``, and its ``"replication"`` key this client's
-        counters, membership and repair queue (``get_replication_stats``)
-        under ``"client"``."""
-        stats = self._broadcast("get_perf_stats")
+        """Per-server latency summaries; each entry's ``"rpc"`` key gains
+        this client's view of the stub under ``"client"``
+        (``rpc.Client.rpc_stats``: serial or multiplexed, wire encoding,
+        whether the peer answered in binary, calls in flight, wire round
+        trips), and its ``"replication"`` key this client's counters,
+        membership and repair queue (``get_replication_stats``) under
+        ``"client"``.
+
+        A dead or unreachable rank does not fail the call (an operator
+        reaches for it in an outage): its entry is ``{"error", "server",
+        "host", "port"}`` with the same two client views, and the
+        survivors' stats come back intact."""
+
+        def one(stub):
+            try:
+                return self._call_with_retry(stub, "get_perf_stats")
+            except rpc.TRANSPORT_ERRORS + (rpc.ServerException, rpc.BusyError) as e:
+                return {"error": f"{type(e).__name__}: {e}", "server": stub.id,
+                        "host": stub.host, "port": stub.port}
+
+        stats = list(self.pool.map(one, self.sub_indexes))
         repl = self.get_replication_stats()
         for stub, entry in zip(self.sub_indexes, stats):
-            entry["rpc_client"] = stub.rpc_stats()
+            entry.setdefault("rpc", {})["client"] = stub.rpc_stats()
             entry.setdefault("replication", {})["client"] = repl
         return stats
+
+    def get_trace_spans(self, trace_id: Optional[str] = None) -> list:
+        """One timeline of ``trace_id`` (every retained span when None):
+        this process's spans merged with every reachable rank's ring (the
+        ``get_trace_spans`` op); a dead rank is skipped."""
+
+        def one(stub):
+            try:
+                return self._call_with_retry(stub, "get_trace_spans", (trace_id,))
+            except rpc.TRANSPORT_ERRORS + (rpc.ServerException, rpc.BusyError) as e:
+                logger.debug("trace fetch skipped rank %s: %s", stub.id, e)
+                return []
+
+        remote = list(self.pool.map(one, self.sub_indexes))
+        return obs_spans.merge_timelines(obs_spans.local_buffer().snapshot(trace_id), *remote)
 
     def get_replication_stats(self) -> dict:
         """This client's replication view: the monotonic reroute, failover,

@@ -1,14 +1,14 @@
-"""Local cluster launch and the discovery file (counterpart of the local half
-of distributed_faiss_tpu/parallel/launcher.py; reference
+"""Cluster launch and the discovery file (counterpart of
+distributed_faiss_tpu/parallel/launcher.py; reference
 scripts/server_launcher.py).
 
 The discovery file's first line is the expected server count; each rank
 appends ``host,port`` under an NFS-safe hardlink lock. ``launch_local``
 starts N rank processes on this host (``python -m
 distributed_faiss_tpu_torch.parallel.launcher``), each on its ``--device``
-and with the discovery file as its anti-entropy peer source.
-
-Not ported yet: the SLURM launch.
+and with the discovery file as its anti-entropy peer source;
+``launch_slurm`` submits them as SLURM tasks through submitit, rank from
+the task's global rank and port ``base_port + local rank``.
 """
 
 import argparse
@@ -73,10 +73,9 @@ def run_server(rank: int, port: int, discovery_path: str, storage_dir: str,
     """Bind, register in the discovery file, then serve until stopped (one
     rank). The discovery file is also the rank's anti-entropy peer source
     (DFT_ANTIENTROPY=0 turns the sweeper off)."""
-    from distributed_faiss_tpu_torch.parallel.server import IndexServer
+    from distributed_faiss_tpu_torch.parallel.server import IndexServer, setup_server_logging
 
-    logging.basicConfig(level=logging.INFO,
-                        format="[%(threadName)s] %(asctime)s [%(levelname)s] %(message)s")
+    setup_server_logging()
     server = IndexServer(rank, storage_dir, device=device, discovery_path=discovery_path)
     server.bind(port)
     append_discovery_entry(discovery_path, host or socket.gethostname(), port)
@@ -99,6 +98,38 @@ def launch_local(num_servers: int, discovery_path: str, storage_dir: str,
             cmd.append("--load-index")
         procs.append(subprocess.Popen(cmd, env={**os.environ, **(env or {})}))
     return procs
+
+
+def launch_slurm(num_servers: int, num_servers_per_node: int, discovery_path: str,
+                 storage_dir: str, base_port: int = 12033, load_index: bool = False,
+                 partition: str = "learnlab", mem_gb: int = 400, timeout_min: int = 4320,
+                 log_dir: str = "slurm_logs", device: str = "cuda"):
+    """Submit ``num_servers`` ranks as one SLURM job through submitit
+    (reference server_launcher.py:111-129), ``num_servers_per_node`` tasks
+    a node, each running ``run_server`` on ``device``. Returns the job."""
+    try:
+        import submitit
+    except ImportError as e:
+        raise RuntimeError(
+            "submitit is not installed; use launch_local or install submitit") from e
+
+    write_discovery_header(discovery_path, num_servers)
+
+    def task():
+        env = submitit.JobEnvironment()
+        run_server(env.global_rank, base_port + env.local_rank, discovery_path, storage_dir,
+                   load_index, device=device)
+
+    executor = submitit.AutoExecutor(folder=log_dir)
+    executor.update_parameters(
+        nodes=-(-num_servers // num_servers_per_node),
+        tasks_per_node=num_servers_per_node,
+        slurm_partition=partition,
+        mem_gb=mem_gb,
+        timeout_min=timeout_min,
+        name="dft_index_server",
+    )
+    return executor.submit(task)
 
 
 def main(argv=None) -> None:

@@ -13,12 +13,16 @@ and ``_TensorRef``. A class of the JAX package is refused like any other
 global, so the two packages do not talk RPC to each other; their parity
 link is the snapshot on disk.
 
-Multiplexing: every CALL from ``Client`` carries ``req_id`` in its trailing
-meta dict (with ``deadline_s`` when the call has a deadline); the server
-answers with the tagged kinds (``KIND_*_MUX``, payload ``({"req_id": n},
-body)``), so many calls are in flight per connection and complete out of
-order. A frame without ``req_id`` is served on the synchronous in-order
-path and answered untagged.
+Multiplexing: every CALL from a multiplexed ``Client`` carries ``req_id``
+in its trailing meta dict (with ``deadline_s`` when the call has a
+deadline, and ``trace_id`` when the request is sampled,
+observability/spans.py); the server answers with the tagged kinds
+(``KIND_*_MUX``, payload ``({"req_id": n}, body)``), so many calls are in
+flight per connection and complete out of order. A frame without
+``req_id`` is served on the synchronous in-order path and answered
+untagged: that is the serial client's dialect (``Client(mux=False)``, or
+DFT_RPC_MUX=0), one call per connection at a time, whose CALL frames carry
+a meta element only when a deadline or a trace sets a key.
 
 Binary skeletons (parallel/wire.py): a frame whose kind byte carries
 ``WIRE_BINARY_FLAG`` holds a compact binary skeleton instead of pickle
@@ -32,8 +36,7 @@ state resets with the connection. Control ops, a peer that never
 advertises, and ``DFT_RPC_WIRE=pickle`` keep pickle skeletons, and any
 payload outside the binary schema falls back to pickle for that one frame
 (``wire.WireEncodeError`` is the fallback signal, never an error on the
-wire). The port has only the multiplexed client; a serial peer sends no
-advert and is answered in pickle.
+wire). The serial client never advertises, so it is answered in pickle.
 """
 
 import io
@@ -48,6 +51,7 @@ import time
 
 import numpy as np
 
+from distributed_faiss_tpu_torch.observability import spans as obs_spans
 from distributed_faiss_tpu_torch.parallel import wire
 from distributed_faiss_tpu_torch.utils.config import WireCfg
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
@@ -135,6 +139,13 @@ _MUX_TO_BASE = {v: k for k, v in MUX_RESPONSE_KINDS.items()}
 _HDR = struct.Struct("<4sBII")
 
 
+def mux_enabled_by_env() -> bool:
+    """DFT_RPC_MUX (default on): 0 gives the serial one-call-per-connection
+    client."""
+    raw = os.environ.get("DFT_RPC_MUX")
+    return raw is None or raw not in ("0", "false", "False", "")
+
+
 def wire_binary_by_env() -> bool:
     """DFT_RPC_WIRE (default ``binary``): ``pickle`` turns binary-skeleton
     negotiation off on this end, so frames stay byte-identical to the
@@ -191,6 +202,8 @@ class RetryPolicy:
     """Bounded exponential backoff with jitter for transport failures and
     BUSY rejections; application errors propagate at once."""
 
+    retryable_errors = RETRYABLE_ERRORS
+
     def __init__(self, max_attempts: int = 3, base_delay: float = 0.05,
                  multiplier: float = 2.0, max_delay: float = 2.0, jitter: float = 0.5):
         if max_attempts < 1:
@@ -203,6 +216,9 @@ class RetryPolicy:
         self.max_delay = max_delay
         self.jitter = jitter
 
+    def is_retryable(self, exc: BaseException) -> bool:
+        return isinstance(exc, self.retryable_errors)
+
     def delay(self, attempt: int) -> float:
         d = min(self.max_delay, self.base_delay * (self.multiplier ** attempt))
         if self.jitter:
@@ -210,7 +226,7 @@ class RetryPolicy:
         return max(0.0, d)
 
     def run(self, fn, *args, **kwargs):
-        return self.run_filtered(RETRYABLE_ERRORS, None, fn, *args, **kwargs)
+        return self.run_filtered(self.retryable_errors, None, fn, *args, **kwargs)
 
     def run_filtered(self, retryable, abs_deadline, fn, *args, **kwargs):
         """``run`` with an explicit retryable tuple and an optional absolute
@@ -360,7 +376,9 @@ class FrameReader:
     """Buffered frame reader owning one connection's read side: one
     ``recv`` usually covers a frame's header, skeleton and plane headers;
     bulk plane data lands straight in the destination array
-    (``recv_into``)."""
+    (``recv_into``). With a positive ``bufsize`` it may hold bytes of the
+    next frame between calls, so the owner of a connection keeps one reader
+    and serves ``pending`` frames before it blocks in a selector."""
 
     def __init__(self, sock: socket.socket, bufsize: int = 65536):
         self._sock = sock
@@ -368,6 +386,12 @@ class FrameReader:
         self._buf = bytearray()
         self._pos = 0
         self._frame_started = False
+
+    @property
+    def pending(self) -> bool:
+        """Buffered bytes of a next frame wait: they will never make the
+        socket readable."""
+        return self._pos < len(self._buf)
 
     def _take(self, n: int) -> memoryview:
         while len(self._buf) - self._pos < n:
@@ -378,7 +402,7 @@ class FrameReader:
             data = self._sock.recv(max(want, self._bufsize))
             if not data:
                 raise EOFError("connection closed mid-frame"
-                               if self._frame_started or self._pos < len(self._buf)
+                               if self._frame_started or self.pending
                                else "connection closed")
             self._buf += data
         out = memoryview(self._buf)[self._pos:self._pos + n]
@@ -515,17 +539,25 @@ class _PendingCall:
 
 
 class Client:
-    """Dynamic-dispatch RPC stub: any attribute is a remote method. One
-    persistent multiplexed connection: ``_lock`` is held only for the frame
-    write, a demux reader thread routes tagged responses to their calls by
-    ``req_id`` (untagged ones FIFO), and each caller waits on its own slot.
-    A transport failure fails every in-flight call and drops the connection;
-    the next call redials.
+    """Dynamic-dispatch RPC stub: any attribute is a remote method, over one
+    persistent connection.
 
-    ``wire_binary`` (default: DFT_RPC_WIRE) advertises binary skeletons in
-    every CALL's meta and sends search CALLs binary once this connection
-    has received a binary-flagged frame (``_peer_wire``, reset with the
-    connection: a redial may reach a pickle-only peer)."""
+    Multiplexed (``mux``, default DFT_RPC_MUX): ``_lock`` is held only for
+    the frame write, a demux reader thread routes tagged responses to their
+    calls by ``req_id`` (untagged ones FIFO), and each caller waits on its
+    own slot. A transport failure fails every in-flight call and drops the
+    connection; the next call redials.
+
+    Serial (``mux=False``): ``_lock`` is held across the whole round trip,
+    one call per connection at a time, read through the connection's own
+    buffered ``FrameReader``; the frame carries a meta element only when a
+    deadline or a trace sets a key, and never advertises binary skeletons.
+    Any failure mid-call drops the connection; the next call redials.
+
+    ``wire_binary`` (default: DFT_RPC_WIRE; multiplexed only) advertises
+    binary skeletons in every CALL's meta and sends search CALLs binary once
+    this connection has received a binary-flagged frame (``_peer_wire``,
+    reset with the connection: a redial may reach a pickle-only peer)."""
 
     RECONNECT_TIMEOUT = 2.0
     REDIAL_COOLDOWN = 2.0
@@ -534,12 +566,14 @@ class Client:
     DEADLINE_GRACE = 0.5
 
     def __init__(self, client_id: int, host: str, port: int, v6: bool = False,
-                 connect_timeout: float = 60.0, wire_binary: bool = None):
+                 connect_timeout: float = 60.0, mux: bool = None, wire_binary: bool = None):
         self.id = client_id
         self.host = host
         self.port = port
         self._fam = socket.AF_INET6 if v6 else socket.AF_INET
-        self._wire = wire_binary_by_env() if wire_binary is None else bool(wire_binary)
+        self._mux = mux_enabled_by_env() if mux is None else bool(mux)
+        self._wire = (wire_binary_by_env() if wire_binary is None
+                      else bool(wire_binary)) and self._mux
         self._peer_wire = False  # under _lock, reset per connection
         self._lock = threading.Lock()
         self._closed = False
@@ -550,6 +584,7 @@ class Client:
         self._req_counter = itertools.count()
         self._epoch = 0  # bumped on every (re)connect and teardown
         self._reader = None
+        self._inflight_peak = 0
         self.stats = LatencyStats()  # wire round-trip latency
         self._connect(connect_timeout)
 
@@ -576,10 +611,13 @@ class Client:
         self._epoch += 1
         self._last_rx = time.monotonic()
         self._peer_wire = False  # a restarted peer may be pickle-only
-        self._reader = threading.Thread(
-            target=self._reader_loop, args=(self.sock, self._epoch),
-            name=f"rpc-demux:{self.host}:{self.port}:c{self.id}", daemon=True)
-        self._reader.start()
+        # the serial path's reader; the demux reader keeps its own
+        self._frame_reader = FrameReader(self.sock)
+        if self._mux:
+            self._reader = threading.Thread(
+                target=self._reader_loop, args=(self.sock, self._epoch),
+                name=f"rpc-demux:{self.host}:{self.port}:c{self.id}", daemon=True)
+            self._reader.start()
 
     def _reader_loop(self, sock: socket.socket, epoch: int) -> None:
         try:
@@ -649,13 +687,21 @@ class Client:
             self._closed = False
 
     def generic_fun(self, fname: str, args=(), kwargs=None, timeout: float = None,
-                    deadline: float = None):
+                    deadline: float = None, trace_id: str = None):
         """Remote call. ``timeout`` bounds the wait for this call's response;
         ``deadline`` is an absolute ``time.time()`` instant whose remaining
         budget rides the frame so the server can shed the request unserved.
-        An already-expired deadline raises without touching the wire."""
+        An already-expired deadline raises without touching the wire.
+
+        ``trace_id`` (a sampled request's id) rides the frame meta so the
+        server's stages record their spans under it; the stub records its
+        own ``client.pack`` and ``client.rpc`` spans in the process-local
+        ring and makes the id the round-trip histogram's exemplar. None adds
+        no meta key and records nothing."""
         if deadline is not None and deadline - time.time() <= 0:
             raise DeadlineExceeded(f"deadline expired before calling {fname}")
+        if not self._mux:
+            return self._call_serial(fname, args, kwargs, timeout, deadline, trace_id)
         with self._lock:
             self._ensure_connected_locked()
             epoch = self._epoch
@@ -664,6 +710,8 @@ class Client:
         meta = {"req_id": rid}
         if self._wire:
             meta[WIRE_META_KEY] = 1  # the capability advert
+        if trace_id is not None:
+            meta[obs_spans.TRACE_META_KEY] = trace_id
         wait = timeout
         if deadline is not None:
             budget = deadline - time.time()
@@ -674,6 +722,8 @@ class Client:
             wait = w if wait is None else min(wait, w)
         # pack outside the lock and before touching the socket: a pickling
         # failure must not tear down a healthy connection
+        if trace_id is not None:
+            w0, p0 = time.time(), time.perf_counter()
         parts = None
         if peer_wire:
             # None (a call outside the binary schema) falls back to pickle
@@ -681,7 +731,12 @@ class Client:
             parts = pack_binary_call(fname, tuple(args), kwargs or {}, meta)
         if parts is None:
             parts = pack_frame(KIND_CALL, (fname, tuple(args), kwargs or {}, meta))
+        if trace_id is not None:
+            obs_spans.local_buffer().record(trace_id, "client.pack", w0,
+                                            time.perf_counter() - p0, fname=fname,
+                                            server=self.id)
         slot = _PendingCall(rid, fname)
+        w0 = time.time() if trace_id is not None else 0.0
         t0 = time.perf_counter()
         with self._lock:
             if self._shutdown:
@@ -690,6 +745,7 @@ class Client:
                 raise ConnectionResetError(
                     f"connection to {self.host}:{self.port} lost before sending {fname}")
             self._pending[rid] = slot
+            self._inflight_peak = max(self._inflight_peak, len(self._pending))
             try:
                 send_parts(self.sock, parts)
             except BaseException as e:
@@ -713,8 +769,56 @@ class Client:
                 raise exc
         if slot.error is not None:
             raise slot.error
-        self.stats.record("round_trip_s", time.perf_counter() - t0)
+        self._note_round_trip(fname, trace_id, w0, time.perf_counter() - t0)
         return self._interpret(slot.kind, slot.payload, fname)
+
+    def _call_serial(self, fname, args, kwargs, timeout, deadline, trace_id=None):
+        """The serial client: ``_lock`` held across the whole round trip;
+        the frame carries a meta element only when a deadline or a trace
+        sets a key."""
+        with self._lock:
+            self._ensure_connected_locked()
+            meta = {}
+            if trace_id is not None:
+                meta[obs_spans.TRACE_META_KEY] = trace_id
+            if deadline is not None:
+                budget = deadline - time.time()
+                if budget <= 0:
+                    raise DeadlineExceeded(f"deadline expired before sending {fname}")
+                wait = budget + self.DEADLINE_GRACE
+                timeout = wait if timeout is None else min(timeout, wait)
+                meta["deadline_s"] = budget
+            payload = (fname, tuple(args), kwargs or {})
+            if meta:
+                payload = payload + (meta,)
+            parts = pack_frame(KIND_CALL, payload)
+            if timeout is not None:
+                self.sock.settimeout(timeout)
+            w0 = time.time() if trace_id is not None else 0.0
+            t0 = time.perf_counter()
+            try:
+                send_parts(self.sock, parts)
+                kind, payload = self._frame_reader.recv_frame()
+            except Exception:
+                # the stream position is unknown after any mid-call failure
+                # (timeout, EOF, bad magic, unpickling): never reuse it
+                self._closed = True
+                self.sock.close()
+                raise
+            finally:
+                if timeout is not None and not self._closed:
+                    self.sock.settimeout(None)
+        self._note_round_trip(fname, trace_id, w0, time.perf_counter() - t0)
+        return self._interpret(kind, payload, fname)
+
+    def _note_round_trip(self, fname, trace_id, w0: float, dt: float) -> None:
+        """A completed round trip: the latency histogram (the trace as its
+        exemplar) and, when traced, the ``client.rpc`` span: the wire both
+        ways plus the server's time."""
+        self.stats.record("round_trip_s", dt, exemplar=trace_id)
+        if trace_id is not None:
+            obs_spans.local_buffer().record(trace_id, "client.rpc", w0, dt, fname=fname,
+                                            server=self.id, host=self.host, port=self.port)
 
     def fetch_shard(self, index_id: str, timeout: float = 120.0) -> dict:
         """This stub's rank's shard snapshot, on a connection of its own (the
@@ -737,12 +841,16 @@ class Client:
         raise RuntimeError(f"unexpected frame kind {kind}")
 
     def rpc_stats(self) -> dict:
-        """This stub's view of its connection: the wire encoding it offers,
-        whether the peer has answered in binary, and the wire round-trip
+        """This stub's view of its connection: serial or multiplexed, the
+        wire encoding it offers and whether the peer answered in binary, the
+        calls in flight now and at most, and the wire round-trip
         percentiles."""
         with self._lock:
+            in_flight = len(self._pending)
+            peak = self._inflight_peak
             peer_wire = self._peer_wire
-        return {"wire": "binary" if self._wire else "pickle", "peer_wire": peer_wire,
+        return {"mux": self._mux, "wire": "binary" if self._wire else "pickle",
+                "peer_wire": peer_wire, "in_flight": in_flight, "in_flight_peak": peak,
                 "round_trip_s": self.stats.summary().get("round_trip_s", {})}
 
     def __getattr__(self, name: str):

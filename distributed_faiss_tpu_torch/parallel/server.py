@@ -24,23 +24,33 @@ as a generation here and serve it), the delta-repair ops
 sweeper (parallel/antientropy.py), which also holds the group's compaction
 lease that gates every engine's compaction watcher.
 
-One serving loop: thread-per-connection (``start_blocking``). Calls whose
-frame meta carries a ``req_id`` are dispatched without blocking the
-connection's reader — searches to the scheduler's async completion path,
-everything else to a small worker pool — and answered with tagged frames
-under a per-connection write lock; frames without ``req_id`` are served in
-order on the reader thread. A connection whose client advertised binary
-skeletons (the ``wire`` CALL-meta key, or a binary frame itself) gets its
-search responses in binary (parallel/wire.py) unless DFT_RPC_WIRE=pickle;
-every other response stays pickle.
+Two serving loops: thread-per-connection (``start_blocking``) and one
+selector thread for every connection (``start``). Calls whose frame meta
+carries a ``req_id`` are dispatched without blocking the reader — searches
+to the scheduler's async completion path, everything else to a small worker
+pool — and answered with tagged frames under a per-connection write lock;
+frames without ``req_id`` (the serial client) are served in order on the
+reader, and on the selector loop their searches flush at once
+(``eager``: a one-in-flight peer sends no followers to wait for). A
+connection whose client advertised binary skeletons (the ``wire`` CALL-meta
+key, or a binary frame itself) gets its search responses in binary
+(parallel/wire.py) unless DFT_RPC_WIRE=pickle; every other response stays
+pickle.
 
-Not ported yet: the selector loop, tracing export.
+Tracing (observability/): the rank's span ring (``spans``, bounded by
+``TracingCfg.buffer``) receives the scheduler's ``server.queue`` and
+``server.device`` spans, the engines' ``engine.launch`` spans and a
+``server.write`` span after each traced response is sent; the
+``get_trace_spans`` op reads it. ``get_perf_stats(raw=True)`` adds the
+bucket histograms and exemplars, and with ``TracingCfg.metrics_port`` > 0
+(DFT_METRICS_PORT) rank r serves it as Prometheus text on base + r.
 """
 
 import logging
 import os
 import pathlib
 import resource
+import selectors
 import socket
 import threading
 import time
@@ -51,6 +61,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from distributed_faiss_tpu_torch.engine import Index
+from distributed_faiss_tpu_torch.observability import export as obs_export
+from distributed_faiss_tpu_torch.observability import spans as obs_spans
 from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
 from distributed_faiss_tpu_torch.parallel import antientropy, rpc, wire
 from distributed_faiss_tpu_torch.serving.scheduler import (
@@ -63,6 +75,7 @@ from distributed_faiss_tpu_torch.utils.config import (
     AntiEntropyCfg,
     IndexCfg,
     SchedulerCfg,
+    TracingCfg,
     WireCfg,
 )
 from distributed_faiss_tpu_torch.utils.device import resolve_device
@@ -94,22 +107,34 @@ def rpc_worker_count() -> int:
     return min(8, max(2, os.cpu_count() or 4))
 
 
+def setup_server_logging(level=logging.INFO) -> None:
+    """The server's root-logger format: '[thread] time [level] message'."""
+    logging.basicConfig(level=level,
+                        format="[%(threadName)s] %(asctime)s [%(levelname)s] %(message)s",
+                        force=True)
+
+
 class _ConnState:
-    """One connection's response write lock and whether its client decodes
-    binary skeletons (dies with the connection, like the client's half)."""
+    """One connection's serving state, shared by both loops: its peer's
+    address, the response write lock, whether its client decodes binary
+    skeletons (dies with the connection, like the client's half), and its
+    buffered frame reader."""
 
-    __slots__ = ("wlock", "peer_wire")
+    __slots__ = ("addr", "wlock", "peer_wire", "reader")
 
-    def __init__(self):
+    def __init__(self, addr, reader: rpc.FrameReader):
+        self.addr = addr
         self.wlock = threading.Lock()
         self.peer_wire = False
+        self.reader = reader
 
 
 class IndexServer:
     def __init__(self, rank: int, index_storage_dir: str,
                  scheduler_cfg: Optional[SchedulerCfg] = None, device="cuda",
                  wire_cfg: Optional[WireCfg] = None, discovery_path: Optional[str] = None,
-                 antientropy_cfg: Optional[AntiEntropyCfg] = None):
+                 antientropy_cfg: Optional[AntiEntropyCfg] = None,
+                 tracing_cfg: Optional[TracingCfg] = None):
         self.device = resolve_device(device)
         self.indexes: Dict[str, Index] = {}
         self.indexes_lock = threading.Lock()
@@ -140,13 +165,25 @@ class IndexServer:
         # pickle-only protocol
         wire_cfg = wire_cfg if wire_cfg is not None else WireCfg.from_env()
         self._wire_enabled = wire_cfg.encoding == "binary"
+        # the span ring every serving stage of a sampled request records
+        # into, and the optional metrics listener (started by bind())
+        self.tracing_cfg = tracing_cfg if tracing_cfg is not None else TracingCfg.from_env()
+        self.spans = obs_spans.SpanBuffer(capacity=self.tracing_cfg.buffer, rank=rank)
+        self._metrics: Optional[obs_export.MetricsExporter] = None
         cfg = scheduler_cfg if scheduler_cfg is not None else SchedulerCfg.from_env()
         self.scheduler: Optional[SearchScheduler] = None
         if cfg.enabled:
             self.scheduler = SearchScheduler(self._engine_search_batched, cfg,
-                                             name=f"search-batcher:r{rank}")
-        self._rpc_workers = ThreadPoolExecutor(max_workers=rpc_worker_count(),
+                                             name=f"search-batcher:r{rank}",
+                                             span_buffer=self.spans)
+        self._rpc_worker_count = rpc_worker_count()
+        self._rpc_workers = ThreadPoolExecutor(max_workers=self._rpc_worker_count,
                                                thread_name_prefix=f"rpc-worker:r{rank}")
+        # mux calls dispatched and not yet answered, and calls served by
+        # dialect
+        self._mux_lock = threading.Lock()
+        self._mux_inflight = 0
+        self._mux_counters = {"mux_calls": 0, "legacy_calls": 0}
 
     # ------------------------------------------------------------ RPC surface
 
@@ -377,8 +414,10 @@ class IndexServer:
         return self._antientropy.health_snapshot()
 
     def _wire_engine(self, index: Index) -> None:
-        """Gate an engine's compaction watcher on the group's lease (the
-        sweeper re-asserts this each sweep)."""
+        """Give an engine this rank's span ring, and gate its compaction
+        watcher on the group's lease (the sweeper re-asserts this each
+        sweep)."""
+        index.span_buffer = self.spans
         if self._antientropy is not None:
             index.compaction_gate = self._antientropy.may_compact
 
@@ -458,18 +497,28 @@ class IndexServer:
         # kept for the reference's API; host-side libraries read it
         os.environ["OMP_NUM_THREADS"] = str(num_threads)
 
-    def get_perf_stats(self) -> dict:
+    def get_perf_stats(self, raw: bool = False) -> dict:
         """Per-RPC latency summaries; ``"scheduler"`` its queue and batch
-        distributions, ``"rpc"`` the wire encoding this rank is willing to
-        speak (the use is per connection), ``"engine"`` each index's
-        device-launch latencies, ``"mutation"`` each index's tombstone,
-        compaction and version counters, ``"replication"`` this rank's group
-        and ``"antientropy"`` the sweeper's counters, suspects and lease,
-        ``"process"`` this process's peak resident set."""
-        out = self.perf.summary()
+        distributions, ``"rpc"`` the mux calls in flight, the calls served
+        by dialect (``mux_calls``, ``legacy_calls``), the worker pool's size
+        and the wire encoding this rank is willing to speak (the use is per
+        connection), ``"engine"`` each index's device-launch latencies,
+        ``"mutation"`` each index's tombstone, compaction and version
+        counters, ``"replication"`` this rank's group and ``"antientropy"``
+        the sweeper's counters, suspects and lease, ``"process"`` this
+        process's peak resident set, ``"tracing"`` the span ring's occupancy
+        and the metrics listener's port (0 = off).
+
+        ``raw=True`` adds each latency summary's bucket counts and
+        exemplars (the Prometheus exporter's view); a row whose tail bucket
+        holds a sampled trace carries ``p99_exemplar`` either way."""
+        out = self.perf.summary(raw=raw)
         if self.scheduler is not None:
-            out["scheduler"] = self.scheduler.perf_stats()
-        out["rpc"] = {"wire": "binary" if self._wire_enabled else "pickle"}
+            out["scheduler"] = self.scheduler.perf_stats(raw=raw)
+        with self._mux_lock:
+            out["rpc"] = {"in_flight": self._mux_inflight, **self._mux_counters}
+        out["rpc"]["workers"] = self._rpc_worker_count
+        out["rpc"]["wire"] = "binary" if self._wire_enabled else "pickle"
         out["replication"] = {"rank": self.rank, "shard_group": self.shard_group,
                               "last_transfer": self.last_transfer}
         out["antientropy"] = (self._antientropy.stats() if self._antientropy is not None
@@ -478,9 +527,19 @@ class IndexServer:
         out["process"] = {"peak_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024}
         with self.indexes_lock:
             snapshot = list(self.indexes.items())
-        out["engine"] = {iid: idx.perf_stats() for iid, idx in snapshot}
+        out["engine"] = {iid: idx.perf_stats(raw=raw) for iid, idx in snapshot}
         out["mutation"] = {iid: idx.mutation_stats() for iid, idx in snapshot}
+        # one read of the listener: stop() clears it concurrently
+        metrics = self._metrics
+        out["tracing"] = {**self.spans.stats(),
+                          "metrics_port": metrics.port if metrics else 0}
         return out
+
+    def get_trace_spans(self, trace_id: Optional[str] = None, limit: int = 4096) -> list:
+        """This rank's spans of ``trace_id`` (every retained span when
+        None), oldest first, the newest ``limit``."""
+        spans = self.spans.snapshot(trace_id)
+        return spans[-int(limit):] if limit else spans
 
     def ping(self) -> dict:
         """Liveness probe: this rank, its device, each index's state, and
@@ -500,6 +559,11 @@ class IndexServer:
     def stop(self) -> None:
         logger.info("stopping server rank=%d", self.rank)
         self._stopping.set()
+        # the metrics listener first: a scrape must not walk engines that
+        # are being saved
+        if self._metrics is not None:
+            self._metrics.stop()
+            self._metrics = None
         # first the sweeper: a heal mid-stop would race the saves for the
         # engine locks (its dials are bounded, so the join is)
         if self._antientropy is not None:
@@ -534,51 +598,135 @@ class IndexServer:
             index.save()
             index.retire()
 
-    # ------------------------------------------------------------ serving loop
+    # ------------------------------------------------------------ serving loops
 
     def bind(self, port: int = rpc.DEFAULT_PORT, v6: bool = False) -> int:
-        """Bind and listen; returns the bound port (pass 0 for a free one)."""
+        """Bind and listen, and start the metrics listener when configured;
+        returns the bound port (pass 0 for a free one)."""
         s = socket.socket(socket.AF_INET6 if v6 else socket.AF_INET, socket.SOCK_STREAM)
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("", port))
         s.listen(16)
         self.socket = s
+        self._start_metrics()
         return s.getsockname()[1]
+
+    def _start_metrics(self) -> None:
+        """The Prometheus listener on base + rank (``TracingCfg.
+        metrics_port``; 0 = none). A bind failure only logs: metrics never
+        take serving down."""
+        base = self.tracing_cfg.metrics_port
+        if self._metrics is not None or base <= 0:
+            return
+        try:
+            self._metrics = obs_export.MetricsExporter(
+                lambda: self.get_perf_stats(raw=True), port=base + self.rank,
+                rank=self.rank).start()
+            logger.info("metrics listener rank=%d on :%d", self.rank, self._metrics.port)
+        # OverflowError: base + rank past 65535
+        except (OSError, OverflowError) as e:
+            logger.warning("metrics listener for rank %d failed to bind port %d: %s",
+                           self.rank, base + self.rank, e)
+
+    def _listening_socket(self, port: int, v6: bool, load_index: bool) -> socket.socket:
+        if load_index:
+            self.load_index()
+        if self.socket is None:
+            self.bind(port, v6)
+        self._start_antientropy()
+        return self.socket
+
+    def _admit(self, conn: socket.socket) -> bool:
+        """Set up an accepted connection and track it for stop(); False
+        (closed) once stopping."""
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        rpc.bound_send_timeout(conn)
+        with self._threads_lock:
+            if self._stopping.is_set():
+                conn.close()
+                return False
+            self._conns.add(conn)
+        return True
+
+    def _drop(self, conn: socket.socket) -> None:
+        with self._threads_lock:
+            self._conns.discard(conn)
+        try:
+            conn.close()
+        except OSError:
+            pass
 
     def start_blocking(self, port: int = rpc.DEFAULT_PORT, v6: bool = False,
                        load_index: bool = False) -> None:
         """Thread-per-connection accept loop (binds first unless ``bind``
         already ran)."""
-        if load_index:
-            self.load_index()
-        if self.socket is None:
-            self.bind(port, v6)
-        s = self.socket
-        self._start_antientropy()
+        s = self._listening_socket(port, v6, load_index)
         logger.info("server rank=%d listening on :%d", self.rank, s.getsockname()[1])
         while not self._stopping.is_set():
             try:
                 conn, addr = s.accept()
             except OSError:
                 break
-            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            rpc.bound_send_timeout(conn)
-            with self._threads_lock:
-                if self._stopping.is_set():
-                    conn.close()
-                    break
-                self._conns.add(conn)
+            if not self._admit(conn):
+                break
             # lifetime is the connection's: exits when the peer closes
             threading.Thread(target=self._serve_connection, args=(conn, addr),
                              name=f"conn:r{self.rank}:{addr[0]}:{addr[1]}",
                              daemon=True).start()
 
+    def start(self, port: int = rpc.DEFAULT_PORT, v6: bool = False) -> None:
+        """Selector loop: one thread accepts and decodes every connection.
+        A readable connection is read one whole frame at a time; tagged
+        calls are dispatched to the scheduler and the worker pool without
+        blocking, untagged ones are served inline with an eager flush, and
+        frames already buffered in the connection's reader are served before
+        the next ``select`` (buffered bytes never make a socket readable)."""
+        s = self._listening_socket(port, v6, load_index=False)
+        s.setblocking(True)
+        sel = selectors.DefaultSelector()
+        sel.register(s, selectors.EVENT_READ, data=None)
+        logger.info("selector server rank=%d on :%d", self.rank, s.getsockname()[1])
+        try:
+            while not self._stopping.is_set():
+                try:
+                    events = sel.select(timeout=0.5)
+                except OSError:
+                    break
+                for key, _ in events:
+                    if key.data is None:
+                        try:
+                            conn, addr = s.accept()
+                        except OSError:
+                            continue
+                        if self._admit(conn):
+                            sel.register(conn, selectors.EVENT_READ,
+                                         data=_ConnState(addr, rpc.FrameReader(conn)))
+                        continue
+                    conn, state = key.fileobj, key.data
+                    try:
+                        self._one_call(conn, state, eager=True)
+                        while state.reader.pending:
+                            self._one_call(conn, state, eager=True)
+                    except (rpc.ClientExit, EOFError, OSError):
+                        sel.unregister(conn)
+                        self._drop(conn)
+                    except Exception as e:
+                        # malformed frame / undecodable payload: drop this
+                        # connection only
+                        logger.warning("dropping connection from %s: %s", state.addr, e)
+                        sel.unregister(conn)
+                        self._drop(conn)
+        finally:
+            for key in list(sel.get_map().values()):
+                if key.data is not None:
+                    self._drop(key.fileobj)
+            sel.close()
+
     def _serve_connection(self, conn: socket.socket, addr) -> None:
-        state = _ConnState()
-        reader = rpc.FrameReader(conn)
+        state = _ConnState(addr, rpc.FrameReader(conn))
         try:
             while True:
-                self._one_call(conn, reader, state)
+                self._one_call(conn, state)
         except (rpc.ClientExit, EOFError):
             pass
         except OSError as e:
@@ -587,15 +735,10 @@ class IndexServer:
             # malformed frame / undecodable payload: drop this connection only
             logger.warning("dropping connection from %s: %s", addr, e)
         finally:
-            with self._threads_lock:
-                self._conns.discard(conn)
-            try:
-                conn.close()
-            except OSError:
-                pass
+            self._drop(conn)
 
-    def _one_call(self, conn, reader: rpc.FrameReader, state: _ConnState) -> None:
-        kind, payload, was_binary = reader.recv_frame_ex()
+    def _one_call(self, conn, state: _ConnState, eager: bool = False) -> None:
+        kind, payload, was_binary = state.reader.recv_frame_ex()
         if kind == rpc.KIND_CLOSE:
             raise rpc.ClientExit("client closed")
         if kind == rpc.KIND_SHARD_FETCH:
@@ -609,11 +752,12 @@ class IndexServer:
             raise RuntimeError(f"unexpected frame kind {kind}")
         fname, args, kwargs = payload[:3]
         frame_meta = payload[3] if len(payload) > 3 else None
-        deadline = req_id = None
+        deadline = req_id = trace_id = None
         if isinstance(frame_meta, dict):
             if frame_meta.get("deadline_s") is not None:
                 deadline = time.monotonic() + float(frame_meta["deadline_s"])
             req_id = frame_meta.get("req_id")
+            trace_id = frame_meta.get(obs_spans.TRACE_META_KEY)
             if was_binary or frame_meta.get(rpc.WIRE_META_KEY):
                 # the client decodes binary skeletons: search responses on
                 # this connection may go out binary from here on
@@ -622,21 +766,46 @@ class IndexServer:
             fname = f"unknown:{fname}"
         t0 = time.perf_counter()
         if req_id is None:
-            kind, payload = self._call(fname, args, kwargs, deadline, t0)
+            with self._mux_lock:
+                self._mux_counters["legacy_calls"] += 1
+            kind, payload = self._call(fname, args, kwargs, deadline, t0, eager, trace_id)
             try:
                 parts = rpc.pack_frame(kind, payload)
             except Exception:
                 parts = rpc.pack_frame(rpc.KIND_ERROR, traceback.format_exc())
+            self._write(conn, state, parts, fname, trace_id)
+            return
+        with self._mux_lock:
+            self._mux_counters["mux_calls"] += 1
+            self._mux_inflight += 1
+        if fname == "search" and self.scheduler is not None:
+            self._dispatch_scheduled(conn, state, args, kwargs, deadline, req_id, t0, trace_id)
+            return
+        try:
+            self._rpc_workers.submit(self._dispatch_direct, conn, state, fname, args,
+                                     kwargs, deadline, req_id, t0, trace_id)
+        except RuntimeError:  # the pool is shut down: the server is stopping
+            self._mux_done()
+            raise
+
+    def _mux_done(self) -> None:
+        with self._mux_lock:
+            self._mux_inflight -= 1
+
+    def _write(self, conn, state: _ConnState, parts, fname, trace_id, **extra) -> None:
+        """Send one response frame under the connection's write lock; a
+        traced one records its ``server.write`` span after the send."""
+        if trace_id is None:
             with state.wlock:
                 rpc.send_parts(conn, parts)
             return
-        if fname == "search" and self.scheduler is not None:
-            self._dispatch_scheduled(conn, state, args, kwargs, deadline, req_id, t0)
-        else:
-            self._rpc_workers.submit(self._dispatch_direct, conn, state, fname, args,
-                                     kwargs, deadline, req_id, t0)
+        w0, p0 = time.time(), time.perf_counter()
+        with state.wlock:
+            rpc.send_parts(conn, parts)
+        self.spans.record(trace_id, "server.write", w0, time.perf_counter() - p0,
+                          fname=fname, **extra)
 
-    def _call(self, fname, args, kwargs, deadline, t0):
+    def _call(self, fname, args, kwargs, deadline, t0, eager=False, trace_id=None):
         """Serve one call on this thread -> (response kind, payload)."""
         try:
             if fname.startswith("unknown:"):
@@ -645,10 +814,11 @@ class IndexServer:
                 vals = self._checked_search_args(args, kwargs)
                 ret = self.scheduler.submit(
                     vals["index_id"], vals["query_batch"], vals["top_k"],
-                    bool(vals.get("return_embeddings", False)), deadline=deadline)
+                    bool(vals.get("return_embeddings", False)), deadline=deadline,
+                    eager=eager, trace_id=trace_id)
             else:
                 ret = getattr(self, fname)(*args, **(kwargs or {}))
-            self.perf.record(fname, time.perf_counter() - t0)
+            self.perf.record(fname, time.perf_counter() - t0, exemplar=trace_id)
             return rpc.KIND_RESULT, ret
         except Exception as e:
             busy = self._classify_scheduler_reject(e)
@@ -671,7 +841,8 @@ class IndexServer:
             return "search:shed", {"reason": "deadline"}
         return None
 
-    def _dispatch_scheduled(self, conn, state, args, kwargs, deadline, req_id, t0) -> None:
+    def _dispatch_scheduled(self, conn, state, args, kwargs, deadline, req_id, t0,
+                            trace_id=None) -> None:
         """Hand a mux search to the scheduler without blocking the reader;
         its completion callback queues the tagged response write on the
         worker pool (never socket I/O on the batcher thread)."""
@@ -679,38 +850,41 @@ class IndexServer:
         def done(result, error):
             try:
                 self._rpc_workers.submit(self._finish_scheduled, conn, state, req_id,
-                                         result, error, t0)
+                                         result, error, t0, trace_id)
             except RuntimeError:
-                pass  # pool shut down (server stopping): the client sees the drop
+                # the pool is shut down (server stopping): the client sees
+                # the drop
+                self._mux_done()
 
         try:
             vals = self._checked_search_args(args, kwargs)
             self.scheduler.submit_async(
                 vals["index_id"], vals["query_batch"], vals["top_k"],
                 bool(vals.get("return_embeddings", False)), deadline=deadline,
-                callback=done)
+                callback=done, trace_id=trace_id)
         except Exception as e:
             # admission rejected or bad args: answered now, never queued
-            self._finish_scheduled(conn, state, req_id, None, e, t0)
+            self._finish_scheduled(conn, state, req_id, None, e, t0, trace_id)
 
-    def _finish_scheduled(self, conn, state, req_id, result, error, t0) -> None:
+    def _finish_scheduled(self, conn, state, req_id, result, error, t0, trace_id=None) -> None:
         if error is None:
-            self.perf.record("search", time.perf_counter() - t0)
-            self._send_tagged(conn, state, rpc.KIND_RESULT, result, req_id, "search")
+            self.perf.record("search", time.perf_counter() - t0, exemplar=trace_id)
+            self._send_tagged(conn, state, rpc.KIND_RESULT, result, req_id, "search", trace_id)
             return
         busy = self._classify_scheduler_reject(error)
         if busy is not None:
             self.perf.record(busy[0], time.perf_counter() - t0)
-            self._send_tagged(conn, state, rpc.KIND_BUSY, busy[1], req_id, "search")
+            self._send_tagged(conn, state, rpc.KIND_BUSY, busy[1], req_id, "search", trace_id)
             return
         tb = "".join(traceback.format_exception(type(error), error, error.__traceback__))
         logger.error("exception in scheduled search: %s", tb)
-        self._send_tagged(conn, state, rpc.KIND_ERROR, tb, req_id, "search")
+        self._send_tagged(conn, state, rpc.KIND_ERROR, tb, req_id, "search", trace_id)
 
-    def _dispatch_direct(self, conn, state, fname, args, kwargs, deadline, req_id, t0):
+    def _dispatch_direct(self, conn, state, fname, args, kwargs, deadline, req_id, t0,
+                         trace_id=None):
         """Worker-pool target for mux ops other than scheduled searches."""
-        kind, payload = self._call(fname, args, kwargs, deadline, t0)
-        self._send_tagged(conn, state, kind, payload, req_id, fname)
+        kind, payload = self._call(fname, args, kwargs, deadline, t0, trace_id=trace_id)
+        self._send_tagged(conn, state, kind, payload, req_id, fname, trace_id)
 
     def _pack_tagged(self, state, base_kind, payload, req_id, fname):
         """A tagged response's frame parts: a binary skeleton when the
@@ -723,15 +897,17 @@ class IndexServer:
                 return parts
         return rpc.pack_tagged_response(base_kind, payload, req_id)
 
-    def _send_tagged(self, conn, state, base_kind, payload, req_id, fname) -> None:
+    def _send_tagged(self, conn, state, base_kind, payload, req_id, fname,
+                     trace_id=None) -> None:
+        """Write one tagged response; the one end of every mux call, so the
+        in-flight count drops here."""
         try:
             try:
                 parts = self._pack_tagged(state, base_kind, payload, req_id, fname)
             except Exception:
                 parts = rpc.pack_tagged_response(rpc.KIND_ERROR, traceback.format_exc(),
                                                  req_id)
-            with state.wlock:
-                rpc.send_parts(conn, parts)
+            self._write(conn, state, parts, fname, trace_id, req_id=req_id)
         except OSError as e:
             logger.info("mux response write failed (req=%s): %s", req_id, e)
             try:
@@ -740,6 +916,8 @@ class IndexServer:
                 conn.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
+        finally:
+            self._mux_done()
 
     # ------------------------------------------------------------ internals
 
@@ -781,8 +959,7 @@ def main(argv=None):
     parser.add_argument("--discovery", default=None,
                         help="discovery file; enables the anti-entropy sweeper (its peers)")
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="[%(threadName)s] %(asctime)s [%(levelname)s] %(message)s")
+    setup_server_logging()
     server = IndexServer(args.rank, args.storage_dir, device=args.device,
                          discovery_path=args.discovery)
     server.start_blocking(args.port, load_index=args.load_index)

@@ -1,6 +1,6 @@
 """Deadline-aware micro-batching scheduler for the serving path (counterpart
-of distributed_faiss_tpu/serving/scheduler.py, without its trace and
-transfer-guard hooks).
+of distributed_faiss_tpu/serving/scheduler.py, without its transfer-guard
+hook).
 
 One ``SearchScheduler`` per server rank. Connection threads call ``submit``
 (blocking) or ``submit_async`` with a completion callback (the multiplexed
@@ -20,6 +20,14 @@ frame that clients retry with backoff.
 Query rows are independent in every index's search, so a caller's slice of
 the merged launch equals the result of serving its request alone; rows are
 routed back purely positionally.
+
+Tracing: a request submitted with a ``trace_id`` gets a ``server.queue``
+span (its wait, its window and the window's occupancy) and a
+``server.device`` span (the host-clock window around ``search_fn``) in the
+owner's span ring, and its id is the exemplar of ``queue_wait_s`` and
+``e2e_s``. The window's sampled ids are handed to the engine through
+``observability.spans.set_current_trace`` (the first as its latency's
+exemplar), which records its ``engine.launch`` span in each.
 """
 
 import logging
@@ -29,6 +37,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from distributed_faiss_tpu_torch.observability import spans as obs_spans
 from distributed_faiss_tpu_torch.utils.config import SchedulerCfg
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
 
@@ -54,11 +63,11 @@ class SchedulerStopped(RuntimeError):
 
 class _Request:
     __slots__ = ("index_id", "q", "k", "return_embeddings", "deadline", "eager",
-                 "enqueue_t", "event", "result", "error", "callback")
+                 "enqueue_t", "event", "result", "error", "callback", "trace_id")
 
     def __init__(self, index_id: str, q: np.ndarray, k: int, return_embeddings: bool,
                  deadline: Optional[float], eager: bool = False,
-                 callback: Optional[Callable] = None):
+                 callback: Optional[Callable] = None, trace_id: Optional[str] = None):
         self.index_id = index_id
         self.q = q
         self.k = k
@@ -70,6 +79,7 @@ class _Request:
         self.result = None
         self.error: Optional[BaseException] = None
         self.callback = callback  # fired once with (result, error)
+        self.trace_id = trace_id  # a sampled request's trace, else None
 
     @property
     def key(self) -> Tuple:
@@ -94,12 +104,15 @@ class SearchScheduler:
     """Bounded queue + batcher thread coalescing concurrent searches.
 
     ``search_fn(index_id, query_batch, top_k, return_embeddings)`` is the
-    engine's batched entry (``engine.Index.search_batched`` on a server)."""
+    engine's batched entry (``engine.Index.search_batched`` on a server).
+    ``span_buffer`` (the owning server's ring) receives the spans of
+    sampled requests; None records none."""
 
     def __init__(self, search_fn: Callable, cfg: Optional[SchedulerCfg] = None,
-                 name: str = "search-batcher"):
+                 name: str = "search-batcher", span_buffer=None):
         self._search_fn = search_fn
         self.cfg = cfg if cfg is not None else SchedulerCfg()
+        self.spans = span_buffer
         self._cond = threading.Condition()
         self._queue: List[_Request] = []
         self._stopping = False
@@ -113,11 +126,13 @@ class SearchScheduler:
 
     def submit(self, index_id: str, query_batch: np.ndarray, top_k: int,
                return_embeddings: bool = False, deadline: Optional[float] = None,
-               eager: bool = False):
+               eager: bool = False, trace_id: Optional[str] = None):
         """Enqueue one search and block until its slice of a merged launch
-        is ready."""
+        is ready. ``eager`` flushes without the wait window when this
+        request heads the queue (a one-in-flight caller, whose followers
+        cannot arrive)."""
         req = self.submit_async(index_id, query_batch, top_k, return_embeddings,
-                                deadline=deadline, eager=eager)
+                                deadline=deadline, eager=eager, trace_id=trace_id)
         # timed waits: the escape hatch for a batcher thread that died
         while not req.event.wait(timeout=5.0):
             if not self._thread.is_alive() and not req.event.is_set():
@@ -125,12 +140,13 @@ class SearchScheduler:
                                        "request in flight")
         if req.error is not None:
             raise req.error
-        self.stats.record("e2e_s", time.monotonic() - req.enqueue_t)
+        self.stats.record("e2e_s", time.monotonic() - req.enqueue_t, exemplar=req.trace_id)
         return req.result
 
     def submit_async(self, index_id: str, query_batch: np.ndarray, top_k: int,
                      return_embeddings: bool = False, deadline: Optional[float] = None,
-                     eager: bool = False, callback: Optional[Callable] = None) -> _Request:
+                     eager: bool = False, callback: Optional[Callable] = None,
+                     trace_id: Optional[str] = None) -> _Request:
         """Admission-checked enqueue that returns at once. ``callback(result,
         error)`` fires exactly once on the batcher thread. Admission failures
         raise here and the callback never fires."""
@@ -138,7 +154,7 @@ class SearchScheduler:
         if q.ndim != 2:
             raise ValueError(f"query batch must be 2-D, got shape {q.shape}")
         req = _Request(index_id, q, int(top_k), bool(return_embeddings), deadline,
-                       eager=eager, callback=callback)
+                       eager=eager, callback=callback, trace_id=trace_id)
         with self._cond:
             if self._stopping:
                 raise SchedulerStopped("scheduler is stopped")
@@ -162,7 +178,8 @@ class SearchScheduler:
         req.event.set()
         if req.callback is not None:
             if req.error is None:
-                self.stats.record("e2e_s", time.monotonic() - req.enqueue_t)
+                self.stats.record("e2e_s", time.monotonic() - req.enqueue_t,
+                                  exemplar=req.trace_id)
             try:
                 req.callback(req.result, req.error)
             except Exception:
@@ -233,19 +250,45 @@ class SearchScheduler:
                     f"deadline expired while queued (waited {now - r.enqueue_t:.3f}s)")
                 self._finish(r)
                 continue
-            self.stats.record("queue_wait_s", now - r.enqueue_t)
+            self.stats.record("queue_wait_s", now - r.enqueue_t, exemplar=r.trace_id)
             live.append(r)
         if not live:
             return
         with self._cond:
             self._counters["batches"] += 1
+            window = self._counters["batches"]
         n_rows = sum(r.rows for r in live)
         self.stats.record("batch_requests", float(len(live)))
         self.stats.record("batch_rows", float(n_rows))
+        traced = ([r for r in live if r.trace_id is not None]
+                  if self.spans is not None else [])
+        if traced:
+            # one queue span a sampled request: its merge window and that
+            # window's occupancy
+            now_w = time.time()
+            for r in traced:
+                waited = now - r.enqueue_t
+                self.spans.record(r.trace_id, "server.queue", now_w - waited, waited,
+                                  window=window, occupancy_requests=len(live),
+                                  occupancy_rows=n_rows)
         head = live[0]
         try:
             qcat = head.q if len(live) == 1 else np.concatenate([r.q for r in live])
-            result = self._search_fn(head.index_id, qcat, head.k, head.return_embeddings)
+            if traced:
+                obs_spans.set_current_trace(traced[0].trace_id,
+                                            window=[r.trace_id for r in traced])
+                launch_w0, launch_p0 = time.time(), time.perf_counter()
+            try:
+                result = self._search_fn(head.index_id, qcat, head.k, head.return_embeddings)
+            finally:
+                if traced:
+                    # the window is one launch: each sampled request shares
+                    # its timing
+                    launch_dt = time.perf_counter() - launch_p0
+                    obs_spans.set_current_trace(None)
+                    for r in traced:
+                        self.spans.record(r.trace_id, "server.device", launch_w0, launch_dt,
+                                          window=window, rows=n_rows)
             if not isinstance(result, tuple):
                 result = (result,)
             offsets, ofs = [], 0
@@ -284,8 +327,10 @@ class SearchScheduler:
         if self._thread.is_alive():
             logger.warning("scheduler batcher thread did not exit in 10s")
 
-    def perf_stats(self) -> dict:
+    def perf_stats(self, raw: bool = False) -> dict:
+        """{"counters": {...}, "queues": {metric: summary}}; ``raw`` adds the
+        bucket histograms."""
         with self._cond:
             counters = dict(self._counters)
             counters["queued"] = len(self._queue)
-        return {"counters": counters, "queues": self.stats.summary()}
+        return {"counters": counters, "queues": self.stats.summary(raw=raw)}

@@ -1,2 +1,2 @@
-"""Test tooling for the port: process-level rank kill and restart, and
-live query load (testing/chaos.py)."""
+"""Test tooling for the port: link faults through a proxy, process-level
+rank kill and restart, and live query load (testing/chaos.py)."""

@@ -8,9 +8,9 @@
 ``cfg.json`` written by either package loads in the other.
 
 ``SchedulerCfg``, ``WireCfg``, ``MutationCfg``, ``VersioningCfg``,
-``ReplicationCfg`` and ``AntiEntropyCfg`` read the same environment
-variables with the same defaults and validation. The other Cfg classes of
-the JAX package (mesh, tracing) belong to subsystems not ported yet.
+``ReplicationCfg``, ``AntiEntropyCfg`` and ``TracingCfg`` read the same
+environment variables with the same defaults and validation. The mesh's
+Cfg belongs to a subsystem not ported yet.
 """
 
 import json
@@ -260,3 +260,22 @@ class AntiEntropyCfg(_EnvCfg):
         if self.ledger_prune_age_s < 0:
             raise ValueError("ledger_prune_age_s must be >= 0 (0 = no "
                              "age bound)")
+
+
+class TracingCfg(_EnvCfg):
+    """Server-side observability knobs: the bound of each rank's span ring
+    and the Prometheus listener's base port (rank r binds base + r; 0 = no
+    listener). Sampling is decided on the client, per call, from
+    ``DFT_TRACE_SAMPLE`` (observability/spans.py)."""
+
+    _SCHEMA = {
+        "buffer": (int, "DFT_TRACE_BUFFER", 2048),
+        "metrics_port": (int, "DFT_METRICS_PORT", 0),
+    }
+    _KIND = "tracing"
+
+    def _validate(self) -> None:
+        if self.buffer < 1:
+            raise ValueError("trace buffer must hold at least 1 span")
+        if self.metrics_port < 0:
+            raise ValueError("metrics port must be >= 0 (0 = off)")

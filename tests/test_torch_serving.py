@@ -455,3 +455,89 @@ def test_save_watcher_commits_a_generation(rng, tmp_path, package):
         loaded = TIndex.from_storage_dir(storage, device="cpu")
         assert loaded.get_idx_data_num() == (0, 200)
         loaded.retire()
+
+
+def _jax_legacy_dir(rng, tmp_path, deletes=()):
+    """A pre-manifest shard written by the JAX engine: one saved generation
+    whose files are renamed to the flat names and whose MANIFEST is gone;
+    ``deletes`` are removed after the save, so they live only in the
+    standalone tombstone sidecar (layout 0)."""
+    from distributed_faiss_tpu.utils import serialization as jser
+
+    storage = str(tmp_path / "legacy")
+    x = rng.standard_normal((120, D)).astype(np.float32)
+    jidx = JIndex(JCfg(index_builder_type="flat", dim=D, metric="l2", train_num=20,
+                       index_storage_dir=storage))
+    jidx.add_batch(x, [(i, "m") for i in range(120)], train_async_if_triggered=False)
+    assert wait_until(lambda: jidx.get_state() == JState.TRAINED
+                      and jidx.get_idx_data_num() == (0, 120))
+    assert jidx.save() is True
+    if deletes:
+        assert jidx.remove_ids(list(deletes)) == len(deletes)
+    jidx.retire()
+    ((_gen, mpath),) = jser.list_generations(storage)
+    manifest = jser.load_manifest(mpath)
+    for key, flat in (("index", "index.npz"), ("meta", "meta.pkl"), ("buffer", "buffer.pkl"),
+                      ("cfg", "cfg.json")):
+        os.replace(os.path.join(storage, manifest["files"][key]["name"]),
+                   os.path.join(storage, flat))
+    os.unlink(mpath)
+    return storage, x
+
+
+@pytest.mark.parametrize("deletes", [(), (3, 4)])
+def test_legacy_flat_layout_loads_in_both_engines(rng, tmp_path, deletes):
+    """Twin of tests/test_manifest.py::test_legacy_flat_layout_still_loads:
+    a JAX-written pre-manifest dir (flat index.npz / meta.pkl / buffer.pkl /
+    cfg.json, a layout-0 sidecar) loads in the port's engine TRAINED at
+    generation 0 and serves the JAX engine's ids and distances from the same
+    dir, no deleted id among them; its next save commits generation 1."""
+    from distributed_faiss_tpu_torch.engine import get_index_files
+    from distributed_faiss_tpu_torch.utils import serialization as tser
+
+    storage, x = _jax_legacy_dir(rng, tmp_path, deletes)
+    assert all(os.path.exists(f) for f in get_index_files(storage))
+    want = JIndex.from_storage_dir(storage)
+    got = TIndex.from_storage_dir(storage, device="cpu")
+    try:
+        assert got is not None and got.get_state() == IndexState.TRAINED
+        assert got._generation == 0 == want._generation
+        want_d, want_m, _ = want.search(x[:6], 4)
+        got_d, got_m, _ = got.search(x[:6], 4)
+        assert got_m == want_m
+        np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-5)
+        assert not {m[0] for row in got_m for m in row} & set(deletes)
+        assert got.get_ids() == set(range(120)) - set(deletes)
+        assert got.save() is True
+        assert [g for g, _p in tser.list_generations(storage)] == [1]
+    finally:
+        got.retire()
+        want.retire()
+    assert TIndex.from_storage_dir(str(tmp_path / "empty"), device="cpu") is None
+
+
+def test_perf_stats_degrade_per_dead_rank(rng, cluster):
+    """Queue 3 fault 4: with one in-process rank stopped, get_perf_stats
+    answers that rank with {"error", "server", "host", "port"} (and this
+    client's views of its stub) and returns the survivor's stats intact, as
+    the JAX client does; the stub's view sits under entry["rpc"]["client"]."""
+    client, servers = cluster(2)
+    for stub in client.sub_indexes:
+        stub.RECONNECT_TIMEOUT = 0.3
+    client.create_index("p", IndexCfg(index_builder_type="flat", dim=D, metric="l2",
+                                      train_num=20))
+    healthy = client.get_perf_stats()
+    assert all("error" not in e and e["rpc"]["client"]["mux"] is True for e in healthy)
+    servers[1].stop()
+    stats = client.get_perf_stats()
+    assert len(stats) == 2
+    assert "error" not in stats[0] and "scheduler" in stats[0]
+    # this very call is the one the survivor has in flight
+    assert stats[0]["rpc"]["in_flight"] == 1 and stats[0]["rpc"]["mux_calls"] >= 3
+    dead = stats[1]
+    assert dead["server"] == client.sub_indexes[1].id
+    assert (dead["host"], dead["port"]) == (client.sub_indexes[1].host,
+                                            client.sub_indexes[1].port)
+    assert dead["error"].split(":")[0] in ("ConnectionRefusedError", "ConnectionResetError",
+                                           "BrokenPipeError", "EOFError", "OSError")
+    assert "replication" in dead and "client" in dead["rpc"]

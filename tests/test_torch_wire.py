@@ -252,7 +252,7 @@ def test_negotiation_and_identity(tmp_path, monkeypatch):
             assert stub.get_rank() == 0  # control ops keep pickle
             stats = client.get_perf_stats()[0]
             assert stats["rpc"]["wire"] == "binary"
-            assert stats["rpc_client"]["peer_wire"] is True
+            assert stats["rpc"]["client"]["peer_wire"] is True
         finally:
             client.close()
             pickled.close()
