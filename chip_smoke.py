@@ -81,9 +81,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    row reports its own launches, none on the knnlm path); the kernel's
    time on
    one set of inputs, which back-to-back calls may find in L2, is logged
-   beside it, labelled. For K4 one PyTorch call that computes the same
-   sums (``embedding_bag``) is timed as a yardstick (``library_ms``); the
-   port never calls it.
+   beside it, labelled. For K2, K3 over gathered codes and K4 one PyTorch
+   call that computes the same sums (``embedding_bag``; for K2 and K3 over
+   one flattened table of every pair's LUT, per-pair offsets in its index,
+   the index and table built and timed apart) is timed as a yardstick
+   (``library_ms``); the port never calls it.
 
 After phase 8, the rest of one rank's serving surface:
 
@@ -193,6 +195,37 @@ f. Replicas: phase 3's corpus and cfg on ``REPLICA_RANKS`` (4) rank
    K1 launches rising; ``--nq`` queries served healed; who holds each
    group's compaction lease (``get_health``).
 
+After phase f:
+
+h. The mesh (``parallel/mesh.py``), ``MESH_SHARDS`` (4) virtual shards on
+   the one card (``mesh_devices=4, mesh_virtual=True`` in each cfg;
+   DFT_MESH_DEVICES=4 and DFT_MESH_VIRTUAL=1 for the restores), through a
+   port IndexServer and IndexClient:
+   1. ``ivf_tpu`` over phase 3's corpus (1M x 128, fp32 lists, 1024 lists,
+      train_num 100,000; coarse k-means sharded): the nprobe sweep from
+      ``--nprobe-from`` to recall@10 >= 0.95, ``--nq`` queries served, K1
+      launched.
+   2. The same lists and centroids as kind ``sharded_ivf_flat`` (h.1's
+      snapshot committed with ``import_snapshot`` and loaded, masked):
+      recall@10 >= 0.95, the same top-10 ids as h.1 at its nprobe on the
+      tie-free queries (top-11 distances all apart), ``--nq`` queries
+      served, K1 launched on every shard (``shard_launches``).
+   3. ``knnlm`` with ``shard_lists`` over phase 4's rows (PQ m=64, 4096
+      lists, bf16 LUT, refine 8x): the sweep to recall@10 >= 0.95, ``--nq``
+      queries served, K3 over the lists launched on every shard, neither
+      K2 nor K4.
+   4. Masked and routed mode for the indexes of h.2 and h.3 at nprobe
+      32: the same top-10 ids on the tie-free queries, each mode served.
+   5. ``flat`` with ``mesh_shards`` over phase 3's first 200,000 rows: the
+      same top-10 ids as the single-device exact FlatIndex on the tie-free
+      queries, ``--nq`` queries served.
+   6. On h.3's index: ``remove_ids`` of every 10th id, no deleted id
+      served, save -> drop -> load serving the same ids.
+   7. K1 (on h.2's index) and K3 over the lists (on h.3's) on each shard's
+      own inputs (one query block's first probe group remapped to the
+      shard's local slots and owned sizes) against their plain versions
+      (rtol/atol 1e-4), timed, with their bounds.
+
 Before each of phases 3-8, a-d and each part of e and g every kernel's
 launch count is zeroed (phase b reads none), and it is read after the
 phase: K1 must have launched on the ivfsq path, the surface index, the
@@ -204,7 +237,11 @@ geometry) and on phase e's knnlm part, K2 on the K2 path, K4 on the
 flat-PQ path (and neither K2 nor K3), the pre-transform path, the wide
 flat-PQ path and phase e's PQ64,RFlat part; on the hnswsq path no kernel
 may launch (its graph is host C++). Phase f's launches happen in its rank
-processes, which start at 0 and report them through ``ping``.
+processes, which start at 0 and report them through ``ping``. In phase h
+each arm zeroes the counts and reads them after, with the sharded
+model's ``shard_launches``: K1 on the ``ivf_tpu`` arms (on every shard of
+the sharded ones), K3 over the lists on every shard of the ``knnlm`` arms
+(and neither K2 nor K4).
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -893,7 +930,7 @@ def ivfsq_path(args, counters, card: str) -> dict:
         s.close()
         raise
     out.update(q_block=q_all[:256], serving=s, iid=iid, nprobe=nprobe, q_all=q_all,
-               x_head=x[:HNSW_N], x=x)
+               x_head=x[:HNSW_N], x=x, gt=gt_ids)
     log(f"{what}: launches {out['counts']}")
     return out
 
@@ -1028,7 +1065,7 @@ def knnlm_path(args, counters, card: str) -> dict:
     except BaseException:
         s.close()
         raise
-    out.update(serving=s, x=x, q_eval=q_eval, q_all=q_all, nprobe=nprobe)
+    out.update(serving=s, x=x, q_eval=q_eval, q_all=q_all, nprobe=nprobe, gt=gt_full)
     return out
 
 
@@ -1356,15 +1393,37 @@ def adc_main_shape(adc, ivf, model, q_block: np.ndarray, what: str) -> dict:
     call_ms = time_ms(fn, [(lut, codes)], iters=50, queued=False)
     plain_ms = time_ms(adc.adc_scan_plain, sets, iters=10)
     del sets
-    log(f"{kid} {what}-path shape: P={P} (nq={q.shape[0]} g={g}) L={codes.shape[1]} m={m} "
+    # the yardstick: one PyTorch call computing the same sums, the (P * L)
+    # bags of m lookups into one flattened fp32 table of every pair's LUT
+    # (per-pair offsets in the index); the index and table are built, and
+    # timed, apart from the call; used nowhere in the port
+    L = codes.shape[1]
+    bag = functools.partial(torch.nn.functional.embedding_bag, mode="sum")
+
+    def build_bags(lut, codes):
+        offs = (torch.arange(P, device=codes.device) * (m * ksub))[:, None, None] \
+            + torch.arange(m, device=codes.device) * ksub
+        return ((codes.long() + offs).reshape(P * L, m),
+                lut.float().reshape(P * m * ksub, 1).contiguous())
+
+    index_ms = time_ms(build_bags, [(lut, codes)], iters=10, queued=False)
+    index, table = build_bags(lut, codes)
+    lib_err = compare_scores(bag(index, table).reshape(P, L), want, 1e-4, 1e-4,
+                             f"{kid} embedding_bag")
+    lib_bytes = index.numel() * 8 + table.numel() * 4 + P * L * 4
+    lib_sets = l2_copies((index, table), lib_bytes)
+    library_ms = time_ms(bag, lib_sets)
+    del lib_sets, index, table
+    log(f"{kid} {what}-path shape: P={P} (nq={q.shape[0]} g={g}) L={L} m={m} "
         f"lut={'bf16' if model.lut_bf16 else 'f32'} "
         f"live rows={int(model.lists.sizes[li.long()].sum())}: kernel {ms:.4f} ms "
         f"(L2-warm back to back {warm_ms:.4f} ms; {call_ms:.4f} ms a call when the host "
-        f"issues them), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes} bytes, {ops} adds), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
-        f"max_abs_err {err:.3g}")
+        f"issues them), plain {plain_ms:.4f} ms, embedding_bag {library_ms:.4f} ms (its "
+        f"index and table built in {index_ms:.4f} ms apart; max_abs_err {lib_err:.3g}), "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {ops} adds), "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, max_abs_err {err:.3g}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def _old_group_step(adc, lut, list_codes, li, sizes_g, list_ids):
@@ -2395,6 +2454,295 @@ def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase h
+
+MESH_SHARDS = 4
+# consecutive distances closer than this share of the row's scale count as
+# a tie: the order of tied rows is not defined (torch.topk)
+TIE_REL = 1e-6
+
+
+def tie_free_rows(D: np.ndarray) -> np.ndarray:
+    """Rows of an (nq, 11) ascending distance block whose 11 distances are
+    all apart: on these rows the top-10 ids are defined without ties."""
+    with np.errstate(invalid="ignore"):
+        scale = np.maximum(np.abs(D).max(axis=1), 1e-30)
+        return np.isfinite(D).all(axis=1) & (np.diff(D, axis=1)
+                                             > TIE_REL * scale[:, None]).all(axis=1)
+
+
+def same_top10(Da, Ma, Db, Mb, what: str, min_share: float = 0.9) -> float:
+    """Top-11 results of the same queries from two paths: the top-10 ids of
+    every row tie-free on both sides agree; returns the tie-free share,
+    which must reach ``min_share``."""
+    ok = tie_free_rows(Da) & tie_free_rows(Db)
+    share = float(ok.mean())
+    if share < min_share:
+        raise AssertionError(f"{what}: only {share:.3f} of the queries are tie-free")
+    ids = [[[m[0] if m is not None else -1 for m in row[:10]] for row in M] for M in (Ma, Mb)]
+    bad = [i for i in np.flatnonzero(ok) if ids[0][i] != ids[1][i]]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {int(ok.sum())} tie-free queries differ "
+                             f"(first: {bad[0]})")
+    log(f"{what}: the same top-10 ids on all {int(ok.sum())} tie-free queries "
+        f"({share:.3f} of {len(ok)})")
+    return share
+
+
+def bound_of(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of bytes over HBM and ops over fp32."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def shard_kernel_checks(model, q_block: np.ndarray, kernel: str) -> list:
+    """h.7: the kernel of a sharded model's path (K1 or K3 over the lists)
+    on each shard's own inputs (the first probe group of one query block,
+    remapped to the shard's local slots and owned sizes by the model's
+    ``_owned``) against its plain version, with its time and bound."""
+    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+    from distributed_faiss_tpu_torch.parallel import mesh
+
+    nprobe, nb, g = model._search_plan()
+    q = torch.from_numpy(np.ascontiguousarray(q_block[:nb])).cuda()
+    li = ivf._probe_groups(model.centroids, q, nprobe, g, model.metric)[0].contiguous()
+    S, cap = model.mesh.size, model.lists.cap
+    nq = q.shape[0]
+    lut = None
+    if kernel == "K3 lists":
+        lut = ivf._pq_group_lut(model.centroids, model.codebooks, q, li, model.metric,
+                                model.lut_bf16)
+    rows = []
+    for s in range(S):
+        slot, sizes = mesh._owned(li, model.lists.sizes[s], S, s)
+        owned = sizes > 0
+        # what this shard's data needs: the owned pairs' live rows, LUTs
+        # and queries (a kernel skips a pair of size 0 before reading them)
+        unique_live = int(model.lists.sizes[s][torch.unique(slot[owned].long())].sum().item())
+        pair_live = int(sizes.sum().item())
+        owned_pairs = int(owned.sum().item())
+        owned_queries = int(owned.any(dim=1).sum().item())
+        if kernel == "K1":
+            norms = model._scan_norms()
+            args = (q, model.lists.data[s], model.lists.ids[s], slot, sizes,
+                    None if norms is None else norms[s])
+            kw = dict(metric=model.metric, codec="f32", scan_bf16=model.scan_bf16)
+            fn = functools.partial(flat_scan.flat_list_scan, **kw)
+            plain = functools.partial(flat_scan.flat_list_scan_plain, **kw)
+            row_bytes = model.dim * 4 + 4 + (4 if norms is not None else 0)
+            nbytes = (unique_live * row_bytes + nq * g * cap * 4 + owned_queries * model.dim * 4
+                      + 2 * nq * g * 4)
+            ops = pair_live * 2 * model.dim
+        else:
+            args = (lut, model.lists.data[s], slot, sizes, model.lists.ids[s])
+            fn, plain = adc_scan.adc_scan_lists, adc_scan.adc_scan_lists_plain
+            nbytes = (owned_pairs * model.m * lut.shape[2] * lut.element_size()
+                      + unique_live * (model.m + 4) + 2 * nq * g * 4 + nq * g * cap * 4)
+            ops = pair_live * model.m
+        err = compare_scores(fn(*args), plain(*args), 1e-4, 1e-4, f"h.7 {kernel} shard {s}")
+        bound_ms, bound_by = bound_of(nbytes, ops)
+        sets = l2_copies(args, nbytes)
+        ms = time_ms(fn, sets, iters=20)
+        del sets
+        rows.append(dict(shard=s, owned_pairs=owned_pairs, live_rows=pair_live,
+                         ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+        log(f"h.7 {kernel} shard {s}/{S}: nq={nq} g={g} cap={cap} owned pairs "
+            f"{rows[-1]['owned_pairs']} of {nq * g}, live rows {pair_live}: kernel {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {ops} ops), "
+            f"max_abs_err {err:.3g} (plain version, rtol/atol 1e-4)")
+    return rows
+
+
+def arm(args, s, counters, iid: str, q_all: np.ndarray, nprobe: int, card: str, what: str,
+        model, kernel: str, gt: np.ndarray = None) -> dict:
+    """Serve one phase h arm (``nprobe`` set): recall@10 on the first 1000
+    queries against ``gt`` (>= 0.95), ``--nq`` queries timed, the path's
+    kernel launched (and, on a sharded model, on every shard)."""
+    s.client.set_nprobe(iid, nprobe)
+    zero_counts(counters)
+    shard0 = getattr(model, "shard_launches", None)
+    shard0 = None if shard0 is None else shard0.copy()
+    out = {}
+    if gt is not None:
+        D, meta = s.client.search(q_all[:1000], 10, iid)
+        check_result(D, meta, 1000, 10, f"{what} recall request")
+        out["recall"] = recall_at_10(meta, gt)
+        log(f"{what}: recall@10={out['recall']:.4f} at nprobe={nprobe}")
+        if out["recall"] < 0.95:
+            raise AssertionError(f"{what}: recall@10 {out['recall']:.4f} < 0.95")
+    out.update(serve_and_report(args, s.client, iid, q_all, nprobe, card, what))
+    out.pop("meta")
+    out.update(counts=read_counts(counters), nprobe=nprobe)
+    if kernel and out["counts"][kernel] <= 0:
+        raise AssertionError(f"{what}: {kernel} was not launched on this path")
+    if shard0 is not None:
+        out["shard_launches"] = (model.shard_launches - shard0).tolist()
+        if kernel and min(out["shard_launches"]) <= 0:
+            raise AssertionError(f"{what}: {kernel} did not launch on every shard: "
+                                 f"{out['shard_launches']}")
+    log(f"{what}: launches {out['counts']}"
+        + (f", per shard {out['shard_launches']}" if shard0 is not None else ""))
+    return out
+
+
+def routed_arm(args, s, counters, iid: str, q_all: np.ndarray, card: str, what: str, model,
+               kernel: str) -> dict:
+    """h.4: the same index at nprobe 32, masked then probe-routed (the
+    served model's mode switched in place): the same top-10 ids on the
+    tie-free queries; each mode served, masked first."""
+    q_eval = q_all[:1000]
+    s.client.set_nprobe(iid, 32)
+    Dm, Mm = s.client.search(q_eval, 11, iid)
+    masked = arm(args, s, counters, iid, q_all, 32, card, f"{what} (masked)", model, kernel)
+    model.probe_routing = True
+    try:
+        Dr, Mr = s.client.search(q_eval, 11, iid)
+        share = same_top10(Dm, Mm, Dr, Mr, f"{what}: routed vs masked at nprobe=32")
+        out = arm(args, s, counters, iid, q_all, 32, card, f"{what} (routed)", model, kernel)
+    finally:
+        model.probe_routing = False
+    out.update(tie_free_share=share, masked=masked)
+    return out
+
+
+def mesh_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
+    """Phase h: the mesh on the card, MESH_SHARDS virtual shards on the one
+    card (``mesh_devices``/``mesh_virtual`` in each cfg, DFT_MESH_DEVICES and
+    DFT_MESH_VIRTUAL for the restores) through a port IndexServer and
+    IndexClient (see the module docstring)."""
+    from distributed_faiss_tpu_torch.engine import Index
+    from distributed_faiss_tpu_torch.models.flat import FlatIndex
+    from distributed_faiss_tpu_torch.parallel import mesh
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+    mesh_kw = dict(mesh_devices=MESH_SHARDS, mesh_virtual=True)
+    out = {}
+    with env_set("DFT_MESH_DEVICES", str(MESH_SHARDS)), env_set("DFT_MESH_VIRTUAL", "1"), \
+            Serving(os.path.join(REPO, "build", "chip_smoke_mesh")) as s:
+        # ---- h.1: ivf_tpu over phase 3's corpus ----
+        x, q_all, gt = sq["x"], sq["q_all"], sq["gt"]
+        q_eval = q_all[:1000]
+        d = x.shape[1]
+        what, iid = "h.1 ivf_tpu", "ivf_tpu"
+        cfg = IndexCfg(index_builder_type="ivf_tpu", dim=d, metric="l2", train_num=100_000,
+                       centroids=1024, nprobe=32, **mesh_kw)
+        t0 = time.perf_counter()
+        build_index(s.client, iid, cfg, x, what)
+        model1 = s.server.indexes[iid].model
+        if type(model1) is not mesh.IvfTpuIndex or model1.mesh.size != MESH_SHARDS:
+            raise AssertionError(f"{what}: served {type(model1).__name__} on {model1.mesh}")
+        nprobe, _ = sweep_nprobe(s.client, iid, q_eval, gt, args.nprobe_from, 1024, what)
+        out["h.1"] = arm(args, s, counters, iid, q_all, nprobe, card, what, model1, "K1", gt)
+        out["h.1"]["build_s"] = time.perf_counter() - t0
+
+        # ---- h.2: the same lists and centroids, sharded (masked) ----
+        what, iid2 = "h.2 ivf_tpu shard_lists (masked)", "ivf_tpu_sharded"
+        t0 = time.perf_counter()
+        snap = s.server.indexes[iid].export_snapshot()
+        cfg2 = IndexCfg(index_builder_type="ivf_tpu", dim=d, metric="l2", train_num=100_000,
+                        centroids=1024, nprobe=nprobe, shard_lists=True, probe_routing=False,
+                        **mesh_kw)
+        snap.update(state=dict(snap["state"], kind="sharded_ivf_flat", probe_routing=False),
+                    cfg_json=cfg2.to_json_string())
+        Index.import_snapshot(snap, os.path.join(s.store, iid2, "0"), device="cuda").retire()
+        del snap
+        torch.cuda.empty_cache()
+        if not s.client.load_index(iid2):
+            raise AssertionError(f"{what}: load_index failed")
+        model2 = s.server.indexes[iid2].model
+        if type(model2) is not mesh.ShardedIVFFlatIndex or model2.mesh.size != MESH_SHARDS:
+            raise AssertionError(f"{what}: served {type(model2).__name__}")
+        log(f"{what}: h.1's snapshot as kind sharded_ivf_flat committed and loaded in "
+            f"{time.perf_counter() - t0:.2f} s; list sizes per shard "
+            f"{[int(z.sum()) for z in model2.lists.sizes]}")
+        s.client.set_nprobe(iid, nprobe)
+        s.client.set_nprobe(iid2, nprobe)
+        D1, M1 = s.client.search(q_eval, 11, iid)
+        D2, M2 = s.client.search(q_eval, 11, iid2)
+        share = same_top10(D1, M1, D2, M2, f"{what} vs h.1 at nprobe={nprobe}")
+        out["h.2"] = arm(args, s, counters, iid2, q_all, nprobe, card, what, model2, "K1", gt)
+        out["h.2"]["tie_free_share"] = share
+        out["h.4 ivf_tpu"] = routed_arm(args, s, counters, iid2, q_all, card,
+                                        "h.4 routed ivf_tpu shard_lists", model2, "K1")
+        out["h.7 K1"] = shard_kernel_checks(model2, q_all[:1024], "K1")
+        del model1, model2
+        for i in (iid, iid2):
+            s.client.drop_index(i)
+        torch.cuda.empty_cache()
+
+        # ---- h.5: flat with mesh_shards over phase 3's first 200,000 rows ----
+        what, iid5 = "h.5 flat mesh_shards", "flat_mesh"
+        x5 = x[:HNSW_N]
+        cfg5 = IndexCfg(index_builder_type="flat", dim=d, metric="l2", train_num=1000,
+                        mesh_shards=True, **mesh_kw)
+        build_index(s.client, iid5, cfg5, x5, what)
+        model5 = s.server.indexes[iid5].model
+        if type(model5) is not mesh.ShardedFlatIndex or model5.nshards != MESH_SHARDS:
+            raise AssertionError(f"{what}: served {type(model5).__name__}")
+        D5, M5 = s.client.search(q_eval, 11, iid5)
+        exact = FlatIndex(d, "l2", device="cuda")
+        exact.add(x5)
+        De, Ie = exact.search(q_eval, 11)
+        del exact
+        share = same_top10(De, [[(int(i),) for i in row] for row in Ie], D5, M5,
+                           f"{what} vs the single-device exact FlatIndex")
+        launches0 = model5.launches
+        out["h.5"] = arm(args, s, counters, iid5, q_all, 1, card, what, model5, None)
+        out["h.5"].update(tie_free_share=share, model_launches=model5.launches - launches0)
+        del model5
+        s.client.drop_index(iid5)
+        torch.cuda.empty_cache()
+
+        # ---- h.3: knnlm with shard_lists over phase 4's rows ----
+        x3, q3_all, gt3 = pq["x"], pq["q_all"], pq["gt"]
+        what, iid3 = "h.3 knnlm shard_lists (masked)", "knnlm_sharded"
+        cfg3 = IndexCfg(index_builder_type="knnlm", dim=x3.shape[1], metric="l2",
+                        centroids=4096, train_num=100_000, nprobe=32, code_size=64,
+                        pallas_adc=True, adc_lut_bf16=True, refine_k_factor=8,
+                        shard_lists=True, probe_routing=False, **mesh_kw)
+        t0 = time.perf_counter()
+        build_index(s.client, iid3, cfg3, x3, what)
+        model3 = s.server.indexes[iid3].model
+        if type(model3) is not mesh.ShardedIVFPQIndex or model3.mesh.size != MESH_SHARDS:
+            raise AssertionError(f"{what}: served {type(model3).__name__}")
+        nprobe3, _ = sweep_nprobe(s.client, iid3, q3_all[:1000], gt3, args.nprobe_from, 4096,
+                                  what)
+        out["h.3"] = arm(args, s, counters, iid3, q3_all, nprobe3, card, what, model3,
+                         "K3 lists", gt3)
+        out["h.3"]["build_s"] = time.perf_counter() - t0
+        if out["h.3"]["counts"]["K2"] or out["h.3"]["counts"]["K4"]:
+            raise AssertionError(f"{what}: K2 or K4 launched on a path whose geometry is K3's")
+        out["h.4 knnlm"] = routed_arm(args, s, counters, iid3, q3_all, card,
+                                      "h.4 routed knnlm shard_lists", model3, "K3 lists")
+        out["h.7 K3 lists"] = shard_kernel_checks(model3, q3_all[:1024], "K3 lists")
+        del model3
+
+        # ---- h.6: deletes, then save -> drop -> load ----
+        what = "h.6 knnlm shard_lists deletes"
+        s.client.set_nprobe(iid3, nprobe3)
+        dead = np.arange(0, x3.shape[0], 10)
+        t0 = time.perf_counter()
+        removed = s.client.remove_ids(iid3, dead.tolist())
+        remove_s = time.perf_counter() - t0
+        if removed != dead.size:
+            raise AssertionError(f"{what}: remove_ids tombstoned {removed} rows, not {dead.size}")
+        D6, M6 = s.client.search(q3_all[:1000], 10, iid3)
+        check_result(D6, M6, 1000, 10, f"{what} search")
+        if served_ids(M6) & set(dead.tolist()):
+            raise AssertionError(f"{what}: a deleted id was served")
+        log(f"{what}: remove_ids of {dead.size} ids in {remove_s:.3f} s; no deleted id served")
+        save_drop_load(s.client, iid3, q3_all[:1000], nprobe3, what)
+        loaded = s.server.indexes[iid3].model
+        if type(loaded) is not mesh.ShardedIVFPQIndex or loaded.mesh.size != MESH_SHARDS:
+            raise AssertionError(f"{what}: reloaded as {type(loaded).__name__}")
+        out["h.6"] = dict(removed=int(removed), remove_s=remove_s)
+        del loaded
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2510,16 +2858,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     replica_phase(args, sq_out, card)
     log(f"replica phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_out = mesh_phase(args, sq_out, outs, counters, card)
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    log("mesh phase readings: " + json.dumps(mesh_out))
     kernels = [
         dict(name="flat_list_scan", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
              launches=sq_out["counts"]["K1"], **k1, library_ms=None),
         dict(name="adc_scan", route="cuda", source=ADC_SOURCE, replaces=K2_REPLACES,
-             launches=k2_out["counts"]["K2"], **k2, library_ms=None),
+             launches=k2_out["counts"]["K2"], **k2),
         # K3's counter counts both of its entries; this row is the gathered
         # entry alone (0 on the knnlm path, which scores over the lists)
         dict(name="adc_scan_nibble", route="cuda", source=ADC_SOURCE, replaces=K3_REPLACES,
-             launches=pq_out["counts"]["K3"] - pq_out["counts"]["K3 lists"], **k3,
-             library_ms=None),
+             launches=pq_out["counts"]["K3"] - pq_out["counts"]["K3 lists"], **k3),
         dict(name="adc_scan_lists", route="cuda", source=ADC_SOURCE, replaces=K3_REPLACES,
              launches=pq_out["counts"]["K3 lists"], **k3_lists, library_ms=None),
         dict(name="adc_scan_shared", route="cuda", source=ADC_SOURCE, replaces=K4_REPLACES,

@@ -1089,24 +1089,35 @@ class Index:
     def _device_search(self, query_batch: np.ndarray, top_k: int):
         """The locked device launch: one in-flight search per index (the
         lock also serializes against add, list growth and the tombstone
-        masks)."""
+        masks). A model with a ``launches`` counter (the mesh-sharded ones,
+        parallel/mesh.py) gets it diffed around the call into
+        ``device_launches`` (launches this window took: 1.0 on the mesh)
+        and ``rows_per_launch``."""
         with self.index_lock:
             if self.state != IndexState.TRAINED:
                 raise RuntimeError(NOT_TRAINED_REJECTION_FMT.format(state=self.state))
             # the sampled trace of the scheduler's window, when a ring is wired
             trace_id = obs_spans.current_trace() if self.span_buffer is not None else None
+            launches0 = getattr(self.model, "launches", None)
             w0 = time.time() if trace_id is not None else 0.0
             t0 = time.perf_counter()
             out = self.model.search_batched(query_batch, top_k)
             dt = time.perf_counter() - t0
+            rows = int(query_batch.shape[0])
             self.perf.record("device_search_s", dt, exemplar=trace_id)
-            self.perf.record("device_search_rows", float(query_batch.shape[0]))
+            self.perf.record("device_search_rows", float(rows))
+            launches = None
+            if launches0 is not None:
+                launches = self.model.launches - launches0
+                self.perf.record("device_launches", float(launches))
+                if launches > 0:
+                    self.perf.record("rows_per_launch", rows / launches)
             if trace_id is not None:
                 # one launch serves the whole window: each sampled request
                 # of it gets the span
                 for tid in obs_spans.current_window_traces():
-                    self.span_buffer.record(tid, "engine.launch", w0, dt,
-                                            rows=int(query_batch.shape[0]))
+                    self.span_buffer.record(tid, "engine.launch", w0, dt, rows=rows,
+                                            launches=launches)
             return out
 
     @staticmethod

@@ -154,6 +154,17 @@ class PaddedLists:
         ids[:, : self.cap] = self.ids
         self.data, self.ids, self.cap = data, ids, newcap
 
+    def slot_of(self, l):
+        """Global list id -> the list's slot in the padded layout (the list
+        itself here; the mesh-sharded lists use strided ownership)."""
+        return l
+
+    def rows_at(self, assign, pos) -> np.ndarray:
+        """Host rows at (list, within-list position) pairs."""
+        flat = torch.as_tensor(np.asarray(assign, np.int64) * self.cap
+                               + np.asarray(pos, np.int64), device=self.device)
+        return to_numpy(self.data.reshape((-1,) + self.payload_shape)[flat])
+
     def mask_cells(self, cells) -> None:
         """Tombstone list cells (flat ``list * cap + pos`` addresses): one
         scatter of -1 into the ids plane. Sizes are not decremented: a dead
@@ -165,13 +176,16 @@ class PaddedLists:
         self.ids.view(-1)[torch.as_tensor(cells, device=self.device)] = -1
 
     @staticmethod
-    def plan_append(list_idx: np.ndarray, nlist: int, cap: int, sizes_host: np.ndarray):
+    def plan_append(list_idx: np.ndarray, nlist: int, cap: int, sizes_host: np.ndarray,
+                    slot_fn=None):
         """Host-side offset planning: sort the batch by target list and give
-        each row the write position ``list * cap + size + within-batch
-        offset``. Returns (counts, order, pos, within): ``order`` sorts the
-        batch by list (stable), ``pos`` are the flat cell addresses in that
-        sorted order, ``within`` the within-list positions in INPUT order —
-        the id -> (list, slot) map persistence reads rows back through."""
+        each row the write position ``slot * cap + size + within-batch
+        offset``, where a list's slot is ``slot_fn(list)`` (the list itself
+        by default; the mesh-sharded lists pass their strided ownership).
+        Returns (counts, order, pos, within): ``order`` sorts the batch by
+        list (stable), ``pos`` are the flat cell addresses in that sorted
+        order, ``within`` the within-list positions in INPUT order — the
+        id -> (list, slot) map persistence reads rows back through."""
         n = list_idx.shape[0]
         counts = np.bincount(list_idx, minlength=nlist)
         order = np.argsort(list_idx, kind="stable")
@@ -180,7 +194,8 @@ class PaddedLists:
         group_start[1:] = np.cumsum(counts)
         offs = np.arange(n, dtype=np.int64) - group_start[sorted_li]
         within_sorted = sizes_host[sorted_li] + offs
-        pos = sorted_li.astype(np.int64) * cap + within_sorted
+        slots = sorted_li.astype(np.int64)
+        pos = (slot_fn(slots) if slot_fn is not None else slots) * cap + within_sorted
         within = np.empty(n, np.int32)
         within[order] = within_sorted.astype(np.int32)
         return counts, order, pos, within
@@ -220,16 +235,14 @@ def _checked_addresses(addresses, end: int, what: str) -> np.ndarray:
     return a
 
 
-def gather_list_rows(lists: PaddedLists, assign, pos) -> np.ndarray:
+def gather_list_rows(lists, assign, pos) -> np.ndarray:
     """Host rows at (list, within-list position) pairs — how persistence
-    reads the payload back from the device lists."""
+    reads the payload back from the device lists (``PaddedLists`` or the
+    mesh-sharded lists, through their ``rows_at``)."""
     assign = np.asarray(assign, np.int64)
     if assign.shape[0] == 0:
-        return to_numpy(lists.data.new_zeros((0,) + tuple(lists.payload_shape)))
-    flat = torch.as_tensor(assign * lists.cap + np.asarray(pos, np.int64),
-                           device=lists.device)
-    rows = lists.data.reshape((-1,) + tuple(lists.payload_shape))[flat]
-    return to_numpy(rows)
+        return to_numpy(torch.zeros((0,) + tuple(lists.payload_shape), dtype=lists.dtype))
+    return lists.rows_at(assign, pos)
 
 
 class TorchIndex:

@@ -8,23 +8,34 @@ Ported builders (same names as the reference and the JAX package):
 - knnlm      — IVF-PQ, m = cfg.extra['code_size'] (default 64), 8-bit codes
                (IndexIVFPQ), with the pallas_adc, adc_lut_bf16,
                refine_k_factor and kmeans_iters knobs; opq=True puts an OPQ
-               rotation in front (opq_iters, default 8); its
-               shard_lists=True variant is not ported and raises;
+               rotation in front (opq_iters, default 8); shard_lists=True
+               shards the code lists over the mesh (ShardedIVFPQIndex);
 - hnswsq     — the host C++ HNSW graph over SQ8 codes (models/hnsw.py), L2
                only: store_n (graph degree, default 128), ef_construction
                (default 100), refine_k_factor (default 8); nprobe is
                efSearch. Without a working C++ compiler it raises; it never
-               falls back to a flat scan.
+               falls back to a flat scan;
+- ivf_tpu    — IVF-Flat whose coarse k-means trains sharded over the mesh
+               (IvfTpuIndex, the single-device K1 scan); shard_lists=True
+               shards the fp32 lists too (ShardedIVFFlatIndex).
+
+The mesh knobs (parallel/mesh.py): ``mesh_shards=True`` on ``flat`` shards
+the corpus (ShardedFlatIndex); ``mesh_devices`` pins the shard count (0:
+every visible device; unset: DFT_MESH_DEVICES); ``mesh_virtual=True``
+lets more shards than visible devices share them round-robin (the port's
+counterpart of the JAX tests' forced host device count);
+``probe_routing`` picks the sharded IVF scan mode (unset:
+DFT_MESH_MODE).
 
 Factory strings: ``[OPQ<m>[_<dout>],|PCA<dout>,|PCAR<dout>,] core
 [,RFlat|,Refine(Flat)]`` with core ``Flat | SQ8 | SQfp16 | PQ<m>[x8]``,
 ``HNSW<M>[,Flat|,SQ8]`` or ``IVF<n>,(Flat|SQ8|SQfp16|PQ<m>[x8])``
 (``{centroids}`` templating as in the reference). ``index_from_state_dict``
-rebuilds the kinds ``flat``, ``ivf_flat``, ``ivf_pq``, ``hnswsq`` and
-``pretransform``: the npz state written by either package loads here.
-
-Everything else (ivf_tpu, the mesh-sharded indexes and kinds) raises a
-"not yet ported" error.
+rebuilds the kinds ``flat``, ``ivf_flat``, ``ivf_pq``, ``hnswsq``,
+``pretransform``, ``sharded_flat``, ``sharded_ivf_flat`` and
+``sharded_ivf_pq``: the npz state written by either package loads here
+(a sharded kind on ``make_mesh(None)``, the host's mesh, whatever mesh
+wrote it).
 """
 
 import logging
@@ -34,14 +45,21 @@ from distributed_faiss_tpu_torch.models.flat import FlatIndex
 from distributed_faiss_tpu_torch.models.hnsw import HNSWSQIndex
 from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
 from distributed_faiss_tpu_torch.models.pretransform import PreTransformIndex
-from distributed_faiss_tpu_torch.utils.config import IndexCfg
+from distributed_faiss_tpu_torch.parallel.mesh import (
+    IvfTpuIndex,
+    ShardedFlatIndex,
+    ShardedIVFFlatIndex,
+    ShardedIVFPQIndex,
+    make_mesh,
+)
+from distributed_faiss_tpu_torch.utils.config import IndexCfg, MeshCfg
 
 logger = logging.getLogger()
 
 
 def _not_ported(what: str):
     return RuntimeError(f"{what} is not yet ported to distributed_faiss_tpu_torch "
-                        "(ported: the flat, ivf_simple, ivfsq, knnlm and hnswsq "
+                        "(ported: the flat, ivf_simple, ivfsq, knnlm, hnswsq and ivf_tpu "
                         "builders; the Flat, SQ8, SQfp16 and PQ<m> factory specs, "
                         "alone or under IVF<n>, and HNSW<M>, with an optional RFlat "
                         "and an optional OPQ<m>[_<d>], PCA<d> or PCAR<d> prefix)")
@@ -70,9 +88,42 @@ def _flat_scan_knobs(cfg: IndexCfg) -> dict:
     )
 
 
+def _mesh(cfg: IndexCfg, device):
+    """The cfg's mesh: cfg.extra['mesh_devices'] pins the shard count (0:
+    every visible device) and 'mesh_virtual' lets the shards share
+    devices; neither set -> None, and the model's ``make_mesh(None)``
+    applies the host's MeshCfg."""
+    n_dev = cfg.extra.get("mesh_devices")
+    virtual = bool(cfg.extra.get("mesh_virtual", False))
+    if n_dev is None and not virtual:
+        return None
+    return make_mesh(None if n_dev is None else int(n_dev), device=device, virtual=virtual)
+
+
+def _probe_routing(cfg: IndexCfg) -> bool:
+    """Sharded-IVF serving mode: cfg.extra['probe_routing'] wins, else the
+    host's DFT_MESH_MODE ('routed' -> True)."""
+    pr = cfg.extra.get("probe_routing")
+    if pr is None:
+        return MeshCfg.from_env().mode == "routed"
+    return bool(pr)
+
+
+def _warn_routing_ignored(cfg: IndexCfg, builder: str) -> None:
+    if _probe_routing(cfg):
+        logger.warning("probe_routing (cfg.extra or DFT_MESH_MODE=routed) requires "
+                       "shard_lists=True on the %s builder; ignored — building the "
+                       "single-device scan", builder)
+
+
 def _build_flat(cfg: IndexCfg, device):
     if cfg.extra.get("mesh_shards"):
-        raise _not_ported("the mesh-sharded flat index (mesh_shards)")
+        # exact search with the corpus sharded over the mesh
+        return ShardedFlatIndex(cfg.dim, cfg.get_metric(), mesh=_mesh(cfg, device),
+                                device=device)
+    if cfg.extra.get("mesh_devices") is not None:  # 0 is an explicit pin too
+        logger.warning("mesh_devices is set but mesh_shards is not: building a "
+                       "single-device flat index (set mesh_shards=True to shard)")
     return FlatIndex(cfg.dim, cfg.get_metric(), device=device)
 
 
@@ -93,16 +144,18 @@ def _opq_iters(cfg: IndexCfg) -> int:
 
 
 def _build_knnlm(cfg: IndexCfg, device):
-    if cfg.extra.get("shard_lists"):
-        raise _not_ported("the knnlm builder's shard_lists=True (mesh-sharded lists)")
     m = int(cfg.extra.get("code_size", 64))
-    inner = IVFPQIndex(cfg.dim, _centroids(cfg), m=m,
-                       nbits=int(cfg.extra.get("nbits", 8)), metric=cfg.get_metric(),
-                       kmeans_iters=_kmeans_iters(cfg),
-                       use_pallas=bool(cfg.extra.get("pallas_adc", False)),
-                       refine_k_factor=int(cfg.extra.get("refine_k_factor", 0)),
-                       adc_lut_bf16=bool(cfg.extra.get("adc_lut_bf16", False)),
-                       device=device)
+    knobs = dict(m=m, nbits=int(cfg.extra.get("nbits", 8)), metric=cfg.get_metric(),
+                 kmeans_iters=_kmeans_iters(cfg),
+                 use_pallas=bool(cfg.extra.get("pallas_adc", False)),
+                 refine_k_factor=int(cfg.extra.get("refine_k_factor", 0)),
+                 adc_lut_bf16=bool(cfg.extra.get("adc_lut_bf16", False)), device=device)
+    if cfg.extra.get("shard_lists"):
+        inner = ShardedIVFPQIndex(cfg.dim, _centroids(cfg), mesh=_mesh(cfg, device),
+                                  probe_routing=_probe_routing(cfg), **knobs)
+    else:
+        _warn_routing_ignored(cfg, "knnlm")
+        inner = IVFPQIndex(cfg.dim, _centroids(cfg), **knobs)
     if cfg.extra.get("opq"):
         # FAISS "OPQ<m>,IVF<n>,PQ<m>": the rotation is fit on the train
         # sample, then the inner index trains on rotated rows
@@ -130,16 +183,34 @@ def _build_hnswsq(cfg: IndexCfg, device) -> HNSWSQIndex:
     return _hnsw(cfg.dim, int(cfg.extra.get("store_n", 128)), cfg, device)
 
 
+def _build_ivf_tpu(cfg: IndexCfg, device):
+    mesh = _mesh(cfg, device)
+    if cfg.extra.get("shard_lists"):
+        # inverted lists partitioned over the mesh; K1 scores every shard
+        if cfg.extra.get("pallas_flat"):
+            logger.warning("pallas_flat is accepted on the sharded (shard_lists=True) flat "
+                           "scan for compatibility; the port runs K1 on every shard "
+                           "whatever it says")
+        return ShardedIVFFlatIndex(cfg.dim, _centroids(cfg), cfg.get_metric(), mesh=mesh,
+                                   kmeans_iters=_kmeans_iters(cfg),
+                                   probe_routing=_probe_routing(cfg),
+                                   refine_k_factor=int(cfg.extra.get("refine_k_factor", 0)),
+                                   scan_bf16=bool(cfg.extra.get("scan_bf16", False)),
+                                   device=device)
+    _warn_routing_ignored(cfg, "ivf_tpu")
+    return IvfTpuIndex(cfg.dim, _centroids(cfg), cfg.get_metric(), "f32", mesh=mesh,
+                       kmeans_iters=_kmeans_iters(cfg), device=device,
+                       **_flat_scan_knobs(cfg))
+
+
 INDEX_BUILDERS = {
     "flat": _build_flat,
     "ivf_simple": _build_ivf_simple,
     "ivfsq": _build_ivfsq,
     "knnlm": _build_knnlm,
     "hnswsq": _build_hnswsq,
+    "ivf_tpu": _build_ivf_tpu,
 }
-
-# builders of the JAX package that later slices port
-_PENDING_BUILDERS = ("ivf_tpu",)
 
 _FLAT_CODECS = {"Flat": "f32", "SQ8": "sq8", "SQfp16": "f16"}
 _IVF_CODECS = {"Flat": "f32", "SQ8": "sq8", "SQfp16": "f16", "SQ16": "f16"}
@@ -259,8 +330,6 @@ def remove_rows_unsupported(cfg: IndexCfg) -> bool:
 def build_index(cfg: IndexCfg, device="cuda"):
     """Resolve cfg -> index model. The engine resolves cfg.centroids first."""
     if cfg.index_builder_type:
-        if cfg.index_builder_type in _PENDING_BUILDERS:
-            raise _not_ported(f"index_builder_type {cfg.index_builder_type!r}")
         try:
             builder = INDEX_BUILDERS[cfg.index_builder_type]
         except KeyError:
@@ -273,15 +342,14 @@ def build_index(cfg: IndexCfg, device="cuda"):
 
 
 _STATE_KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
-                "hnswsq": HNSWSQIndex, "pretransform": PreTransformIndex}
-_PENDING_KINDS = ("sharded_flat", "sharded_ivf_flat", "sharded_ivf_pq")
+                "hnswsq": HNSWSQIndex, "pretransform": PreTransformIndex,
+                "sharded_flat": ShardedFlatIndex, "sharded_ivf_flat": ShardedIVFFlatIndex,
+                "sharded_ivf_pq": ShardedIVFPQIndex}
 
 
 def index_from_state_dict(state, device="cuda"):
     """Rebuild a ported index model from its state_dict (either package's)."""
     kind = str(state["kind"])
-    if kind in _PENDING_KINDS:
-        raise _not_ported(f"serialized index kind {kind!r}")
     try:
         cls = _STATE_KINDS[kind]
     except KeyError:

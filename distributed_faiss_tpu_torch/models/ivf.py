@@ -316,7 +316,7 @@ class _IVFBase(base.TorchIndex):
 
     def remove_rows(self, rows: np.ndarray) -> None:
         """Tombstone rows out of the inverted lists: -1 into the ids plane
-        at each row's (list, pos) cell, from the host map. K1 and K3 mask
+        at each row's (slot, pos) cell, from the host map. K1 and K3 mask
         id < 0 inside the kernel, K2's and K4's paths right after it, so a
         dead cell is padding to every scan; this covers flat ``PQ<m>`` (one
         list) too."""
@@ -327,7 +327,7 @@ class _IVFBase(base.TorchIndex):
             raise IndexError(f"row out of range [0, {self._n})")
         assign = self._host_assign_array()[rows].astype(np.int64)
         pos = self._host_pos_array()[rows].astype(np.int64)
-        self.lists.mask_cells(assign * self.lists.cap + pos)
+        self.lists.mask_cells(self.lists.slot_of(assign) * self.lists.cap + pos)
 
     def _rows_in_insertion_order(self, chunk: int = 1 << 20, lists=None) -> np.ndarray:
         """Stream the stored payload back from the device in id order

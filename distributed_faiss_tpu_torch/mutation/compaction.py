@@ -22,11 +22,11 @@ import numpy as np
 
 logger = logging.getLogger()
 
-# the kinds compact_state can filter (the JAX package's sharded kinds
-# besides are not ported), and the per-row arrays (in insertion order) a
-# state dict of those kinds carries
+# the kinds compact_state can filter, and the per-row arrays (in insertion
+# order) a state dict of those kinds carries
 _ROW_KEYS = ("rows", "assign", "list_norms", "refine_rows")
-SUPPORTED_KINDS = frozenset({"flat", "ivf_flat", "ivf_pq"})
+SUPPORTED_KINDS = frozenset({"flat", "sharded_flat", "ivf_flat", "sharded_ivf_flat",
+                             "ivf_pq", "sharded_ivf_pq"})
 
 
 class CompactionUnsupported(RuntimeError):

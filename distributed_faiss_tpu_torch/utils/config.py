@@ -8,9 +8,11 @@
 ``cfg.json`` written by either package loads in the other.
 
 ``SchedulerCfg``, ``WireCfg``, ``MutationCfg``, ``VersioningCfg``,
-``ReplicationCfg``, ``AntiEntropyCfg`` and ``TracingCfg`` read the same
-environment variables with the same defaults and validation. The mesh's
-Cfg belongs to a subsystem not ported yet.
+``ReplicationCfg``, ``AntiEntropyCfg``, ``TracingCfg`` and ``MeshCfg``
+read the same environment variables with the same defaults and
+validation. ``MeshCfg`` has one knob more, ``DFT_MESH_VIRTUAL``: the
+port's counterpart of the JAX tests' forced host device count (see
+``parallel/mesh.py`` ``make_mesh``).
 """
 
 import json
@@ -279,3 +281,34 @@ class TracingCfg(_EnvCfg):
             raise ValueError("trace buffer must hold at least 1 span")
         if self.metrics_port < 0:
             raise ValueError("metrics port must be >= 0 (0 = off)")
+
+
+# Deployment-side defaults for mesh-backed builders (parallel/mesh.py).
+# Whether an index shards at all (``mesh_shards`` / ``shard_lists``) stays
+# in cfg.extra and round-trips through snapshots; how a rank drives its
+# devices is a per-host property these knobs fill in when cfg.extra does
+# not pin it.
+
+_MESH_MODES = ("masked", "routed")
+
+
+class MeshCfg(_EnvCfg):
+    """Per-host mesh serving knobs: the device count (0 = every visible
+    device), the sharded-IVF serving mode ('masked' or 'routed'), and
+    whether more shards than visible devices may share them round-robin
+    (``virtual``)."""
+
+    _SCHEMA = {
+        "devices": (int, "DFT_MESH_DEVICES", 0),
+        "mode": (str, "DFT_MESH_MODE", "masked"),
+        "virtual": (bool, "DFT_MESH_VIRTUAL", False),
+    }
+    _KIND = "mesh"
+
+    def _validate(self) -> None:
+        self.devices = int(self.devices)
+        if self.devices < 0:
+            raise ValueError("mesh devices must be >= 0 (0 = all local)")
+        if self.mode not in _MESH_MODES:
+            raise ValueError(
+                f"mesh mode must be one of {_MESH_MODES}, got {self.mode!r}")

@@ -876,3 +876,85 @@ def test_delta_heal_between_two_card_ranks(card, tmp_path, monkeypatch):
     finally:
         for srv in servers:
             srv.stop()
+
+
+# ------------------------------------------------------------------ the mesh
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_flat_scan_on_shard_remapped_lists(card, S):
+    """K1 on one shard's view of a probe group (``mesh._owned``: local
+    slots, size 0 on lists another shard owns) against its plain version:
+    identical -inf masks (every non-owned pair wholly -inf), scores within
+    1e-4."""
+    from distributed_faiss_tpu_torch.parallel import mesh
+
+    q, data, ids, li, _, norms, _, _ = flat_scan_inputs(70 + S, "f32", "l2", True, 128,
+                                                         nq=16, nlist=12, cap=300, g=3)
+    li = (li * S + 1) % (12 * S)  # global ids over S shards' lists
+    sizes_local = torch.as_tensor(np.random.default_rng(S).integers(0, 301, 12).astype(np.int32))
+    for s in range(S):
+        slot, sizes = mesh._owned(li.to(card), sizes_local.to(card), S, s)
+        args = (q.to(card), data.to(card), ids.to(card), slot, sizes, norms.to(card))
+        got = flat_scan.flat_list_scan(*args, metric="l2", codec="f32")
+        want = flat_scan.flat_list_scan_plain(*args, metric="l2", codec="f32")
+        assert_scores_match(got, want, 1e-4, 1e-4)
+        assert bool(torch.isneginf(got[(li.to(card) % S) != s]).all())
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
+def test_adc_lists_on_shard_remapped_lists(card, lut_dtype):
+    """K3 over the lists on each of 4 shards' views of a probe group
+    against its plain version (1e-4), non-owned pairs wholly -inf."""
+    from distributed_faiss_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(77)
+    S, nlist_local, cap, m, nq, g = 4, 6, 700, 64, 16, 2
+    codes = torch.as_tensor(rng.integers(0, 256, (nlist_local, cap, m)).astype(np.uint8))
+    ids = rng.integers(0, 1 << 20, (nlist_local, cap)).astype(np.int32)
+    ids[rng.random((nlist_local, cap)) < 0.05] = -1
+    sizes_local = torch.as_tensor(rng.integers(0, cap + 1, nlist_local).astype(np.int32))
+    li = torch.as_tensor(rng.integers(0, nlist_local * S, (nq, g)).astype(np.int32)).to(card)
+    lut = torch.as_tensor(rng.standard_normal((nq * g, m, 256)).astype(np.float32))
+    lut = lut.to(lut_dtype).to(card)
+    for s in range(S):
+        slot, sizes = mesh._owned(li, sizes_local.to(card), S, s)
+        args = (lut, codes.to(card), slot, sizes, torch.as_tensor(ids).to(card))
+        got = adc_scan.adc_scan_lists(*args)
+        want = adc_scan.adc_scan_lists_plain(*args)
+        assert_scores_match(got, want, 1e-4, 1e-4)
+        assert bool(torch.isneginf(got[(li % S) != s]).all())
+
+
+@pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq"])
+def test_sharded_ivf_on_the_card_serves_the_cpu_ids(card, kind, monkeypatch):
+    """A sharded IVF snapshot restored on 4 virtual shards of the card
+    (masked and routed) serves the CPU's ids, launching its kernel on
+    every shard."""
+    from distributed_faiss_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(78)
+    d = 64
+    centers = rng.standard_normal((16, d)).astype(np.float32) * 3.0
+    x = centers[rng.integers(0, 16, 4000)] + rng.standard_normal((4000, d)).astype(np.float32)
+    q = centers[rng.integers(0, 16, 40)] + rng.standard_normal((40, d)).astype(np.float32)
+    cpu_mesh = mesh.make_mesh(4, device="cpu", virtual=True)
+    if kind == "ivf_flat":
+        cpu = mesh.ShardedIVFFlatIndex(d, 16, "l2", mesh=cpu_mesh, kmeans_iters=4)
+    else:
+        cpu = mesh.ShardedIVFPQIndex(d, 16, m=8, mesh=cpu_mesh, kmeans_iters=4, pq_iters=4,
+                                     refine_k_factor=4)
+    cpu.train(x)
+    cpu.add(x)
+    cpu.set_nprobe(5)
+    want = cpu.search(q, 10)
+    monkeypatch.setenv("DFT_MESH_DEVICES", "4")
+    monkeypatch.setenv("DFT_MESH_VIRTUAL", "1")
+    for routing in (False, True):
+        state = dict(cpu.state_dict(), probe_routing=routing)
+        on_card = type(cpu).from_state_dict(state, device="cuda")
+        assert on_card.mesh.size == 4 and on_card.device.type == "cuda"
+        got = on_card.search(q, 10)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-3, atol=1e-3)
+        assert (on_card.shard_launches > 0).all()

@@ -34,6 +34,7 @@ _NAMED = ("distributed_faiss_tpu_torch.parallel.wire",
           "distributed_faiss_tpu_torch.parallel.replication",
           "distributed_faiss_tpu_torch.parallel.antientropy",
           "distributed_faiss_tpu_torch.parallel.launcher",
+          "distributed_faiss_tpu_torch.parallel.mesh",
           "distributed_faiss_tpu_torch.testing.chaos")
 
 

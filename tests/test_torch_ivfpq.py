@@ -164,12 +164,18 @@ def test_knnlm_builder_knobs():
 
 @pytest.mark.parametrize("extra", ["opq", "shard_lists"])
 def test_knnlm_unported_variants_raise(extra):
-    """shard_lists is not ported, alone or under the OPQ rotation: the
-    builder raises instead of quietly building an unsharded index."""
-    cfg = IndexCfg(index_builder_type="knnlm", dim=D, centroids=4,
+    """shard_lists, alone or under the OPQ rotation, builds the mesh-sharded
+    IVF-PQ (parallel/mesh.py), never a quietly unsharded index."""
+    from distributed_faiss_tpu_torch.models.pretransform import PreTransformIndex
+    from distributed_faiss_tpu_torch.parallel.mesh import ShardedIVFPQIndex
+
+    cfg = IndexCfg(index_builder_type="knnlm", dim=D, centroids=4, code_size=4,
                    **{extra: True, "shard_lists": True})
-    with pytest.raises(RuntimeError, match="not yet ported"):
-        tfactory.build_index(cfg, device="cpu")
+    idx = tfactory.build_index(cfg, device="cpu")
+    if extra == "opq":
+        assert isinstance(idx, PreTransformIndex)
+        idx = idx.inner
+    assert isinstance(idx, ShardedIVFPQIndex)
 
 
 def test_pq_factory_specs():

@@ -133,17 +133,22 @@ def test_port_snapshot_loads_in_jax(data, tmp_path, spec):
 
 
 def test_factory_refuses_unported(data):
-    """What later slices port raises "not yet ported": the ivf_tpu builder,
-    the mesh-sharded flat index and the sharded snapshot kinds."""
+    """The mesh builders and the sharded snapshot kinds are ported
+    (parallel/mesh.py); a factory spec outside the grammar still raises
+    "not yet ported"."""
+    from distributed_faiss_tpu_torch.parallel import mesh
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
-    for cfg in (IndexCfg(index_builder_type="ivf_tpu", dim=D, centroids=4),
-                IndexCfg(index_builder_type="flat", dim=D, mesh_shards=True)):
-        with pytest.raises(RuntimeError, match="not yet ported"):
-            tfactory.build_index(cfg, device="cpu")
-    for kind in ("sharded_ivf_pq", "sharded_flat"):
-        with pytest.raises(RuntimeError, match="not yet ported"):
-            tfactory.index_from_state_dict({"kind": kind}, device="cpu")
+    for cfg, cls in ((IndexCfg(index_builder_type="ivf_tpu", dim=D, centroids=4),
+                      mesh.IvfTpuIndex),
+                     (IndexCfg(index_builder_type="flat", dim=D, mesh_shards=True),
+                      mesh.ShardedFlatIndex)):
+        assert type(tfactory.build_index(cfg, device="cpu")) is cls
+    for kind, cls in (("sharded_ivf_pq", mesh.ShardedIVFPQIndex),
+                      ("sharded_flat", mesh.ShardedFlatIndex)):
+        assert tfactory._STATE_KINDS[kind] is cls
+    with pytest.raises(RuntimeError, match="not yet ported"):
+        tfactory.build_index(IndexCfg(faiss_factory="IVF4,LSH", dim=D), device="cpu")
 
 
 @pytest.mark.parametrize("spec", [dict(index_builder_type="hnswsq"),
