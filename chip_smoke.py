@@ -226,6 +226,47 @@ h. The mesh (``parallel/mesh.py``), ``MESH_SHARDS`` (4) virtual shards on
       shard's local slots and owned sizes) against their plain versions
       (rtol/atol 1e-4), timed, with their bounds.
 
+After phase h:
+
+i. The runtime witnesses (``utils/{lockdep,racecheck,threadcheck,xfercheck,
+   sanitize,compilecheck}.py``) on the card, in two child processes of this
+   script (``--witness-child``), so their instrumentation stays out of the
+   timings above. Both load phase 3's and phase 4's storage dirs, linked
+   right after each path's save (``keep_for_witness``, under
+   ``build/chip_smoke_witness``), with the queries and the ids those
+   phases served: nothing is rebuilt, and each index serves at its
+   recall-clearing nprobe through an ``IndexServer(device="cuda")``, the
+   scheduler and an ``IndexClient`` from 8 client threads.
+   The first child starts with DFT_LOCKDEP, DFT_RACECHECK, DFT_THREADCHECK,
+   DFT_XFERCHECK and DFT_COMPILECHECK set:
+   1. Doctored faults, each caught as its own error type: ``.item()`` on a
+      card tensor inside ``xfercheck.guarded("doctored")`` on a worker
+      raises ImplicitTransferError naming the label and a line of this
+      file, while the same call inside ``explicit()`` and on an unguarded
+      thread at the same moment passes; under GRAFT_SANITIZE=1 an li of
+      nlist and a size of cap + 1 to K1 and to K3 over the lists, and codes
+      past ksub or of another width to K2 and K4, raise SanitizeError with
+      no launch, after which a correct K1 launch matches its plain version
+      (the CUDA context survived); a NaN query through the client fails its
+      own request on each index and the next request serves the kept ids;
+      an ABBA order on two ``lockdep.lock``s raises LockOrderError.
+   2. After a warm-up, compilecheck's snapshot; ``--nq`` queries on each
+      index: the parent's ids, no race, no implicit sync inside the
+      guarded sections, an acyclic lock-order graph, K1 (``ivfsq``) and K3
+      over the lists (``knnlm``) launched, and each ``explicit()`` site
+      that fired, with its syncs a window (the designed syncs of the
+      served path).
+   3. The same under GRAFT_SANITIZE=1: the same ids; then no kernel built
+      or loaded since the snapshot, and no non-daemon thread left when the
+      servers are closed.
+   The second child starts with every knob off:
+   4. ``--nq`` queries on the ``ivfsq`` index with each witness alone and
+      with none: QPS and p50/p99 a run (readings, not bounds), the same
+      ids in each. xfercheck and sanitize on one server between two runs
+      with none; lockdep and racecheck (which turns lockdep's factories
+      on too) each on a server made under its knob.
+   A child that exits nonzero or prints no result fails the script.
+
 Before each of phases 3-8, a-d and each part of e and g every kernel's
 launch count is zeroed (phase b reads none), and it is read after the
 phase: K1 must have launched on the ivfsq path, the surface index, the
@@ -241,7 +282,9 @@ processes, which start at 0 and report them through ``ping``. In phase h
 each arm zeroes the counts and reads them after, with the sharded
 model's ``shard_launches``: K1 on the ``ivf_tpu`` arms (on every shard of
 the sharded ones), K3 over the lists on every shard of the ``knnlm`` arms
-(and neither K2 nor K4).
+(and neither K2 nor K4). Phase i's first child zeroes its own counts
+before each index's witnessed serve and reads them after: K1 on the
+``ivfsq`` serve, K3 over the lists on the ``knnlm`` one.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -253,6 +296,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -921,6 +965,7 @@ def ivfsq_path(args, counters, card: str) -> dict:
         out = serve_and_report(args, s.client, iid, q_all, nprobe, card, what)
         save_drop_load(s.client, iid, q_eval, nprobe, what)
         out.update(counts=read_counts(counters), recall=rec)
+        keep_for_witness(s, iid, what, q_all, out["meta"], nprobe)
         if out["counts"]["K1"] <= 0:
             raise AssertionError(f"{what}: K1 was not launched on this path")
         # the loaded model's tensors, for timing K1 at the path's shapes
@@ -975,6 +1020,7 @@ def knnlm_path(args, counters, card: str) -> dict:
         pq_out = serve_and_report(args, s.client, iid, q_all, nprobe, card, what)
         save_drop_load(s.client, iid, q_eval, nprobe, what)
         pq_out.update(counts=read_counts(counters), recall=rec)
+        keep_for_witness(s, iid, what, q_all, pq_out["meta"], nprobe)
         log(f"{what}: launches {pq_out['counts']}")
         if pq_out["counts"]["K3"] <= 0 or pq_out["counts"]["K3 lists"] <= 0:
             raise AssertionError(f"{what}: K3 was not launched over the probed lists on "
@@ -2743,6 +2789,454 @@ def mesh_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase i
+
+# the witness knobs of phase i.2, set in the child's environment before it
+# imports the port
+WITNESS_KNOBS = ("DFT_LOCKDEP", "DFT_RACECHECK", "DFT_THREADCHECK", "DFT_XFERCHECK",
+                 "DFT_COMPILECHECK")
+# phase 3's and phase 4's committed storage dirs (hard links, taken right
+# after their save), their queries and served ids, for phase i's children
+WITNESS_DIR = os.path.join(REPO, "build", "chip_smoke_witness")
+WITNESS_TIMEOUT_S = 600
+# i.4's arms, in order: the per-call witnesses alone on one server between
+# two runs with none, then the witnesses that act at construction, each on
+# a server made under its knob (racecheck turns lockdep's factories on too)
+READING_ARMS_SHARED = ("none", "xfercheck", "sanitize", "none")
+READING_ARMS_FRESH = ("lockdep", "racecheck")
+
+
+def served_id_array(meta_per_request) -> np.ndarray:
+    """(nq, 10) int64 ids of the served rows' metadata ``(row,)``, -1 where a
+    slot is empty."""
+    rows = [row for req in meta_per_request for row in req]
+    return np.asarray([[m[0] if m is not None else -1 for m in row] for row in rows],
+                      np.int64)
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)
+
+
+def keep_for_witness(s, iid: str, name: str, q_all: np.ndarray, meta, nprobe: int) -> None:
+    """Right after a path's save: link its committed storage dir (every
+    later write replaces files whole, so the links keep this generation),
+    and keep its queries and the ids it served them for phase i."""
+    dst = os.path.join(WITNESS_DIR, name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(s.store, iid), os.path.join(dst, "store", iid),
+                    copy_function=_link_or_copy)
+    np.savez(os.path.join(dst, "served.npz"), q=q_all, ids=served_id_array(meta))
+    with open(os.path.join(dst, "path.json"), "w") as f:
+        json.dump({"iid": iid, "nprobe": int(nprobe)}, f)
+
+
+def witnessed_path(name: str, mode: str) -> dict:
+    """A fresh server over a kept storage dir, its index loaded at the path's
+    nprobe: dict(serving, iid, nprobe, q, ids)."""
+    src = os.path.join(WITNESS_DIR, name)
+    with open(os.path.join(src, "path.json")) as f:
+        spec = json.load(f)
+    kept = np.load(os.path.join(src, "served.npz"))
+    t0 = time.perf_counter()
+    s = Serving(os.path.join(src, f"serve-{mode}"), store=os.path.join(src, "store"))
+    try:
+        if not s.client.load_index(spec["iid"]):
+            raise AssertionError(f"phase i {name}: load_index of the kept storage dir failed")
+        s.client.set_nprobe(spec["iid"], spec["nprobe"])
+    except BaseException:
+        s.close()
+        raise
+    log(f"phase i {name}: loaded in {time.perf_counter() - t0:.2f} s, nprobe {spec['nprobe']}")
+    return dict(serving=s, iid=spec["iid"], nprobe=spec["nprobe"], q=kept["q"],
+                ids=kept["ids"], name=name)
+
+
+def serve_same_ids(p: dict, card: str, what: str):
+    """``--nq`` queries of the kept path, timed; the ids must be the ones the
+    parent's phase 3 or 4 served for them. Returns (QPS, p50, p99)."""
+    qps, p50, p99, meta = timed_serve(p["serving"].client, p["q"], p["iid"], what, card)
+    got = served_id_array(meta)
+    if not np.array_equal(got, p["ids"]):
+        bad = int((got != p["ids"]).any(axis=1).sum())
+        raise AssertionError(f"{what}: {bad} of {got.shape[0]} queries served other ids "
+                             "than the parent's phase")
+    return qps, p50, p99
+
+
+def windows(p: dict) -> int:
+    stats = p["serving"].server.scheduler.perf_stats()
+    return stats["counters"]["batches"]
+
+
+def acyclic(edges) -> bool:
+    graph = {}
+    for a, b in edges:
+        graph.setdefault(a, set()).add(b)
+    state = {}
+
+    def visit(n):
+        state[n] = 1
+        for m in graph.get(n, ()):
+            if state.get(m) == 1 or (m not in state and not visit(m)):
+                return False
+        state[n] = 2
+        return True
+
+    return all(n in state or visit(n) for n in list(graph))
+
+
+def doctored_sync(xfercheck) -> dict:
+    """i.1: ``.item()`` inside guarded() on a worker raises, naming the label
+    and this file's line; inside explicit(), and on an unguarded thread
+    while the guard is armed, it passes."""
+    x = torch.ones(8, device="cuda")
+    armed, other_done = threading.Event(), threading.Event()
+    box = {}
+
+    def unguarded():
+        armed.wait(30.0)
+        try:
+            box["other"] = x.sum().item()
+        except BaseException as e:  # checked below
+            box["other_err"] = repr(e)
+        other_done.set()
+
+    def guarded():
+        try:
+            with xfercheck.guarded("doctored"):
+                box["mode"] = torch.cuda.get_sync_debug_mode()
+                armed.set()
+                other_done.wait(30.0)
+                with xfercheck.explicit("doctored fetch"):
+                    box["explicit"] = x.sum().item()
+                x.sum().item()
+        except xfercheck.ImplicitTransferError as e:
+            box["err"] = str(e)
+
+    ts = [threading.Thread(target=guarded, name="smoke-doctored-guarded"),
+          threading.Thread(target=unguarded, name="smoke-doctored-free")]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(60.0)
+    err = box.get("err", "")
+    if (box.get("other") != 8.0 or box.get("explicit") != 8.0 or box.get("mode") != 1
+            or "'doctored'" not in err or "chip_smoke.py:" not in err):
+        raise AssertionError(f"i.1: the doctored sync was not caught as expected: {box}")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("i.1: the sync debug mode was not restored")
+    leaks = xfercheck.drain()
+    if len(leaks) != 1:
+        raise AssertionError(f"i.1: {len(leaks)} recorded violations, expected the one")
+    xfercheck.reset()
+    site = re.search(r" at (\S+:\d+): ", err).group(1)
+    log(f"i.1 xfercheck: .item() in guarded('doctored') raised ImplicitTransferError at "
+        f"{site}; inside explicit() and on an unguarded thread it passed")
+    return {"raised_at": site}
+
+
+def doctored_operands(sq: dict, pq: dict, sanitize, counters) -> dict:
+    """i.1: under GRAFT_SANITIZE=1 an li of nlist and a size of cap + 1 to K1
+    and K3 over the lists, and codes past ksub or of another width to K2
+    and K4, raise SanitizeError before any launch; then a correct K1
+    launch matches its plain version (the CUDA context is intact)."""
+    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+
+    sm = sq["serving"].server.indexes[sq["iid"]].model
+    pm = pq["serving"].server.indexes[pq["iid"]].model
+    qb = torch.as_tensor(sq["q"][:64], device="cuda")
+    li = ivf._probe_groups(sm.centroids, qb, 1, 1, "l2")[0].contiguous()
+    sizes = sm.lists.sizes[li.long()].contiguous()
+    opts = sm._scan_options()
+    nlist, cap = sm.lists.data.shape[0], sm.lists.data.shape[1]
+    pli = ivf._probe_groups(pm.centroids, torch.as_tensor(pq["q"][:64], device="cuda"),
+                            1, 1, "l2")[0].contiguous()
+    psizes = pm.lists.sizes[pli.long()].contiguous()
+    lut = torch.zeros((64, pm.m, 256), dtype=torch.bfloat16, device="cuda")
+    pnlist, pcap = pm.lists.data.shape[0], pm.lists.data.shape[1]
+
+    def k1(li_, sizes_):
+        return flat_scan.flat_list_scan(qb, sm.lists.data, sm.lists.ids, li_, sizes_,
+                                        metric="l2", codec=sm.codec, **opts)
+
+    def k3(li_, sizes_):
+        return adc_scan.adc_scan_lists(lut, pm.lists.data, li_, sizes_, pm.lists.ids)
+
+    small_lut = torch.randn(8, 12, 16, device="cuda")
+    codes = torch.randint(0, 16, (8, 40, 12), dtype=torch.uint8, device="cuda")
+    past = codes.clone()
+    past.view(-1)[7] = 16
+    cases = {
+        "K1 li=nlist": lambda: k1(torch.full_like(li, nlist), sizes),
+        "K1 sizes=cap+1": lambda: k1(li, torch.full_like(sizes, cap + 1)),
+        "K3 lists li=nlist": lambda: k3(torch.full_like(pli, pnlist), psizes),
+        "K3 lists sizes=cap+1": lambda: k3(pli, torch.full_like(psizes, pcap + 1)),
+        "K2 code=ksub": lambda: adc_scan.adc_scan(small_lut, past),
+        "K2 codes of another m": lambda: adc_scan.adc_scan(small_lut,
+                                                           codes[..., :11].contiguous()),
+        "K4 code=ksub": lambda: adc_scan.adc_scan_shared(small_lut, past[0].contiguous()),
+        "K4 codes of another m": lambda: adc_scan.adc_scan_shared(
+            small_lut, codes[0, :, :11].contiguous()),
+    }
+    os.environ["GRAFT_SANITIZE"] = "1"
+    try:
+        zero_counts(counters)
+        caught = {}
+        for name, call in cases.items():
+            try:
+                call()
+            except sanitize.SanitizeError as e:
+                caught[name] = str(e)
+                continue
+            raise AssertionError(f"i.1: {name} reached the kernel under GRAFT_SANITIZE=1")
+        torch.cuda.synchronize()
+        launched = read_counts(counters)
+        if any(launched.values()):
+            raise AssertionError(f"i.1: a sanitized bad operand launched a kernel: {launched}")
+        got = k1(li, sizes)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("GRAFT_SANITIZE", None)
+    want = flat_scan.flat_list_scan_plain(qb, sm.lists.data, sm.lists.ids, li, sizes,
+                                          metric="l2", codec=sm.codec, **opts)
+    err = compare_scores(got, want, 1e-4, 1e-4, "i.1 K1 after the sanitizer cases")
+    log(f"i.1 sanitize: {len(caught)} bad operands raised SanitizeError with no launch ("
+        + "; ".join(caught) + f"); a correct K1 launch then matched its plain version, max "
+        f"abs err {err:.3g}")
+    return {"caught": sorted(caught), "k1_after_max_abs_err": err}
+
+
+def doctored_nan(paths, sanitize) -> dict:
+    """i.1: under GRAFT_SANITIZE=1 a NaN query fails its own request, and
+    the rank goes on serving the kept ids."""
+    out = {}
+    os.environ["GRAFT_SANITIZE"] = "1"
+    try:
+        for p in paths:
+            q = p["q"][:100].copy()
+            q[3, 5] = np.nan
+            try:
+                p["serving"].client.search(q, 10, p["iid"])
+            except Exception as e:  # the rank's SanitizeError, carried by the rpc error
+                if "SanitizeError" not in repr(e) and "NaN" not in str(e):
+                    raise AssertionError(f"i.1 {p['name']}: the NaN query failed "
+                                         f"otherwise: {e!r}") from e
+                out[p["name"]] = type(e).__name__
+            else:
+                raise AssertionError(f"i.1 {p['name']}: a NaN query was served")
+            _, meta = p["serving"].client.search(p["q"][:100], 10, p["iid"])
+            if not np.array_equal(served_id_array([meta]), p["ids"][:100]):
+                raise AssertionError(f"i.1 {p['name']}: the rank served other ids after the "
+                                     "NaN query")
+    finally:
+        os.environ.pop("GRAFT_SANITIZE", None)
+    log(f"i.1 sanitize: a NaN query failed its request alone on each index ({out}); "
+        "the next request served the kept ids")
+    return out
+
+
+def doctored_abba(lockdep) -> str:
+    a, b = lockdep.lock("smoke.a"), lockdep.lock("smoke.b")
+    with a:
+        with b:
+            pass
+    with b:
+        try:
+            a.acquire()
+        except lockdep.LockOrderError as e:
+            msg = str(e)
+        else:
+            a.release()
+            raise AssertionError("i.1: an ABBA order on two lockdep locks did not raise")
+    lockdep.reset()
+    log("i.1 lockdep: an ABBA order on two lockdep.lock()s raised LockOrderError")
+    return msg.split(" (at ")[0]
+
+
+def witness_checks(args, card: str) -> dict:
+    """Phase i.1-i.3, in a child with every witness knob set before the port
+    was imported (the module docstring)."""
+    from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+    from distributed_faiss_tpu_torch.utils import (compilecheck, lockdep, racecheck,
+                                                   sanitize, threadcheck, xfercheck)
+
+    missing = [k for k in WITNESS_KNOBS if os.environ.get(k) != "1"]
+    if missing:
+        raise AssertionError(f"phase i checks: knobs not set: {missing}")
+    threadcheck.install()
+    racecheck.install()
+    compilecheck.install()
+    counters = launch_counters(flat_scan, adc_scan)
+    threads0 = threadcheck.snapshot()
+    out = {}
+    paths = []
+    try:
+        for name in ("ivfsq", "knnlm"):
+            paths.append(witnessed_path(name, "checks"))
+        for p in paths:
+            serve_queries(p["serving"].client, p["q"][:1000], p["iid"], 100, 8)  # warm
+        sq, pq = paths
+        out["i.1"] = dict(xfercheck=doctored_sync(xfercheck),
+                          sanitize=doctored_operands(sq, pq, sanitize, counters),
+                          nan=doctored_nan(paths, sanitize), lockdep=doctored_abba(lockdep))
+        if racecheck.drain():
+            raise AssertionError("i.1: racecheck recorded a race in the doctored cases")
+        snap = compilecheck.snapshot()
+        log(f"i.2: compilecheck after warm-up: {snap}")
+        out["i.2"] = {}
+        for p, kernel in ((sq, "K1"), (pq, "K3 lists")):
+            what = f"i.2 {p['name']} witnessed"
+            xfercheck.reset()
+            w0 = windows(p)
+            zero_counts(counters)
+            qps, p50, p99 = serve_same_ids(p, card, what)
+            counts = read_counts(counters)
+            n_windows = windows(p) - w0
+            syncs = {site: n / n_windows for site, n in sorted(xfercheck.syncs().items())}
+            races, leaks = racecheck.drain(), xfercheck.drain()
+            if races or leaks:
+                raise AssertionError(f"{what}: {len(races)} races, {len(leaks)} implicit "
+                                     f"syncs:\n" + "\n".join(races + leaks))
+            if counts[kernel] <= 0:
+                raise AssertionError(f"{what}: {kernel} was not launched: {counts}")
+            log(f"{what}: 0 races, 0 implicit syncs in the guarded sections, launches "
+                f"{counts}, {n_windows} windows; designed syncs a window:")
+            for site, n in syncs.items():
+                log(f"    {n:.3f}  {site}")
+            out["i.2"][p["name"]] = dict(qps=qps, p50_ms=p50, p99_ms=p99, counts=counts,
+                                         windows=n_windows, syncs_per_window=syncs)
+        edges = set(lockdep.edges())
+        if not acyclic(edges):
+            raise AssertionError(f"i.2: the lock-order graph has a cycle: {sorted(edges)}")
+        log(f"i.2 lockdep: {len(edges)} acquisition edges, acyclic, no LockOrderError")
+        out["i.2"]["lock_edges"] = sorted(f"{a} -> {b}" for a, b in edges)
+        os.environ["GRAFT_SANITIZE"] = "1"
+        try:
+            out["i.3"] = {}
+            for p in paths:
+                qps, p50, p99 = serve_same_ids(p, card, f"i.3 {p['name']} GRAFT_SANITIZE=1")
+                out["i.3"][p["name"]] = dict(qps=qps, p50_ms=p50, p99_ms=p99)
+        finally:
+            os.environ.pop("GRAFT_SANITIZE", None)
+        new = compilecheck.new_since(snap)
+        races, leaks = racecheck.drain(), xfercheck.drain()
+        if new or races or leaks:
+            raise AssertionError(f"i.2/i.3: new builds or loads {new}, {len(races)} races, "
+                                 f"{len(leaks)} implicit syncs")
+        log("i.2/i.3: no kernel built or loaded after warm-up (compilecheck.new_since == {})")
+    finally:
+        for p in paths:
+            p["serving"].close()
+    threadcheck.check(threads0)
+    log("i.2 threadcheck: no non-daemon thread outlived the servers")
+    return out
+
+
+def witness_readings(args, card: str) -> dict:
+    """Phase i.4: the ivfsq path served with each witness alone and with none,
+    in one child that imported the port with every knob off (so the
+    module-level locks stay plain in every arm). xfercheck and sanitize
+    read their knob per call: their arms share one server with the two
+    unwitnessed runs. lockdep's and racecheck's act when locks and
+    instances are made: each gets a fresh server made under its knob."""
+    from distributed_faiss_tpu_torch.utils import racecheck
+
+    knobs = {"lockdep": "DFT_LOCKDEP", "racecheck": "DFT_RACECHECK",
+             "xfercheck": "DFT_XFERCHECK", "sanitize": "GRAFT_SANITIZE"}
+    readings = []
+
+    def reading(p, arm):
+        knob = knobs.get(arm)
+        if knob:
+            os.environ[knob] = "1"
+        try:
+            serve_queries(p["serving"].client, p["q"][:1000], p["iid"], 100, 8)  # warm
+            qps, p50, p99 = serve_same_ids(p, card, f"i.4 ivfsq, witness: {arm}")
+        finally:
+            if knob:
+                os.environ.pop(knob)
+        readings.append(dict(arm=arm, qps=qps, p50_ms=p50, p99_ms=p99))
+
+    p = witnessed_path("ivfsq", "readings")
+    try:
+        for arm in READING_ARMS_SHARED:
+            reading(p, arm)
+    finally:
+        p["serving"].close()
+    for arm in READING_ARMS_FRESH:
+        os.environ[knobs[arm]] = "1"
+        if arm == "racecheck":
+            racecheck.install()
+        try:
+            p = witnessed_path("ivfsq", f"readings-{arm}")
+            try:
+                reading(p, arm)
+            finally:
+                p["serving"].close()
+        finally:
+            if arm == "racecheck":
+                racecheck.uninstall()
+            os.environ.pop(knobs[arm], None)
+    base = float(np.mean([r["qps"] for r in readings if r["arm"] == "none"]))
+    for r in readings:
+        r["qps_over_none"] = r["qps"] / base
+    log("i.4 readings (ivfsq, --nq queries, QPS over the mean of the two 'none' runs) on "
+        f"{card}: " + ", ".join(f"{r['arm']} {r['qps']:.1f} ({r['qps_over_none']:.3f})"
+                                for r in readings))
+    return {"readings": readings}
+
+
+def run_witness_child(args, mode: str, env: dict) -> dict:
+    """Run one phase i child and return its result; fails when it exits
+    nonzero or prints no result. Its lines are logged with a prefix."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--witness-child", mode,
+           "--seed", str(args.seed), "--nq", str(args.nq)]
+    proc = subprocess.run(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE, text=True,
+                          timeout=WITNESS_TIMEOUT_S)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("WITNESS_RESULT "):
+            result = json.loads(line[len("WITNESS_RESULT "):])
+        else:
+            log(f"  [{mode}] {line}")
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"phase i {mode} child failed: exit {proc.returncode}, "
+                             f"result {'present' if result is not None else 'missing'}")
+    return result
+
+
+def witness_phase(args, card: str) -> dict:
+    """Phase i: the witnesses on the card, in two child processes over the
+    kept storage dirs of phases 3 and 4 (see the module docstring)."""
+    torch.cuda.empty_cache()
+    base = {k: v for k, v in os.environ.items()
+            if k not in WITNESS_KNOBS + ("GRAFT_SANITIZE", "DFT_XFERCHECK_SCOPE")}
+    t0 = time.perf_counter()
+    checks = run_witness_child(args, "checks", dict(base, **{k: "1" for k in WITNESS_KNOBS}))
+    t1 = time.perf_counter()
+    readings = run_witness_child(args, "readings", base)
+    log(f"phase i: checks {t1 - t0:.1f} s, readings {time.perf_counter() - t1:.1f} s")
+    return dict(checks=checks, **readings)
+
+
+def witness_child(args) -> int:
+    """The entry of a phase i child (``--witness-child``)."""
+    sys.path.insert(0, REPO)
+    from distributed_faiss_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off, as in the parent
+    card = nvidia_smi_line()
+    fn = {"checks": witness_checks, "readings": witness_readings}[args.witness_child]
+    result = fn(args, card)
+    print("WITNESS_RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2754,6 +3248,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also serve 2000 queries on the ivfsq, knnlm and flat-PQ paths "
                          "under torch.profiler and print where the device time goes")
+    # phase i's child processes (run by the script itself)
+    ap.add_argument("--witness-child", choices=("checks", "readings"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.nq < 1000:
         ap.error("--nq must be >= 1000 (the recall sweeps use the first 1000)")
@@ -2767,12 +3263,15 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card only",
               file=sys.stderr)
         return 2
+    if args.witness_child:
+        return witness_child(args)
     sys.path.insert(0, REPO)
     from distributed_faiss_tpu_torch.models import hnsw, ivf
     from distributed_faiss_tpu_torch.ops import adc_scan, cuda_build, distance, flat_scan
     from distributed_faiss_tpu_torch.utils.device import resolve_device
 
     t_start = time.perf_counter()
+    shutil.rmtree(WITNESS_DIR, ignore_errors=True)
     resolve_device("cuda")  # pins TF32 off for the plain versions' matmuls
     card = nvidia_smi_line()
     log(f"card: {card}")
@@ -2862,6 +3361,13 @@ def main(argv=None) -> int:
     mesh_out = mesh_phase(args, sq_out, outs, counters, card)
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     log("mesh phase readings: " + json.dumps(mesh_out))
+    t0 = time.perf_counter()
+    try:
+        witness_out = witness_phase(args, card)
+    finally:
+        shutil.rmtree(WITNESS_DIR, ignore_errors=True)
+    log(f"witness phase: {time.perf_counter() - t0:.1f} s")
+    log("witness phase readings: " + json.dumps(witness_out))
     kernels = [
         dict(name="flat_list_scan", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
              launches=sq_out["counts"]["K1"], **k1, library_ms=None),

@@ -67,7 +67,7 @@ from distributed_faiss_tpu_torch.mutation import tombstones as _tombstones
 from distributed_faiss_tpu_torch.mutation import versions as _versions
 from distributed_faiss_tpu_torch.mutation.tombstones import TombstoneSet
 from distributed_faiss_tpu_torch.observability import spans as obs_spans
-from distributed_faiss_tpu_torch.utils import serialization
+from distributed_faiss_tpu_torch.utils import lockdep, serialization, xfercheck
 from distributed_faiss_tpu_torch.utils.batching import SearchBatcher
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, MutationCfg, VersioningCfg
 from distributed_faiss_tpu_torch.utils.device import resolve_device
@@ -224,8 +224,8 @@ class Index:
         self.embeddings_buffer: List[np.ndarray] = []
         self.total_data = 0
         self.id_to_metadata = _MetaStore()
-        self.buffer_lock = threading.Lock()
-        self.index_lock = threading.Lock()
+        self.buffer_lock = lockdep.lock("Index.buffer_lock")
+        self.index_lock = lockdep.lock("Index.index_lock")
         self.state = IndexState.NOT_TRAINED
         self.model = None  # models.base.TorchIndex once trained
         # set when a server replaces this engine (drop_index): no further
@@ -262,13 +262,13 @@ class Index:
         self._version_watermark = {}
         # one cached snapshot of a retained generation for pinned reads,
         # under its own lock: a pinned read never contends with serving
-        self._pinned_lock = threading.Lock()
+        self._pinned_lock = lockdep.lock("Index._pinned_lock")
         self._pinned_cache = None
         # the standalone sidecar is written outside the serving locks, by
         # version: a payload snapshotted later is a superset (the set only
         # shrinks at a compaction swap, which bumps the version), so an
         # older writer skips
-        self._tombstone_io_lock = threading.Lock()
+        self._tombstone_io_lock = lockdep.lock("Index._tombstone_io_lock")
         self._tombstone_version = 0
         self._tombstone_written = 0  # under _tombstone_io_lock
         # the tombstone version the last committed generation captured: a
@@ -1129,7 +1129,8 @@ class Index:
         if model.ntotal == 0:
             rec = np.zeros((flat.shape[0], query_batch.shape[1]), np.float32)
         else:
-            rec = np.array(model.reconstruct_batch(np.where(flat >= 0, flat, 0)))
+            with xfercheck.explicit("reconstruct embeddings fetch"):
+                rec = np.array(model.reconstruct_batch(np.where(flat >= 0, flat, 0)))
             rec[flat < 0] = 0.0
         return scores, indexes, rec.reshape(indexes.shape + (query_batch.shape[1],))
 
@@ -1147,7 +1148,10 @@ class Index:
         for _ in range(8):
             with self.buffer_lock:
                 epoch0 = self._meta_epoch
-            scores, indexes, embs_arr = run()
+            # DFT_XFERCHECK=1: the launch-to-fetch span is a guarded section;
+            # the device is read only inside the explicit() fetches below it
+            with xfercheck.guarded("engine launch-to-fetch span"):
+                scores, indexes, embs_arr = run()
             with self.buffer_lock:
                 if self._meta_epoch != epoch0:
                     continue

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from distributed_faiss_tpu_torch.ops import distance
+from distributed_faiss_tpu_torch.utils import xfercheck
 from distributed_faiss_tpu_torch.utils.device import resolve_device
 
 row_norms_f32 = distance.row_norms_f32
@@ -50,7 +51,8 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.cpu().numpy()
+    with xfercheck.explicit("to_numpy host copy"):
+        return t.cpu().numpy()
 
 
 class DeviceVectorStore:
@@ -340,8 +342,10 @@ def blocked_search(q: np.ndarray, k: int, metric: str, fn, device, block: int = 
     out_s = np.empty((nq, k), np.float32)
     out_i = np.empty((nq, k), np.int64)
     for s in range(0, nq, block):
-        qb = torch.from_numpy(np.ascontiguousarray(q[s:s + block])).to(device)
+        with xfercheck.explicit("blocked_search query block upload"):
+            qb = torch.from_numpy(np.ascontiguousarray(q[s:s + block])).to(device)
         vals, ids = fn(qb)
-        out_s[s:s + qb.shape[0]] = vals.cpu().numpy()
-        out_i[s:s + qb.shape[0]] = ids.cpu().numpy()
+        with xfercheck.explicit("blocked_search block result fetch"):
+            out_s[s:s + qb.shape[0]] = vals.cpu().numpy()
+            out_i[s:s + qb.shape[0]] = ids.cpu().numpy()
     return finalize_results(out_s, out_i, metric)

@@ -39,7 +39,6 @@ import platform
 import shutil
 import subprocess
 import tempfile
-import threading
 from pathlib import Path
 from typing import Dict
 
@@ -47,6 +46,7 @@ import numpy as np
 import torch
 
 from distributed_faiss_tpu_torch.models import base
+from distributed_faiss_tpu_torch.utils import compilecheck, lockdep, xfercheck
 
 _REPO = Path(__file__).resolve().parents[2]
 SOURCE = _REPO / "native" / "hnsw.cpp"
@@ -56,7 +56,7 @@ CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 # queries per exact-rerank step: bounds the (rows, k * refine, d) gather
 _RERANK_BLOCK = 1024
 
-_lock = threading.Lock()
+_lock = lockdep.lock("hnsw._lock")
 _lib = None
 
 
@@ -92,6 +92,7 @@ def build_library() -> Path:
         raise RuntimeError("g++ not found: the hnswsq graph (native/hnsw.cpp) is built "
                            "from source at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compilecheck.record("g++:hnsw")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
     out = subprocess.run(cmd, capture_output=True, text=True)
@@ -110,7 +111,9 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build_library()))
+        path = build_library()
+        compilecheck.record("load:hnsw")
+        lib = ctypes.CDLL(str(path))
         lib.dft_hnsw_create.restype = ctypes.c_void_p
         lib.dft_hnsw_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_uint]
@@ -243,14 +246,16 @@ class HNSWSQIndex(base.TorchIndex):
         out_d = np.empty((q.shape[0], k), np.float32)
         out_i = np.empty((q.shape[0], k), np.int64)
         for s in range(0, q.shape[0], _RERANK_BLOCK):
-            qb = torch.from_numpy(q[s:s + _RERANK_BLOCK]).to(self.device)
-            cb = torch.from_numpy(cand[s:s + _RERANK_BLOCK]).to(self.device)
+            with xfercheck.explicit("hnsw rerank shortlist upload"):
+                qb = torch.from_numpy(q[s:s + _RERANK_BLOCK]).to(self.device)
+                cb = torch.from_numpy(cand[s:s + _RERANK_BLOCK]).to(self.device)
             rec = rows[cb.clamp(min=0)].float()  # (b, kk, d)
             d2 = ((qb[:, None, :] - rec) ** 2).sum(-1)
             d2 = d2.masked_fill(cb < 0, float("inf"))
             d2, order = torch.sort(d2, dim=1, stable=True)
-            out_d[s:s + qb.shape[0]] = d2[:, :k].cpu().numpy()
-            out_i[s:s + qb.shape[0]] = torch.gather(cb, 1, order[:, :k]).cpu().numpy()
+            with xfercheck.explicit("hnsw rerank result fetch"):
+                out_d[s:s + qb.shape[0]] = d2[:, :k].cpu().numpy()
+                out_i[s:s + qb.shape[0]] = torch.gather(cb, 1, order[:, :k]).cpu().numpy()
         return out_d, out_i
 
     def _codes_array(self) -> np.ndarray:

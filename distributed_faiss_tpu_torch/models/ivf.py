@@ -44,6 +44,7 @@ import torch
 
 from distributed_faiss_tpu_torch.models import base
 from distributed_faiss_tpu_torch.ops import adc_scan, distance, flat_scan, kmeans, pq, sq
+from distributed_faiss_tpu_torch.utils import sanitize
 
 logger = logging.getLogger()
 
@@ -467,9 +468,11 @@ class IVFFlatIndex(_IVFBase):
         scan_k = k * self.refine_k_factor if self.refine_k_factor else k
 
         def run(qb):
-            vals, ids = _ivf_flat_search(
-                self.centroids, self.lists.data, self.lists.ids, self.lists.sizes,
-                qb, scan_k, nprobe, g, self.metric, self.codec, **opts)
+            # GRAFT_SANITIZE=1: NaN checks on the probe scan (a plain call
+            # otherwise)
+            vals, ids = sanitize.maybe_checked(
+                _ivf_flat_search, self.centroids, self.lists.data, self.lists.ids,
+                self.lists.sizes, qb, scan_k, nprobe, g, self.metric, self.codec, **opts)
             if self.refine_k_factor:
                 vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)
             return vals, ids
@@ -626,14 +629,14 @@ class IVFPQIndex(_IVFBase):
 
         def run(qb):
             if self.nlist == 1:
-                vals, ids = _pq_shared_search(
-                    self.centroids, self.codebooks, self.lists.data, self.lists.ids,
-                    int(self.lists.sizes_host[0]), qb, adc_k, shared_chunk_rows(nb),
-                    self.metric, lut_bf16=self.lut_bf16)
+                vals, ids = sanitize.maybe_checked(
+                    _pq_shared_search, self.centroids, self.codebooks, self.lists.data,
+                    self.lists.ids, int(self.lists.sizes_host[0]), qb, adc_k,
+                    shared_chunk_rows(nb), self.metric, lut_bf16=self.lut_bf16)
             else:
-                vals, ids = _ivf_pq_search(
-                    self.centroids, self.codebooks, self.lists.data, self.lists.ids,
-                    self.lists.sizes, qb, adc_k, nprobe, g, self.metric,
+                vals, ids = sanitize.maybe_checked(
+                    _ivf_pq_search, self.centroids, self.codebooks, self.lists.data,
+                    self.lists.ids, self.lists.sizes, qb, adc_k, nprobe, g, self.metric,
                     lut_bf16=self.lut_bf16)
             if self.refine_k_factor:
                 vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)

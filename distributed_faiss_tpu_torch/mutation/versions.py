@@ -23,9 +23,10 @@ re-ingest always restores) are the degenerate case of the gates:
 """
 
 import os
-import threading
 import time
 from typing import Optional, Tuple
+
+from distributed_faiss_tpu_torch.utils import lockdep
 
 Version = Tuple[int, int, int]
 
@@ -83,7 +84,7 @@ class HLC:
             writer_id = (os.getpid() << 16) ^ (time.time_ns() & 0xFFFF)
         self.writer_id = int(writer_id) & 0x7FFFFFFF
         self._clock_ms = clock_ms or (lambda: time.time_ns() // 1_000_000)
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("HLC._lock")
         self._last_ms = 0
         self._counter = 0
 

@@ -25,6 +25,8 @@ import threading
 from collections import deque
 from typing import Optional
 
+from distributed_faiss_tpu_torch.utils import envutil, lockdep
+
 # the CALL-frame meta key a trace rides under
 TRACE_META_KEY = "trace_id"
 
@@ -34,15 +36,10 @@ DEFAULT_BUFFER = 2048
 _sample_rng = random.Random()
 
 
-def _env_number(name: str, cast, default):
-    raw = os.environ.get(name)
-    return default if raw in (None, "") else cast(raw)
-
-
 def sample_rate() -> float:
     """DFT_TRACE_SAMPLE: the share of requests that mint a trace (0 = off,
     1 = every request), read per call so a live process can be flipped."""
-    return _env_number("DFT_TRACE_SAMPLE", float, 0.0)
+    return envutil.env_float("DFT_TRACE_SAMPLE", 0.0)
 
 
 def mint_trace_id() -> str:
@@ -68,10 +65,10 @@ class SpanBuffer:
 
     def __init__(self, capacity: Optional[int] = None, rank=None):
         if capacity is None:
-            capacity = _env_number("DFT_TRACE_BUFFER", int, DEFAULT_BUFFER)
+            capacity = envutil.env_int("DFT_TRACE_BUFFER", DEFAULT_BUFFER)
         self.capacity = max(int(capacity), 1)
         self.rank = rank
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("SpanBuffer._lock")
         self._spans = deque(maxlen=self.capacity)
         self._counters = {"recorded": 0, "evicted": 0}
 
@@ -112,7 +109,7 @@ class SpanBuffer:
 # the client's spans (stub round trips, fan-out and failover hops) have no
 # server to own a buffer: they land in one process-local ring, created on
 # first use; a server rank owns its own (``IndexServer.spans``)
-_local_mu = threading.Lock()
+_local_mu = lockdep.lock("spans._local_mu")
 _local: Optional[SpanBuffer] = None
 
 

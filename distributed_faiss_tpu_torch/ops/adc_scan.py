@@ -47,17 +47,19 @@ launches the kernel once per slice, the first starting each score from 0
 scores, so every m the JAX package serves is served here. Each launch adds
 one to the wrapper's ``launches``; ``slices`` holds the number of slices
 of its latest call on the card. The JAX package's ``USE_NIBBLE`` switch
-and demotion state are not ported.
+and demotion state are not ported. Under GRAFT_SANITIZE=1 each wrapper
+checks its operands' shapes and gather bounds on the host before any
+launch (``utils/sanitize.py``).
 """
 
 import ctypes
 import functools
-import threading
 
 import torch
 
 from distributed_faiss_tpu_torch.ops import cuda_build
 from distributed_faiss_tpu_torch.ops.distance import NEG_INF
+from distributed_faiss_tpu_torch.utils import lockdep, sanitize
 
 LUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -73,7 +75,7 @@ _K4_TILE_STRIDE = 1024 + 1
 # this many bytes
 _SHARED_PLAIN_BYTES = 256 * 1024 * 1024
 
-_counter_lock = threading.Lock()
+_counter_lock = lockdep.lock("adc_scan._counter_lock")
 
 
 def nibble_supported(m: int, ksub: int) -> bool:
@@ -125,7 +127,21 @@ def adc_scan_shared_plain(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tenso
     return out
 
 
+def _sanitize(name, lut, codes, shape) -> None:
+    """GRAFT_SANITIZE=1: a 3-d LUT, codes of ``shape`` (from the LUT's), each
+    code below ksub, before any launch."""
+    if lut.dim() != 3:
+        raise sanitize.SanitizeError(f"sanitize: {name}: lut must be 3-d, got "
+                                     f"{tuple(lut.shape)}")
+    sanitize.check_shape(name, "codes", codes, shape)
+    sanitize.check_codes(name, codes, lut.shape[2])
+
+
 def _dispatch(wrapper, lut, codes):
+    if sanitize.enabled():
+        P, m = (lut.shape[0], lut.shape[1]) if lut.dim() == 3 else (-1, -1)
+        L = codes.shape[1] if codes.dim() == 3 else -1
+        _sanitize(wrapper.__name__, lut, codes, (P, L, m))
     if lut.device.type == "cpu":
         return adc_scan_plain(lut, codes)
     if lut.device.type != "cuda":
@@ -146,6 +162,9 @@ def adc_scan_nibble(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 def adc_scan_shared(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """K4: ADC scores (nq, L) fp32 of one (L, m) code list shared by the nq
     queries, for any m and ksub <= 256."""
+    if sanitize.enabled():
+        _sanitize("adc_scan_shared", lut, codes,
+                  (codes.shape[0], lut.shape[1] if lut.dim() == 3 else -1))
     if lut.device.type == "cpu":
         return adc_scan_shared_plain(lut, codes)
     if lut.device.type != "cuda":
@@ -184,6 +203,16 @@ def adc_scan_lists(lut: torch.Tensor, list_codes: torch.Tensor, li: torch.Tensor
     li, sizes_g: (nq, g) int32 probed lists and their fill counts;
     list_ids: (nlist, cap) int32. Slots at pos >= size or with id < 0 are
     -inf."""
+    if sanitize.enabled():
+        name = "adc_scan_lists"
+        if list_codes.dim() != 3 or li.dim() != 2:
+            raise sanitize.SanitizeError(f"sanitize: {name}: list_codes must be 3-d and li "
+                                         f"2-d, got {tuple(list_codes.shape)} and "
+                                         f"{tuple(li.shape)}")
+        nlist, cap, m = list_codes.shape
+        sanitize.check_shape(name, "lut", lut, (li.numel(), m, 256))
+        sanitize.check_shape(name, "list_ids", list_ids, (nlist, cap))
+        sanitize.check_probe(name, li, sizes_g, nlist, cap)
     if lut.device.type == "cpu":
         return adc_scan_lists_plain(lut, list_codes, li, sizes_g, list_ids)
     if lut.device.type != "cuda":

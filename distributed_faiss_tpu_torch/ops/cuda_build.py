@@ -8,7 +8,8 @@ its source and of the shared headers, so an edited kernel rebuilds and a
 stale one is never loaded.
 ``build`` starts one nvcc per source, all at once, and waits for them
 together. Nothing here runs at import time: this module imports on machines
-without nvcc (the CPU tests import every module).
+without nvcc (the CPU tests import every module). Each nvcc run and each
+library load is a ``utils/compilecheck.py`` record.
 """
 
 import ctypes
@@ -16,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
+
+from distributed_faiss_tpu_torch.utils import compilecheck, lockdep
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -26,7 +28,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = lockdep.lock("cuda_build._lock")
 _libs = {}
 
 
@@ -70,6 +72,7 @@ def build(names=None) -> dict:
         todo = {n: p for n, p in targets.items() if not p.exists()}
         procs = {}
         for name, lib in todo.items():
+            compilecheck.record(f"nvcc:{name}")
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC_DIR / f"{name}.cu")]
@@ -105,6 +108,7 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
+                compilecheck.record(f"load:{name}")
                 lib = ctypes.CDLL(str(path))
                 _libs[name] = lib
     return lib

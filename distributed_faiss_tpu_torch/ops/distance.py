@@ -20,6 +20,7 @@ relying on the order of ties.
 import torch
 
 from distributed_faiss_tpu_torch.ops import sq
+from distributed_faiss_tpu_torch.utils import sanitize
 
 NEG_INF = float("-inf")
 
@@ -161,4 +162,6 @@ def knn(q, x, k: int, metric: str = "l2", ntotal: int = None, chunk: int = 65536
         x = torch.nn.functional.pad(x, (0, 0, 0, newcap - cap))
         if live is not None:
             live = torch.nn.functional.pad(live, (0, newcap - cap), value=False)
-    return _knn_scan(q, x, int(ntotal), k, metric, chunk, codec, vmin, span, live)
+    # GRAFT_SANITIZE=1: NaN checks on the scan's operands and results
+    return sanitize.maybe_checked(_knn_scan, q, x, int(ntotal), k, metric, chunk, codec,
+                                  vmin, span, live)

@@ -8,21 +8,22 @@ CPU it runs ``flat_list_scan_plain`` (gather + decode + einsum + mask,
 the JAX package's non-Pallas body at models/ivf.py:176-196). For CUDA
 tensors it launches the hand-written kernel in ``csrc/flat_scan.cu`` or
 raises: there is no fallback. Each launch adds one to
-``flat_list_scan.launches``.
+``flat_list_scan.launches``. Under GRAFT_SANITIZE=1 the operands' shapes
+and gather bounds are checked on the host first (``utils/sanitize.py``).
 """
 
 import ctypes
-import threading
 
 import torch
 
 from distributed_faiss_tpu_torch.ops import cuda_build, sq
 from distributed_faiss_tpu_torch.ops.distance import NEG_INF, row_norms_f32
+from distributed_faiss_tpu_torch.utils import lockdep, sanitize
 
 # list codec -> (the kernel's codec id, the lists' storage dtype)
 CODECS = {"f32": (0, torch.float32), "f16": (1, torch.float16), "sq8": (2, torch.uint8)}
 
-_counter_lock = threading.Lock()
+_counter_lock = lockdep.lock("flat_scan._counter_lock")
 
 
 def flat_list_scan_plain(q, list_data, list_ids, li, sizes_g, list_norms=None,
@@ -68,6 +69,8 @@ def flat_list_scan(q, list_data, list_ids, li, sizes_g, list_norms=None,
     list_norms: (nlist, cap) fp32 stored ``||x||^2`` of the decoded rows, or
     None to recompute them. Invalid slots (pos >= size, or id < 0) are -inf.
     """
+    if sanitize.enabled():
+        _sanitize(q, list_data, list_ids, li, sizes_g, list_norms)
     if q.device.type == "cpu":
         return flat_list_scan_plain(q, list_data, list_ids, li, sizes_g, list_norms,
                                     vmin, span, metric=metric, codec=codec,
@@ -79,6 +82,19 @@ def flat_list_scan(q, list_data, list_ids, li, sizes_g, list_norms=None,
 
 
 flat_list_scan.launches = 0
+
+
+def _sanitize(q, list_data, list_ids, li, sizes_g, list_norms):
+    """GRAFT_SANITIZE=1: shapes that agree and in-bounds gathers, before any
+    launch."""
+    name = "flat_list_scan"
+    nlist, cap = list_data.shape[0], list_data.shape[1]
+    sanitize.check_shape(name, "list_data", list_data, (nlist, cap, q.shape[-1]))
+    sanitize.check_shape(name, "list_ids", list_ids, (nlist, cap))
+    if list_norms is not None:
+        sanitize.check_shape(name, "list_norms", list_norms, (nlist, cap))
+    sanitize.check_shape(name, "li", li, (q.shape[0], li.shape[-1]))
+    sanitize.check_probe(name, li, sizes_g, nlist, cap)
 
 
 def _check(name, t, dtype, shape, device):

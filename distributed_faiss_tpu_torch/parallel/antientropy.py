@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 from distributed_faiss_tpu_torch.mutation import versions as _versions
 from distributed_faiss_tpu_torch.mutation.tombstones import id_match_key
 from distributed_faiss_tpu_torch.parallel import replication, rpc
-from distributed_faiss_tpu_torch.utils import serialization
+from distributed_faiss_tpu_torch.utils import lockdep, serialization
 from distributed_faiss_tpu_torch.utils.config import AntiEntropyCfg
 
 logger = logging.getLogger()
@@ -84,7 +84,7 @@ class HealthTable:
 
     def __init__(self, clock=time.monotonic):
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("HealthTable._lock")
         self._peers: Dict[Tuple[str, int], dict] = {}
         self._inbound: Dict[int, dict] = {}
 
@@ -163,7 +163,7 @@ class AntiEntropySweeper:
         self.discovery_path = discovery_path
         self.cfg = cfg if cfg is not None else AntiEntropyCfg.from_env()
         self.health = HealthTable()
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("AntiEntropySweeper._lock")
         self._counters = {"sweeps": 0, "digests_matched": 0, "digests_mismatched": 0,
                           "rows_repaired": 0, "rows_refreshed": 0, "full_syncs": 0,
                           "empty_deltas": 0,

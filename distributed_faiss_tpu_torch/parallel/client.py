@@ -63,6 +63,8 @@ import numpy as np
 from distributed_faiss_tpu_torch.mutation import versions as _versions
 from distributed_faiss_tpu_torch.observability import spans as obs_spans
 from distributed_faiss_tpu_torch.parallel import replication, rpc
+from distributed_faiss_tpu_torch.utils import envutil, lockdep
+from distributed_faiss_tpu_torch.utils.atomics import AtomicCounters
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg, VersioningCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
@@ -75,9 +77,9 @@ REROUTE_LOG_LEN = 256
 def client_pool_size(num_indexes: int) -> int:
     """Fan-out worker budget: DFT_CLIENT_POOL overrides; the default
     budgets 8 concurrent full fan-outs (threads spawn lazily)."""
-    raw = os.environ.get("DFT_CLIENT_POOL")
-    if raw:
-        return max(int(raw), num_indexes)
+    pool = envutil.env_int("DFT_CLIENT_POOL")
+    if pool:
+        return max(pool, num_indexes)
     return 8 * max(num_indexes, 1)
 
 
@@ -181,9 +183,9 @@ class IndexClient:
         self._rng = random.Random()  # private: placement never touches the global RNG
         # guards cur_server_ids, the reroute ring, the read pins, the
         # suspects and the version bookkeeping
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("IndexClient._stats_lock")
         self.reroutes = deque(maxlen=REROUTE_LOG_LEN)
-        self.counters = replication.Counters(
+        self.counters = AtomicCounters(
             ("reroutes", "failovers", "under_replicated", "quorum_failures"))
         self.rcfg = replication_cfg if replication_cfg is not None else ReplicationCfg.from_env()
         eff_r = min(self.rcfg.replication, max(self.num_indexes, 1))

@@ -65,6 +65,7 @@ from distributed_faiss_tpu_torch.models import ivf as ivfmod
 from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
 from distributed_faiss_tpu_torch.ops import adc_scan, distance, flat_scan, pq
 from distributed_faiss_tpu_torch.ops import kmeans as km
+from distributed_faiss_tpu_torch.utils import xfercheck
 from distributed_faiss_tpu_torch.utils.config import MeshCfg
 from distributed_faiss_tpu_torch.utils.device import resolve_device
 
@@ -728,7 +729,8 @@ def _routed_pairs_local(probes: torch.Tensor, s: int, S: int, local_k: int, cap:
     nq, nprobe = probes.shape
     dev = probes.device
     flat_li = probes.reshape(-1)
-    sel = torch.nonzero((flat_li % S) == s).squeeze(1)  # exact compaction, query order
+    with xfercheck.explicit("routed pair compaction: torch.nonzero of the owned pairs"):
+        sel = torch.nonzero((flat_li % S) == s).squeeze(1)  # exact compaction, query order
     if sel.numel() == 0:
         return _empty_topk(nq, local_k, dev)
     pair_qi = sel // nprobe
@@ -745,7 +747,8 @@ def _routed_pairs_local(probes: torch.Tensor, s: int, S: int, local_k: int, cap:
     pair_vals, pair_cells = torch.cat(pv), torch.cat(pc)
     counts = torch.bincount(pair_qi, minlength=nq)
     rank = torch.arange(sel.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[pair_qi]
-    maxc = int(counts.max().item())
+    with xfercheck.explicit("routed pairs a query: counts.max()"):
+        maxc = int(counts.max().item())
     dv = torch.full((nq, maxc, kk), distance.NEG_INF, dtype=torch.float32, device=dev)
     dc = torch.full((nq, maxc, kk), -1, dtype=torch.int64, device=dev)
     dv[pair_qi, rank] = pair_vals

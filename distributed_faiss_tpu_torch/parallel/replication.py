@@ -18,12 +18,12 @@ R = 1 (the default) is one group per rank and quorum 1.
 """
 
 import logging
-import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 from distributed_faiss_tpu_torch.parallel import rpc
+from distributed_faiss_tpu_torch.utils import lockdep
 from distributed_faiss_tpu_torch.utils.state import (
     NOT_TRAINED_REJECTION_FMT,
     STALE_READ_REJECTION_PREFIX,
@@ -116,7 +116,7 @@ class MembershipTable:
     order, the read path's failover order."""
 
     def __init__(self, groups_by_pos: List[int]):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("MembershipTable._lock")
         self._group_of: Dict[int, int] = {}
         self._groups: Dict[int, List[int]] = {}
         for pos, gid in enumerate(groups_by_pos):
@@ -188,23 +188,6 @@ def plan_read_fanout(membership: MembershipTable, preferred: Dict[int, int],
     return plan
 
 
-class Counters:
-    """Named monotonic counters that threads bump under one small lock;
-    ``snapshot`` is a consistent copy."""
-
-    def __init__(self, names):
-        self._lock = threading.Lock()
-        self._values = dict.fromkeys(names, 0)
-
-    def inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._values[name] += n
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return dict(self._values)
-
-
 class RepairQueue:
     """Bounded record of under-replicated writes awaiting repair: each entry
     carries the payload and the positions that missed it. Past ``maxlen``
@@ -215,7 +198,7 @@ class RepairQueue:
     DROP_WARN_INTERVAL_S = 60.0
 
     def __init__(self, maxlen: int = 256):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("RepairQueue._lock")
         self._items = deque(maxlen=max(1, int(maxlen)))
         self._counters = {"recorded": 0, "repaired": 0, "dropped": 0}
         self._last_drop_warn = 0.0

@@ -53,6 +53,7 @@ import numpy as np
 
 from distributed_faiss_tpu_torch.observability import spans as obs_spans
 from distributed_faiss_tpu_torch.parallel import wire
+from distributed_faiss_tpu_torch.utils import envutil, lockdep
 from distributed_faiss_tpu_torch.utils.config import WireCfg
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
 
@@ -142,8 +143,7 @@ _HDR = struct.Struct("<4sBII")
 def mux_enabled_by_env() -> bool:
     """DFT_RPC_MUX (default on): 0 gives the serial one-call-per-connection
     client."""
-    raw = os.environ.get("DFT_RPC_MUX")
-    return raw is None or raw not in ("0", "false", "False", "")
+    return envutil.env_flag("DFT_RPC_MUX", True)
 
 
 def wire_binary_by_env() -> bool:
@@ -575,7 +575,7 @@ class Client:
         self._wire = (wire_binary_by_env() if wire_binary is None
                       else bool(wire_binary)) and self._mux
         self._peer_wire = False  # under _lock, reset per connection
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("Client._lock")
         self._closed = False
         self._shutdown = False
         self._next_redial = 0.0

@@ -71,6 +71,7 @@ from distributed_faiss_tpu_torch.serving.scheduler import (
     SchedulerStopped,
     SearchScheduler,
 )
+from distributed_faiss_tpu_torch.utils import envutil, lockdep
 from distributed_faiss_tpu_torch.utils.config import (
     AntiEntropyCfg,
     IndexCfg,
@@ -101,9 +102,9 @@ def _search_args(args, kwargs) -> dict:
 def rpc_worker_count() -> int:
     """Worker pool size for mux-dispatched non-search ops and response
     writes (DFT_RPC_WORKERS overrides)."""
-    raw = os.environ.get("DFT_RPC_WORKERS")
-    if raw:
-        return max(1, int(raw))
+    workers = envutil.env_int("DFT_RPC_WORKERS")
+    if workers:
+        return max(1, workers)
     return min(8, max(2, os.cpu_count() or 4))
 
 
@@ -124,7 +125,7 @@ class _ConnState:
 
     def __init__(self, addr, reader: rpc.FrameReader):
         self.addr = addr
-        self.wlock = threading.Lock()
+        self.wlock = lockdep.lock("IndexServer.conn_wlock")
         self.peer_wire = False
         self.reader = reader
 
@@ -137,13 +138,12 @@ class IndexServer:
                  tracing_cfg: Optional[TracingCfg] = None):
         self.device = resolve_device(device)
         self.indexes: Dict[str, Index] = {}
-        self.indexes_lock = threading.Lock()
+        self.indexes_lock = lockdep.lock("IndexServer.indexes_lock")
         # ids this rank dropped, so the sweeper never pulls one back from a
         # peer that missed the drop; a re-create, load or resync clears it
         self._dropped: set = set()
         # the replica group this rank serves: None until registered
-        group = os.environ.get("DFT_SHARD_GROUP")
-        self.shard_group: Optional[int] = int(group) if group else None
+        self.shard_group: Optional[int] = envutil.env_int("DFT_SHARD_GROUP")
         # the sweeper resolves its peers from the discovery file; without
         # one (or with DFT_ANTIENTROPY=0) the rank has none. It starts once
         # the socket is bound, so it can tell its own discovery entry.
@@ -158,7 +158,7 @@ class IndexServer:
         self.socket: Optional[socket.socket] = None
         self._stopping = threading.Event()
         self.perf = LatencyStats()  # per-RPC latency
-        self._threads_lock = threading.Lock()
+        self._threads_lock = lockdep.lock("IndexServer._threads_lock")
         self._train_threads: List[threading.Thread] = []
         self._conns = set()  # live client connections, under _threads_lock
         # DFT_RPC_WIRE=pickle keeps every response byte-identical to the
@@ -181,7 +181,7 @@ class IndexServer:
                                                thread_name_prefix=f"rpc-worker:r{rank}")
         # mux calls dispatched and not yet answered, and calls served by
         # dialect
-        self._mux_lock = threading.Lock()
+        self._mux_lock = lockdep.lock("IndexServer._mux_lock")
         self._mux_inflight = 0
         self._mux_counters = {"mux_calls": 0, "legacy_calls": 0}
 

@@ -1,6 +1,5 @@
 """Deadline-aware micro-batching scheduler for the serving path (counterpart
-of distributed_faiss_tpu/serving/scheduler.py, without its transfer-guard
-hook).
+of distributed_faiss_tpu/serving/scheduler.py).
 
 One ``SearchScheduler`` per server rank. Connection threads call ``submit``
 (blocking) or ``submit_async`` with a completion callback (the multiplexed
@@ -38,6 +37,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from distributed_faiss_tpu_torch.observability import spans as obs_spans
+from distributed_faiss_tpu_torch.utils import lockdep, xfercheck
+from distributed_faiss_tpu_torch.utils.atomics import AtomicCounters
 from distributed_faiss_tpu_torch.utils.config import SchedulerCfg
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
 
@@ -113,12 +114,12 @@ class SearchScheduler:
         self._search_fn = search_fn
         self.cfg = cfg if cfg is not None else SchedulerCfg()
         self.spans = span_buffer
-        self._cond = threading.Condition()
+        self._cond = lockdep.condition("SearchScheduler._cond")
         self._queue: List[_Request] = []
         self._stopping = False
         self.stats = LatencyStats()
-        self._counters = {"submitted": 0, "batches": 0, "shed_deadline": 0,
-                          "rejected_busy": 0}  # guarded by _cond
+        self._counters = AtomicCounters(("submitted", "batches", "shed_deadline",
+                                         "rejected_busy"))
         self._thread = threading.Thread(target=self._batcher_loop, name=name, daemon=True)
         self._thread.start()
 
@@ -159,12 +160,12 @@ class SearchScheduler:
             if self._stopping:
                 raise SchedulerStopped("scheduler is stopped")
             if deadline is not None and time.monotonic() >= deadline:
-                self._counters["shed_deadline"] += 1
+                self._counters.inc("shed_deadline")
                 raise DeadlineExpired("deadline expired before the request was admitted")
             if len(self._queue) >= self.cfg.max_queue:
-                self._counters["rejected_busy"] += 1
+                self._counters.inc("rejected_busy")
                 raise SchedulerBusy(len(self._queue), self.cfg.max_queue)
-            self._counters["submitted"] += 1
+            self._counters.inc("submitted")
             self._queue.append(req)
             self._cond.notify_all()
         return req
@@ -244,8 +245,7 @@ class SearchScheduler:
         live: List[_Request] = []
         for r in batch:
             if r.deadline is not None and now >= r.deadline:
-                with self._cond:
-                    self._counters["shed_deadline"] += 1
+                self._counters.inc("shed_deadline")
                 r.error = DeadlineExpired(
                     f"deadline expired while queued (waited {now - r.enqueue_t:.3f}s)")
                 self._finish(r)
@@ -254,9 +254,7 @@ class SearchScheduler:
             live.append(r)
         if not live:
             return
-        with self._cond:
-            self._counters["batches"] += 1
-            window = self._counters["batches"]
+        window = self._counters.inc("batches")
         n_rows = sum(r.rows for r in live)
         self.stats.record("batch_requests", float(len(live)))
         self.stats.record("batch_rows", float(n_rows))
@@ -279,7 +277,11 @@ class SearchScheduler:
                                             window=[r.trace_id for r in traced])
                 launch_w0, launch_p0 = time.time(), time.perf_counter()
             try:
-                result = self._search_fn(head.index_id, qcat, head.k, head.return_embeddings)
+                # DFT_XFERCHECK=1: the merged window's launch is a guarded
+                # section; a sync outside an explicit() fetch fails it
+                with xfercheck.guarded("scheduler merge-window flush"):
+                    result = self._search_fn(head.index_id, qcat, head.k,
+                                             head.return_embeddings)
             finally:
                 if traced:
                     # the window is one launch: each sampled request shares
@@ -331,6 +333,7 @@ class SearchScheduler:
         """{"counters": {...}, "queues": {metric: summary}}; ``raw`` adds the
         bucket histograms."""
         with self._cond:
-            counters = dict(self._counters)
+            # AtomicCounters._lock is a leaf: safe under _cond
+            counters = self._counters.snapshot()
             counters["queued"] = len(self._queue)
         return {"counters": counters, "queues": self.stats.summary(raw=raw)}

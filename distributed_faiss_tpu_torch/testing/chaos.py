@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from distributed_faiss_tpu_torch.parallel import launcher, rpc
+from distributed_faiss_tpu_torch.utils import lockdep
 
 logger = logging.getLogger()
 
@@ -122,7 +123,7 @@ class ChaosProxy:
                  plan: Optional[List[Optional[Fault]]] = None):
         self.target = (target_host, target_port)
         self._listen_port = listen_port
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("ChaosProxy._lock")
         self._plan: List[Optional[Fault]] = list(plan) if plan else []
         self._default_fault: Optional[Fault] = None
         self._accepted = 0
@@ -349,7 +350,7 @@ class ServerHarness:
         self.base_port = base_port
         self.env = dict(env) if env else {}
         self.device = device
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("ServerHarness._lock")
         self.procs: Dict[int, subprocess.Popen] = {}
 
     def port(self, rank: int) -> int:
@@ -438,7 +439,7 @@ class QueryStorm:
         self.interval = interval
         self.num_threads = threads
         self._stop = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("QueryStorm._lock")
         self.results: List[tuple] = []
         self.errors: List[BaseException] = []
         self._threads: List[threading.Thread] = []

@@ -27,6 +27,8 @@ from typing import Callable, List, Tuple
 
 import numpy as np
 
+from distributed_faiss_tpu_torch.utils import lockdep
+
 
 class _Entry:
     __slots__ = ("q", "k", "event", "scores", "ids", "error", "promoted")
@@ -59,7 +61,7 @@ class SearchBatcher:
         self._run = run
         self._window_s = max(0.0, float(window_ms)) / 1000.0
         self._max_rounds = max(1, int(max_rounds))
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("SearchBatcher._lock")
         self._pending: List[_Entry] = []
         self._leader_active = False
 

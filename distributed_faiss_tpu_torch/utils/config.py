@@ -18,6 +18,8 @@ port's counterpart of the JAX tests' forced host device count (see
 import json
 import os
 
+from distributed_faiss_tpu_torch.utils.envutil import flag_value
+
 _SUPPORTED_METRICS = ("dot", "l2")
 
 _SCHEMA = {
@@ -74,7 +76,8 @@ class IndexCfg:
 class _EnvCfg:
     """Keyword construction against a ``{field: (type, ENV_VAR, default)}``
     schema, unknown-kwarg rejection, ``from_env`` with the one bool
-    convention ('0'/'false'/'' are False) and a ``_validate`` hook."""
+    convention (``envutil.flag_value``: '0'/'false'/'' are False) and a
+    ``_validate`` hook."""
 
     _SCHEMA: dict = {}
     _KIND = "env"
@@ -98,7 +101,7 @@ class _EnvCfg:
             if raw is None:
                 kwargs[field] = default
             elif typ is bool:
-                kwargs[field] = raw not in ("0", "false", "False", "")
+                kwargs[field] = flag_value(raw)
             else:
                 kwargs[field] = typ(raw)
         return cls(**kwargs)

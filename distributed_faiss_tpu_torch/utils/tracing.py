@@ -20,9 +20,10 @@ distributed_faiss_tpu/utils/tracing.py).
 import bisect
 import contextlib
 import os
-import threading
 import time
 from typing import Dict, Optional
+
+from distributed_faiss_tpu_torch.utils import lockdep
 
 # bucket upper bounds: 1 µs .. 10^3 s, ratio 10^(1/5) ≈ 1.58x (the worst
 # relative error of a reported percentile)
@@ -42,7 +43,7 @@ def bucket_bounds() -> tuple:
 
 class LatencyStats:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("LatencyStats._lock")
         self._stats: Dict[str, Dict[str, float]] = {}
         self._hist: Dict[str, list] = {}
         # op -> {bucket: (trace_id, time.monotonic() when recorded)}; only

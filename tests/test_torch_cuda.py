@@ -958,3 +958,121 @@ def test_sharded_ivf_on_the_card_serves_the_cpu_ids(card, kind, monkeypatch):
         np.testing.assert_array_equal(got[1], want[1])
         np.testing.assert_allclose(got[0], want[0], rtol=1e-3, atol=1e-3)
         assert (on_card.shard_launches > 0).all()
+
+
+# ---------------------------------------------------------- the witnesses
+
+def _k1_card_inputs(card, nq=16, g=2, nlist=24, cap=300, d=128):
+    q, data, ids, li, sizes, norms = flat_scan_inputs(5, "f16", "l2", True, d, nq=nq,
+                                                      nlist=nlist, cap=cap, g=g)[:6]
+    return [t.to(card) if t is not None else None for t in (q, data, ids, li, sizes, norms)]
+
+
+@pytest.mark.parametrize("bad", ["li=nlist", "li=-1", "sizes=cap+1"])
+def test_sanitizer_refuses_out_of_bounds_k1_and_k3_before_the_launch(card, monkeypatch, bad):
+    """GRAFT_SANITIZE=1: an out-of-range probe never reaches K1 or K3 over
+    the lists (no launch counted), and a correct K1 launch right after
+    still matches its plain version: the CUDA context is intact."""
+    from distributed_faiss_tpu_torch.utils import sanitize
+
+    monkeypatch.setenv("GRAFT_SANITIZE", "1")
+    q, data, ids, li, sizes, norms = _k1_card_inputs(card)
+    nlist, cap = data.shape[0], data.shape[1]
+    lut, codes, li3, sizes3, ids3 = [t.to(card) for t in lists_inputs(6, 16, 2, 8,
+                                                                        torch.float32)]
+    nlist3, cap3 = codes.shape[0], codes.shape[1]
+    edit = {"li=nlist": lambda li, s, n, c: li.fill_(n),
+            "li=-1": lambda li, s, n, c: li.fill_(-1),
+            "sizes=cap+1": lambda li, s, n, c: s.fill_(c + 1)}[bad]
+    before = (flat_scan.flat_list_scan.launches, adc_scan.adc_scan_lists.launches)
+    bad_li, bad_sizes = li.clone(), sizes.clone()
+    edit(bad_li, bad_sizes, nlist, cap)
+    with pytest.raises(sanitize.SanitizeError, match="out of bounds"):
+        flat_scan.flat_list_scan(q, data, ids, bad_li, bad_sizes, norms, metric="l2",
+                                 codec="f16")
+    bad_li3, bad_sizes3 = li3.clone(), sizes3.clone()
+    edit(bad_li3, bad_sizes3, nlist3, cap3)
+    with pytest.raises(sanitize.SanitizeError, match="out of bounds"):
+        adc_scan.adc_scan_lists(lut, codes, bad_li3, bad_sizes3, ids3)
+    assert (flat_scan.flat_list_scan.launches, adc_scan.adc_scan_lists.launches) == before
+    got = flat_scan.flat_list_scan(q, data, ids, li, sizes, norms, metric="l2", codec="f16")
+    torch.cuda.synchronize()
+    want = flat_scan.flat_list_scan_plain(q, data, ids, li, sizes, norms, metric="l2",
+                                          codec="f16")
+    assert_scores_match(got, want, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("wrapper", ["adc_scan", "adc_scan_shared"])
+def test_sanitizer_refuses_bad_k2_and_k4_operands_before_the_launch(card, monkeypatch,
+                                                                     wrapper):
+    """GRAFT_SANITIZE=1: a code past ksub (it would read past a LUT row in
+    shared memory) or codes of another width never reach K2 or K4."""
+    from distributed_faiss_tpu_torch.utils import sanitize
+
+    monkeypatch.setenv("GRAFT_SANITIZE", "1")
+    fn = getattr(adc_scan, wrapper)
+    lut = torch.randn(8, 12, 16, device=card)
+    codes = torch.randint(0, 16, (8, 40, 12), dtype=torch.uint8, device=card)
+    if wrapper == "adc_scan_shared":
+        codes = codes[0].contiguous()
+    fn(lut, codes)
+    torch.cuda.synchronize()
+    before = fn.launches
+    bad = codes.clone()
+    bad.view(-1)[7] = 16
+    with pytest.raises(sanitize.SanitizeError, match="out of bounds for ksub 16"):
+        fn(lut, bad)
+    with pytest.raises(sanitize.SanitizeError, match="codes shape"):
+        fn(lut, codes[..., :11].contiguous())
+    assert fn.launches == before
+
+
+def test_doctored_item_under_guarded_raises_on_the_card(card, monkeypatch):
+    """DFT_XFERCHECK=1: ``.item()`` on a card tensor inside guarded() raises
+    ImplicitTransferError naming the label and this file's line; the same
+    call inside explicit() passes and is counted, and so does one on an
+    unguarded thread while the guard is armed; the sync debug mode is
+    "warn" while armed and back to its old value after."""
+    import threading
+
+    from distributed_faiss_tpu_torch.utils import xfercheck
+
+    monkeypatch.setenv("DFT_XFERCHECK", "1")
+    xfercheck.reset()
+    x = torch.ones(8, device=card)
+    mode0 = torch.cuda.get_sync_debug_mode()
+    armed, other_done = threading.Event(), threading.Event()
+    box = {}
+
+    def unguarded():
+        armed.wait(10.0)
+        try:
+            box["other"] = x.sum().item()
+        except BaseException as e:  # pragma: no cover - the failure
+            box["other_err"] = e
+        other_done.set()
+
+    def guarded():
+        try:
+            with xfercheck.guarded("doctored"):
+                box["mode"] = torch.cuda.get_sync_debug_mode()
+                armed.set()
+                other_done.wait(10.0)
+                with xfercheck.explicit("doctored fetch"):
+                    box["explicit"] = x.sum().item()
+                x.sum().item()
+        except xfercheck.ImplicitTransferError as e:
+            box["err"] = str(e)
+
+    ts = [threading.Thread(target=guarded), threading.Thread(target=unguarded)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(30.0)
+        assert not t.is_alive()
+    assert box.get("other") == 8.0 and box.get("explicit") == 8.0, box
+    assert box["mode"] == 1 and torch.cuda.get_sync_debug_mode() == mode0
+    assert "'doctored'" in box["err"] and "test_torch_cuda.py:" in box["err"]
+    assert len(xfercheck.drain()) == 1
+    assert sum(xfercheck.syncs().values()) == 1
+    xfercheck.reset()

@@ -30,6 +30,7 @@ from distributed_faiss_tpu_torch.engine import Index as TIndex
 from distributed_faiss_tpu_torch.models import factory as tfactory
 from distributed_faiss_tpu_torch.mutation import compaction as tcompaction
 from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+from distributed_faiss_tpu_torch.utils import racecheck
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
@@ -411,7 +412,8 @@ def test_compacted_model_lands_on_the_engine_device(data, tmp_path, no_watcher, 
         t.remove_ids(range(50))
         assert t.compact() is True
         assert seen == [t.device]
-        m = t.model
+        with racecheck.peeking():  # a white-box read of the engine's model
+            m = t.model
         tensors = [m.centroids, m.lists.data, m.lists.ids, m.lists.sizes, m.norm_lists.data]
         assert all(v.device == t.device == torch.device("cpu") for v in tensors)
         assert m.ntotal == 550

@@ -66,10 +66,11 @@ def test_eight_clients_byte_identical(tmp_path, engine, monkeypatch, selector, m
     disc = tmp_path / "disc.txt"
     disc.write_text(f"1\nlocalhost,{port}\n")
     clients = [IndexClient(str(disc)) for _ in range(CLIENTS)]
+    for client in clients:
+        client.cfg = idx.cfg
     got, errors = {}, []
 
     def run(c, client):
-        client.cfg = idx.cfg
         try:
             for r in range(REQUESTS):
                 b = c * REQUESTS + r

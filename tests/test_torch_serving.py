@@ -15,6 +15,7 @@ from distributed_faiss_tpu.utils.state import IndexState as JState
 from distributed_faiss_tpu_torch.engine import Index as TIndex
 from distributed_faiss_tpu_torch.parallel.client import IndexClient
 from distributed_faiss_tpu_torch.parallel.server import IndexServer
+from distributed_faiss_tpu_torch.utils import racecheck
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
@@ -383,7 +384,8 @@ def test_centroids_index_loaded_buffer_and_omp(rng, cluster):
     cents = client.get_centroids("c")
     assert len(cents) == 2 and all(c.shape == (4, D) for c in cents)
     for c, s in zip(cents, servers):
-        np.testing.assert_array_equal(c, s.indexes["c"].model.get_centroids())
+        with racecheck.peeking():  # a white-box read of the engine's model
+            np.testing.assert_array_equal(c, s.indexes["c"].model.get_centroids())
     assert [s.index_loaded("c") for s in servers] == [True, True]
     assert not servers[0].index_loaded("nope")
     client.set_omp_num_threads(2)
