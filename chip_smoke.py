@@ -115,7 +115,29 @@ d. ``hnswsq``: the builder at its defaults (graph degree 128,
    load identical, and the graph library built from ``native/hnsw.cpp``
    into ``build/``.
 
-After phase 9, the servers of phases 3 and 4 still up:
+Every model search on the card, in every phase, runs as captured
+programs (``utils/programs.py``: one CUDA graph a query block or a
+multi-block window, replayed), except inside ``programs.eager()``, in the
+mesh's routed mode, and under GRAFT_SANITIZE=1 (phase i.3). After phase 9,
+on the servers of phases 3 and 4:
+
+j. Programs against op by op (``GRAPH_NPROBES``): the ``ivfsq`` (K1) and
+   ``knnlm`` (K3 over the lists) indexes at nprobe 1 and 32 and the
+   ``PQ64,RFlat`` index (K4) at its default, each served twice, with its
+   captured programs and inside ``programs.eager()``: after a warm
+   1000-query run, ``--nq`` queries as 100-row requests from 8 threads
+   (QPS, p50/p99, the scheduler's windows, replays a window, K1 / K3 / K4
+   launched and counted by the replays, the model's captures, capture
+   seconds, programs held and graph pool bytes; no capture inside the
+   timed window, no replay in the eager run), then the same queries at
+   top-11: the same top-10 ids on every tie-free query of the two modes.
+   Then one direct ``engine.search`` of ``DIRECT_ROWS`` (4096) queries on
+   each index: after a warm call, one replay (the window program of its
+   nblocks bucket) and no capture, and the per-block path's ids on the
+   tie-free queries. With ``--profile``, the nprobe=32 cells and flat PQ
+   are profiled with graphs on (the device's busy share).
+
+After phase j, the servers of phases 3 and 4 still up:
 
 e. Mutation: on phase 3's index, ``save_index`` and ``pin_generations``;
    ``remove_ids`` of every 10th id (100,000), timed; no deleted id in the
@@ -267,10 +289,10 @@ i. The runtime witnesses (``utils/{lockdep,racecheck,threadcheck,xfercheck,
       on too) each on a server made under its knob.
    A child that exits nonzero or prints no result fails the script.
 
-Before each of phases 3-8, a-d and each part of e and g every kernel's
-launch count is zeroed (phase b reads none), and it is read after the
-phase: K1 must have launched on the ivfsq path, the surface index, the
-direct path, the ivfsq part of phase e and each ivfsq part of phase g
+Before each of phases 3-8, a-d, each arm of j and each part of e and g
+every kernel's launch count is zeroed (phase b reads none), and it is
+read after the phase (a replay adds the launches its graph holds): K1
+must have launched on the ivfsq path, the surface index, the direct path, the ivfsq part of phase e and each ivfsq part of phase g
 (each nprobe of part 1, parts 2-4), K3 over the lists on phase g's knnlm
 part, K3 on the knnlm path through
 ``adc_scan_lists`` (and neither K2 nor K4: the dispatch is fixed by the
@@ -754,10 +776,10 @@ def recall_at_10(meta, gt_ids: np.ndarray) -> float:
 
 
 def serve_queries(client, q: np.ndarray, index_id: str, rows_per_request: int,
-                  concurrency: int):
+                  concurrency: int, k: int = 10):
     """Send ``q`` as requests of ``rows_per_request`` rows from
-    ``concurrency`` threads; returns (wall seconds, request latencies,
-    per-request (D, meta))."""
+    ``concurrency`` threads at top-``k``; returns (wall seconds, request
+    latencies, per-request (D, meta))."""
     starts = list(range(0, q.shape[0], rows_per_request))
     lat = [0.0] * len(starts)
     results = [None] * len(starts)
@@ -774,7 +796,7 @@ def serve_queries(client, q: np.ndarray, index_id: str, rows_per_request: int,
             s = starts[i]
             t0 = time.perf_counter()
             try:
-                results[i] = client.search(q[s:s + rows_per_request], 10, index_id)
+                results[i] = client.search(q[s:s + rows_per_request], k, index_id)
             except Exception as e:  # re-raised below, on the main thread
                 errors.append(e)
                 return
@@ -922,6 +944,14 @@ def timed_serve(client, q_all: np.ndarray, iid: str, what: str, card: str, detai
     return qps, p50, p99, [m for _d, m in results]
 
 
+def log_programs(s, iid: str, what: str) -> dict:
+    """The served model's program cache: programs held, captures and their
+    seconds, replays, evictions and the graph pool's bytes."""
+    stats = s.server.indexes[iid].model.program_stats()
+    log(f"{what}: captured programs {json.dumps(stats)}")
+    return stats
+
+
 def save_drop_load(client, iid: str, q_eval: np.ndarray, nprobe: int, what: str) -> None:
     D1, meta1 = client.search(q_eval, 10, iid)
     client.save_index(iid)
@@ -963,6 +993,7 @@ def ivfsq_path(args, counters, card: str) -> dict:
         gt_ids = exact_ground_truth(x, q_eval, 10, what)
         nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_ids, args.nprobe_from, 1024, what)
         out = serve_and_report(args, s.client, iid, q_all, nprobe, card, what)
+        out["programs"] = log_programs(s, iid, what)
         save_drop_load(s.client, iid, q_eval, nprobe, what)
         out.update(counts=read_counts(counters), recall=rec)
         keep_for_witness(s, iid, what, q_all, out["meta"], nprobe)
@@ -1018,6 +1049,7 @@ def knnlm_path(args, counters, card: str) -> dict:
         nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_full, args.nprobe_from, 4096,
                                    what)
         pq_out = serve_and_report(args, s.client, iid, q_all, nprobe, card, what)
+        pq_out["programs"] = log_programs(s, iid, what)
         save_drop_load(s.client, iid, q_eval, nprobe, what)
         pq_out.update(counts=read_counts(counters), recall=rec)
         keep_for_witness(s, iid, what, q_all, pq_out["meta"], nprobe)
@@ -1061,6 +1093,7 @@ def knnlm_path(args, counters, card: str) -> dict:
         if rec < 0.95:
             raise AssertionError(f"{what}: recall@10 {rec:.4f} < 0.95")
         flat_out = serve_and_report(args, s.client, iid, q_all, 1, card, what)
+        flat_out["programs"] = log_programs(s, iid, what)
         save_drop_load(s.client, iid, q_eval, 1, what)
         flat_out.update(counts=read_counts(counters), recall=rec)
         log(f"{what}: launches {flat_out['counts']}")
@@ -3124,11 +3157,16 @@ def witness_checks(args, card: str) -> dict:
         finally:
             os.environ.pop("GRAFT_SANITIZE", None)
         new = compilecheck.new_since(snap)
+        # a window whose bucket the warm-up did not meet captures its
+        # program: a capture, not a build or a load, logged apart
+        captured = {n: c for n, c in new.items() if n.startswith("capture:")}
+        built = {n: c for n, c in new.items() if n not in captured}
         races, leaks = racecheck.drain(), xfercheck.drain()
-        if new or races or leaks:
-            raise AssertionError(f"i.2/i.3: new builds or loads {new}, {len(races)} races, "
+        if built or races or leaks:
+            raise AssertionError(f"i.2/i.3: new builds or loads {built}, {len(races)} races, "
                                  f"{len(leaks)} implicit syncs")
-        log("i.2/i.3: no kernel built or loaded after warm-up (compilecheck.new_since == {})")
+        log(f"i.2/i.3: no kernel built or loaded after warm-up; programs captured after it "
+            f"(new window buckets): {captured}")
     finally:
         for p in paths:
             p["serving"].close()
@@ -3237,6 +3275,142 @@ def witness_child(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase j
+
+GRAPH_NPROBES = (1, 32)
+DIRECT_ROWS = 4096
+
+
+def windows_served(client) -> int:
+    return client.get_perf_stats()[0]["scheduler"]["counters"]["batches"]
+
+
+def graph_arm(s, iid: str, q: np.ndarray, counters, kernel: str, mode: str, card: str,
+              what: str) -> dict:
+    """One mode of a phase j cell: a warm 1000-query run, then ``q`` timed
+    as 100-row requests from 8 threads (QPS, p50/p99, windows, replays and
+    captures in the timed window, the kernel's launches, the pool's
+    bytes), then ``q`` again at top-11 for the ids check."""
+    from distributed_faiss_tpu_torch.utils import compilecheck, programs
+
+    ctx = programs.eager() if mode == "eager" else contextlib.nullcontext()
+    with ctx:
+        serve_queries(s.client, q[:1000], iid, 100, 8)  # warm: the captures land here
+        # a window holds whole 100-row requests, at most one a client: warm
+        # every size the timed run can merge, so its buckets are all held
+        engine = s.server.indexes[iid]
+        for rows in range(100, 801, 100):
+            engine.search_batched(q[:rows], 10)
+        model = engine.model
+        st0, snap, w0 = model.program_stats(), compilecheck.snapshot(), windows_served(s.client)
+        zero_counts(counters)
+        qps, p50, p99, _meta = timed_serve(s.client, q, iid, f"{what} [{mode}]", card)
+        counts = read_counts(counters)
+        windows = windows_served(s.client) - w0
+        st1 = model.program_stats()
+        captured = {n: c for n, c in compilecheck.new_since(snap).items()
+                    if n.startswith("capture:")}
+        _wall, _lat, results = serve_queries(s.client, q, iid, 100, 8, k=11)
+    replays = st1["replays"] - st0["replays"]
+    if counts[kernel] <= 0:
+        raise AssertionError(f"{what} [{mode}]: {kernel} was not launched")
+    if captured or st1["captures"] != st0["captures"]:
+        raise AssertionError(f"{what} [{mode}]: captured inside the timed window: {captured}")
+    if mode == "graphs" and replays < windows:
+        raise AssertionError(f"{what}: {replays} replays for {windows} windows")
+    if mode == "eager" and replays:
+        raise AssertionError(f"{what}: {replays} replays inside programs.eager()")
+    out = dict(qps=qps, p50_ms=p50, p99_ms=p99, windows=windows,
+               replays_per_window=replays / max(windows, 1), launches=counts[kernel],
+               captures=st1["captures"], capture_s=st1["capture_s"],
+               pool_bytes=st1["pool_bytes"], programs=st1["programs"])
+    log(f"{what} [{mode}]: {windows} windows, {out['replays_per_window']:.3f} replays a "
+        f"window, {kernel} {counts[kernel]} launches; the model's programs so far: "
+        f"{st1['programs']} held, {st1['captures']} captures in {st1['capture_s']:.3f} s, "
+        f"{st1['replays']} replays, pool {st1['pool_bytes']} bytes; none captured in the "
+        f"timed window, on {card}")
+    out["D"] = np.concatenate([d for d, _m in results])
+    out["M"] = [row for _d, m in results for row in m]
+    return out
+
+
+def direct_window(s, iid: str, q: np.ndarray, what: str) -> dict:
+    """One direct ``engine.search`` of DIRECT_ROWS queries: after a warm
+    call, one replay of the window program (its nblocks bucket) and no
+    capture; the per-block path's ids on the tie-free queries."""
+    from distributed_faiss_tpu_torch.models import base
+
+    engine = s.server.indexes[iid]
+    q = q[:DIRECT_ROWS]
+    engine.search(q, 11)  # warm: captures the window program
+    st0 = engine.model.program_stats()
+    t0 = time.perf_counter()
+    D, M, _ = engine.search(q, 11)
+    wall = time.perf_counter() - t0
+    st1 = engine.model.program_stats()
+    if (st1["replays"] - st0["replays"], st1["captures"] - st0["captures"]) != (1, 0):
+        raise AssertionError(f"{what}: a {DIRECT_ROWS}-row search took "
+                             f"{st1['replays'] - st0['replays']} replays and "
+                             f"{st1['captures'] - st0['captures']} captures, not 1 and 0")
+    blocked_search = base.blocked_search
+
+    def blocks_only(*a, fused_fn=None, **kw):
+        return blocked_search(*a, **kw)
+
+    base.blocked_search = blocks_only
+    try:
+        with engine.index_lock:
+            Db, Ib = engine.model.search(q, 11)
+    finally:
+        base.blocked_search = blocked_search
+    Mb = [[None if i < 0 else (int(i),) for i in row] for row in Ib]
+    Mi = [[None if m is None else (m[0],) for m in row] for row in M]
+    share = same_top10(D, Mi, Db, Mb, f"{what}: one {DIRECT_ROWS}-row window against the "
+                       "per-block path", min_share=0.5)
+    log(f"{what}: one direct {DIRECT_ROWS}-row search: 1 replay, 0 captures, "
+        f"{wall * 1e3:.3f} ms of host time")
+    return dict(direct_ms=wall * 1e3, direct_tie_free=share)
+
+
+def graph_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
+    """Phase j (module docstring): the captured programs against op by op
+    on the full-width ivfsq, knnlm and PQ64,RFlat cells."""
+    from distributed_faiss_tpu_torch.utils import compilecheck
+
+    cells = [("ivfsq", sq["serving"], sq["iid"], sq["q_all"], "K1", GRAPH_NPROBES,
+              sq["nprobe"]),
+             ("knnlm", pq["serving"], "knnlm", pq["q_all"], "K3 lists", GRAPH_NPROBES,
+              pq["nprobe"]),
+             ("PQ64,RFlat", pq["serving"], "flatpq", pq["q_all"], "K4", (None,), None)]
+    compilecheck.install()
+    out = {}
+    try:
+        for what, s, iid, q, kernel, nprobes, restore in cells:
+            for nprobe in nprobes:
+                if nprobe is not None:
+                    s.client.set_nprobe(iid, nprobe)
+                cell = f"{what} nprobe={nprobe}" if nprobe is not None else what
+                arms = {mode: graph_arm(s, iid, q, counters, kernel, mode, card, cell)
+                        for mode in ("graphs", "eager")}
+                share = same_top10(arms["graphs"].pop("D"), arms["graphs"].pop("M"),
+                                   arms["eager"].pop("D"), arms["eager"].pop("M"),
+                                   f"{cell}: graphs against programs.eager()", min_share=0.5)
+                g, e = arms["graphs"], arms["eager"]
+                log(f"{cell}: graphs {g['qps']:.1f} QPS (p50 {g['p50_ms']:.3f} / p99 "
+                    f"{g['p99_ms']:.3f} ms) against eager {e['qps']:.1f} QPS (p50 "
+                    f"{e['p50_ms']:.3f} / p99 {e['p99_ms']:.3f} ms): "
+                    f"{g['qps'] / e['qps']:.4f}x, on {card}")
+                if args.profile and nprobe != 1:
+                    profile_window(s.client, q[:2000], iid)
+                out[cell] = dict(arms, tie_free=share)
+            out[cell].update(direct_window(s, iid, q, what))
+            if restore is not None:
+                s.client.set_nprobe(iid, restore)
+    finally:
+        compilecheck.uninstall()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3340,6 +3514,11 @@ def main(argv=None) -> int:
         k2 = adc_main_shape(adc_scan, ivf, k2_out["model"], k2_out["q_block"],
                             "IVF1024,PQ12,RFlat")
         k4 = shared_main_shape(adc_scan, ivf, flat_out["model"], flat_out["q_block"])
+
+        t0 = time.perf_counter()
+        graph_out = graph_phase(args, sq_out, outs, counters, card)
+        log(f"graph phase: {time.perf_counter() - t0:.1f} s")
+        log("graph phase readings: " + json.dumps(graph_out))
 
         t0 = time.perf_counter()
         mutation_phase(args, sq_out, outs, counters, card)

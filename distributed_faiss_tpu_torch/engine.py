@@ -43,7 +43,16 @@ Tracing: a server wires its span ring into ``span_buffer``; a launch of a
 window the scheduler marked as sampled (``observability.spans``) records an
 ``engine.launch`` span in every sampled request of the window (the JAX
 engine records it in the first one only) and makes the first the exemplar
-of ``device_search_s``.
+of ``device_search_s``; the span stays outside the model's captured
+program, which a replay runs without Python.
+
+Programs (utils/programs.py): a model serves through its captured search
+programs under ``index_lock``, so a tombstone mask written in place is
+read by the next replay. A model swapped out (compaction, drop, a
+replaced engine's ``retire``) and a replaced generation snapshot free
+their programs; the snapshot model of ``search_at_generation`` has a cache
+of its own. ``device_launches`` keeps the JAX engine's meaning: the mesh
+models' counted launches.
 """
 
 import hashlib
@@ -217,6 +226,13 @@ def infer_n_centroids(total_data_size: int) -> int:
     return 1048576
 
 
+
+def _release_programs(model) -> None:
+    """Free a swapped-out model's captured search programs and their pool
+    (``utils/programs.py``)."""
+    if model is not None:
+        model.release_programs()
+
 class Index:
     def __init__(self, cfg: IndexCfg, device="cuda"):
         self.cfg = cfg
@@ -298,6 +314,7 @@ class Index:
             self.id_to_metadata = _MetaStore()
             self._meta_epoch += 1
         with self.index_lock:
+            _release_programs(self.model)
             self.model = None
             self.state = IndexState.NOT_TRAINED
             self.tombstones = TombstoneSet(layout=self.tombstones.layout)
@@ -931,6 +948,7 @@ class Index:
                 extra={"ntotal": new_n, "layout": gen, "compacted": True},
                 tombstones=new_tomb.to_payload(), io_lock=self._tombstone_io_lock,
                 keep=self.versioning.retain_generations)
+            _release_programs(self.model)
             self.model = new_model
             self.id_to_metadata = _MetaStore(new_meta)
             self.tombstones = new_tomb
@@ -1203,6 +1221,8 @@ class Index:
         with self._pinned_lock:
             cached = self._pinned_cache
             if cached is None or cached[0] != gen:
+                if cached is not None:
+                    _release_programs(cached[1][0])
                 self._pinned_cache = cached = (gen, self._load_generation_snapshot(gen))
             snap, meta_arr, meta_n = cached[1]
             if return_embeddings:
@@ -1327,6 +1347,13 @@ class Index:
                   self._add_thread):
             if t is not None and t is not threading.current_thread():
                 t.join(timeout=1.0)
+        # the captured programs hold device memory (a search still in
+        # flight on this engine captures anew)
+        with self.index_lock:
+            _release_programs(self.model)
+        with self._pinned_lock:
+            if self._pinned_cache is not None:
+                _release_programs(self._pinned_cache[1][0])
 
     def _maybe_save(self, ignore_time: bool = False) -> bool:
         if self._retired.is_set():

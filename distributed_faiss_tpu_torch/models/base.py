@@ -14,12 +14,16 @@ of distributed_faiss_tpu/models/base.py).
   tombstones. Appends are planned on the host (``plan_append``) and land
   as one scatter.
 
-The JAX package's write/append/mask bucketing and pow2 query-block padding
-existed to bound XLA recompiles; PyTorch runs eagerly, so they are not
-carried over. The masks scatter exactly the addresses given, checked on
-the host first: the JAX package pads its scatters with an address one
-past the end that XLA drops, where a CUDA index kernel would trip a
-device-side assert instead.
+Searches run through ``blocked_search``, the JAX package's block loop:
+query blocks padded to their pow2 bucket, and a batch of several blocks
+as one program over the stacked blocks, each a program of the model's
+``utils/programs.py`` cache (a CUDA graph on a card). The JAX package's
+write/append/mask bucketing existed to bound XLA recompiles of the
+mutation programs, which the port runs op by op, so it is not carried
+over. The masks scatter exactly the addresses given, checked on the host
+first: the JAX package pads its scatters with an address one past the
+end that XLA drops, where a CUDA index kernel would trip a device-side
+assert instead.
 
 Convention: models speak FAISS-style at their boundary — ``search`` returns
 (D, I) with D ascending for l2 / descending inner products for dot, ids are
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from distributed_faiss_tpu_torch.ops import distance
+from distributed_faiss_tpu_torch.utils import programs as programs_mod
 from distributed_faiss_tpu_torch.utils import xfercheck
 from distributed_faiss_tpu_torch.utils.device import resolve_device
 
@@ -257,6 +262,8 @@ class TorchIndex:
         self.metric = metric
         self.nprobe = 1
         self.device = resolve_device(device)
+        # the captured search programs (utils/programs.py)
+        self.programs = programs_mod.ProgramCache()
 
     @property
     def is_trained(self) -> bool:
@@ -282,6 +289,15 @@ class TorchIndex:
 
     def set_nprobe(self, nprobe: int) -> None:
         self.nprobe = int(nprobe)
+
+    def release_programs(self) -> None:
+        """Free the captured search programs and their memory pool (the
+        engine swapped this model out)."""
+        self.programs.clear()
+
+    def program_stats(self) -> dict:
+        """The program cache's counters (``ProgramCache.stats``)."""
+        return self.programs.stats()
 
     def get_centroids(self) -> Optional[np.ndarray]:
         return None
@@ -333,19 +349,64 @@ def pick_query_block(probe_bytes_per_query: int, minimum: int = 256) -> int:
     return block
 
 
-def blocked_search(q: np.ndarray, k: int, metric: str, fn, device, block: int = 256):
-    """One ``fn`` call per query block: ``fn(q_block_tensor)`` returns
-    bigger-is-better (scores, ids) tensors; results land in host arrays.
-    Query rows are independent, so blocks need no padding."""
+def query_blocks(q: np.ndarray, block: int = 256):
+    """Split a query batch into blocks, each padded with zero rows to its
+    ``bucket_size``, so a block of 100 rows and one of 120 share a
+    program: yields (start, rows, padded block)."""
+    nq = q.shape[0]
+    for s in range(0, nq, block):
+        chunk = q[s:s + block]
+        yield s, chunk.shape[0], distance.pad_rows(chunk, distance.bucket_size(chunk.shape[0]))
+
+
+def map_blocks(body, q3: torch.Tensor):
+    """``lax.map``'s counterpart: ``body`` over each (block, d) block of
+    the stacked (nblocks, block, d) queries in turn, the (scores, ids)
+    stacked. Blocks run one after another, so the transients sized for one
+    block still bound the program."""
+    outs = [body(qb) for qb in q3]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def per_block(fused):
+    """The per-block program of a fused one: the same body over one
+    (bucket, d) block."""
+    return lambda qb: tuple(t[0] for t in fused(qb[None]))
+
+
+def blocked_search(q: np.ndarray, k: int, metric: str, fn, device, block: int = 256,
+                   fused_fn=None, programs=None):
+    """THE blocked search loop (the JAX package's ``base.blocked_search``,
+    shared by the flat, IVF and mesh models so the bucketing and padding
+    policy cannot drift between them).
+
+    ``fn`` maps a (bucket, d) device block to bigger-is-better (scores,
+    ids) tensors; ``fused_fn`` maps stacked (nblocks, block, d) blocks to
+    (nblocks, block, k) results. Default: one program a query block, the
+    block padded to its ``bucket_size``. When the batch spans more than one
+    block and ``fused_fn`` is given, the batch is padded to
+    ``_next_pow2(ceil(nq / block), 1)`` blocks and runs as ONE program, so
+    the set of window programs stays O(log max batch). Padded rows are
+    zeros, and their results are cut.
+
+    ``programs`` (``ProgramCache.bind``: the model's cache with this
+    search's static arguments and read state) runs each block or window as
+    a captured program; None runs it op by op. Either way a block or a
+    window is one upload and one fetch of scores and ids."""
     q = np.asarray(q, np.float32)
     nq = q.shape[0]
+    run = programs.run if programs is not None else (
+        lambda name, f, x, dev: programs_mod.run_eager(f, x, dev))
+    if fused_fn is not None and nq > block:
+        nblocks = _next_pow2(-(-nq // block), 1)
+        qp = np.pad(q, ((0, nblocks * block - nq), (0, 0)))
+        vals, ids = run("fused", fused_fn, qp.reshape(nblocks, block, -1), device)
+        return finalize_results(vals.reshape(nblocks * block, -1)[:nq],
+                                ids.reshape(nblocks * block, -1)[:nq], metric)
     out_s = np.empty((nq, k), np.float32)
     out_i = np.empty((nq, k), np.int64)
-    for s in range(0, nq, block):
-        with xfercheck.explicit("blocked_search query block upload"):
-            qb = torch.from_numpy(np.ascontiguousarray(q[s:s + block])).to(device)
-        vals, ids = fn(qb)
-        with xfercheck.explicit("blocked_search block result fetch"):
-            out_s[s:s + qb.shape[0]] = vals.cpu().numpy()
-            out_i[s:s + qb.shape[0]] = ids.cpu().numpy()
+    for s, n, chunk in query_blocks(q, block):
+        vals, ids = run("block", fn, chunk, device)
+        out_s[s:s + n] = vals[:n]
+        out_i[s:s + n] = ids[:n]
     return finalize_results(out_s, out_i, metric)

@@ -7,6 +7,10 @@ Storage codecs: fp32 / fp16 / bf16 (cast to fp32 inside the scan) and sq8
 (per-dim affine, decoded in the scan). Deleted rows are masked by the
 store's ``live`` mask inside the scan. This is the port's recall ground
 truth.
+
+A search is one program a query block (``ops.distance.knn``), or one for
+a batch of several blocks (``_flat_search_fused``), captured and replayed
+through the model's program cache (``models.base.blocked_search``).
 """
 
 from typing import Dict
@@ -23,6 +27,17 @@ _CODEC_DTYPES = {
     "bf16": torch.bfloat16,
     "sq8": torch.uint8,
 }
+
+
+def _flat_search_fused(q3, data, ntotal: int, k: int, metric: str, codec: str,
+                       vmin=None, span=None, live=None):
+    """The exact scan over stacked (nblocks, block, d) query blocks, block
+    after block, as one program (the JAX package's ``_flat_search_fused``).
+    ``live`` is the optional (cap,) tombstone mask."""
+    kwargs = {} if codec != "sq8" else {"codec": "sq8", "vmin": vmin, "span": span}
+    return base.map_blocks(
+        lambda qb: distance.knn(qb, data, k, metric=metric, ntotal=ntotal, live=live,
+                                **kwargs), q3)
 
 
 class FlatIndex(base.TorchIndex):
@@ -62,18 +77,21 @@ class FlatIndex(base.TorchIndex):
         if self.ntotal == 0:
             empty_d = np.full((nq, k), np.inf if self.metric == "l2" else -np.inf, np.float32)
             return empty_d, np.full((nq, k), -1, np.int64)
-        kwargs = {}
+        vmin = span = None
         if self.codec == "sq8":
-            kwargs = {"codec": "sq8", "vmin": self.sq_params["vmin"],
-                      "span": self.sq_params["span"]}
+            vmin, span = self.sq_params["vmin"], self.sq_params["span"]
+        data, ntotal, live = self.store.data, self.store.ntotal, self.store.live
         # per-query transient: the (block, chunk) score block of the scan
         nb = base.pick_query_block(65536 * 4)
 
-        def run(qb):
-            return distance.knn(qb, self.store.data, k, metric=self.metric,
-                                ntotal=self.store.ntotal, live=self.store.live, **kwargs)
+        def run_fused(q3):
+            return _flat_search_fused(q3, data, ntotal, k, self.metric, self.codec, vmin, span,
+                                      live)
 
-        return base.blocked_search(q, k, self.metric, run, self.device, block=nb)
+        programs = self.programs.bind("flat", (k, self.metric, self.codec),
+                                      (data, ntotal, live, vmin, span))
+        return base.blocked_search(q, k, self.metric, base.per_block(run_fused), self.device,
+                                   block=nb, fused_fn=run_fused, programs=programs)
 
     def remove_rows(self, rows: np.ndarray) -> None:
         self.store.mask_rows(rows)

@@ -1,7 +1,7 @@
 """IVF index family: coarse k-means quantizer + padded inverted lists
 (counterpart of distributed_faiss_tpu/models/ivf.py: ``_IVFBase``,
-``IVFFlatIndex`` and ``IVFPQIndex``; the multi-block fused searches are not
-ported).
+``IVFFlatIndex`` and ``IVFPQIndex``, with the per-block and the fused
+multi-block search programs).
 
 Search: coarse scores (nq, nlist) -> top-nprobe lists -> a loop over probe
 groups; each group's (nq, g, cap) masked score block merges into a running
@@ -28,6 +28,16 @@ plain PyTorch versions.
 
 The probe grouping (``probe_group_size`` over ``pick_query_block``'s query
 block) is the JAX package's, so the top-k merges happen in the same order.
+
+As in the JAX package, a query block's whole search (coarse top-nprobe,
+the probe groups, the scan kernel, the merges and the exact refine) is
+one program, and a batch of several blocks one program over the stacked
+blocks (``_ivf_flat_search_fused``, ``_ivf_pq_search_fused``, and flat PQ's
+``_pq_shared_search_fused``): ``models.base.blocked_search`` captures each
+as a CUDA graph in the model's program cache (``utils/programs.py``) and
+replays it, one launch a block or a window. Nothing in these functions
+reads the device from the host: a fill count the flat-PQ scan loops over
+is a host int, part of the program's key.
 
 Coarse assignment: argmax inner product for metric=dot, argmin L2
 otherwise (reference get_quantizer). PQ encoding is residual for l2 (FAISS
@@ -249,6 +259,62 @@ def _ivf_pq_search(centroids, codebooks, list_codes, list_ids, list_sizes, q, k:
     return carry
 
 
+def _ivf_flat_search_fused(centroids, list_data, list_ids, list_sizes, refine_data, q3,
+                           k: int, scan_k: int, nprobe: int, g: int, metric: str,
+                           codec: str, vmin=None, span=None, list_norms=None,
+                           scan_bf16: bool = False):
+    """The IVF-Flat/SQ8 search of each (block, d) block of the stacked
+    (nblocks, block, d) queries, block after block, as one program, with
+    the exact refine when ``refine_data`` is given (the JAX package's
+    ``_ivf_flat_search_fused``); also the per-block program, over one
+    block."""
+
+    def body(qb):
+        # GRAFT_SANITIZE=1: NaN checks on the probe scan (a plain call
+        # otherwise; the sanitizer runs the programs op by op)
+        vals, ids = sanitize.maybe_checked(
+            _ivf_flat_search, centroids, list_data, list_ids, list_sizes, qb, scan_k, nprobe,
+            g, metric, codec, vmin=vmin, span=span, list_norms=list_norms, scan_bf16=scan_bf16)
+        if refine_data is not None:
+            vals, ids = _rerank_exact(refine_data, qb, ids, k, metric)
+        return vals, ids
+
+    return base.map_blocks(body, q3)
+
+
+def _ivf_pq_search_fused(centroids, codebooks, list_codes, list_ids, list_sizes, refine_data,
+                         q3, k: int, adc_k: int, nprobe: int, g: int, metric: str,
+                         lut_bf16: bool):
+    """The multi-block IVF-PQ program (see ``_ivf_flat_search_fused``)."""
+
+    def body(qb):
+        vals, ids = sanitize.maybe_checked(
+            _ivf_pq_search, centroids, codebooks, list_codes, list_ids, list_sizes, qb, adc_k,
+            nprobe, g, metric, lut_bf16=lut_bf16)
+        if refine_data is not None:
+            vals, ids = _rerank_exact(refine_data, qb, ids, k, metric)
+        return vals, ids
+
+    return base.map_blocks(body, q3)
+
+
+def _pq_shared_search_fused(centroids, codebooks, list_codes, list_ids, size: int,
+                            refine_data, q3, k: int, adc_k: int, chunk: int, metric: str,
+                            lut_bf16: bool):
+    """The multi-block flat-PQ program (one list: K4 in chunks), as the
+    JAX package computes a one-list IVF-PQ."""
+
+    def body(qb):
+        vals, ids = sanitize.maybe_checked(
+            _pq_shared_search, centroids, codebooks, list_codes, list_ids, size, qb, adc_k,
+            chunk, metric, lut_bf16=lut_bf16)
+        if refine_data is not None:
+            vals, ids = _rerank_exact(refine_data, qb, ids, k, metric)
+        return vals, ids
+
+    return base.map_blocks(body, q3)
+
+
 class _IVFBase(base.TorchIndex):
     """Shared coarse-quantizer + list bookkeeping for IVF variants."""
 
@@ -466,18 +532,18 @@ class IVFFlatIndex(_IVFBase):
         nprobe, nb, g = self._search_plan()
         opts = self._scan_options()
         scan_k = k * self.refine_k_factor if self.refine_k_factor else k
+        refine = self.refine_store.data if self.refine_k_factor else None
+        lists = (self.centroids, self.lists.data, self.lists.ids, self.lists.sizes, refine)
 
-        def run(qb):
-            # GRAFT_SANITIZE=1: NaN checks on the probe scan (a plain call
-            # otherwise)
-            vals, ids = sanitize.maybe_checked(
-                _ivf_flat_search, self.centroids, self.lists.data, self.lists.ids,
-                self.lists.sizes, qb, scan_k, nprobe, g, self.metric, self.codec, **opts)
-            if self.refine_k_factor:
-                vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)
-            return vals, ids
+        def run_fused(q3):
+            return _ivf_flat_search_fused(*lists, q3, k, scan_k, nprobe, g, self.metric,
+                                          self.codec, **opts)
 
-        return base.blocked_search(q, k, self.metric, run, self.device, block=nb)
+        programs = self.programs.bind(
+            "ivf_flat", (k, scan_k, nprobe, g, self.metric, self.codec, self.scan_bf16),
+            lists + (opts.get("vmin"), opts.get("span"), opts["list_norms"]))
+        return base.blocked_search(q, k, self.metric, base.per_block(run_fused), self.device,
+                                   block=nb, fused_fn=run_fused, programs=programs)
 
     def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
         ids = np.asarray(ids, np.int64)
@@ -626,23 +692,31 @@ class IVFPQIndex(_IVFBase):
             return self._empty_results(q.shape[0], k)
         nprobe, nb, g = self._search_plan()
         adc_k = k * self.refine_k_factor if self.refine_k_factor else k
+        refine = self.refine_store.data if self.refine_k_factor else None
+        if self.nlist == 1:
+            size = int(self.lists.sizes_host[0])
+            chunk = shared_chunk_rows(nb)
+            reads = (self.centroids, self.codebooks, self.lists.data, self.lists.ids, size,
+                     refine)
 
-        def run(qb):
-            if self.nlist == 1:
-                vals, ids = sanitize.maybe_checked(
-                    _pq_shared_search, self.centroids, self.codebooks, self.lists.data,
-                    self.lists.ids, int(self.lists.sizes_host[0]), qb, adc_k,
-                    shared_chunk_rows(nb), self.metric, lut_bf16=self.lut_bf16)
-            else:
-                vals, ids = sanitize.maybe_checked(
-                    _ivf_pq_search, self.centroids, self.codebooks, self.lists.data,
-                    self.lists.ids, self.lists.sizes, qb, adc_k, nprobe, g, self.metric,
-                    lut_bf16=self.lut_bf16)
-            if self.refine_k_factor:
-                vals, ids = _rerank_exact(self.refine_store.data, qb, ids, k, self.metric)
-            return vals, ids
+            def run_fused(q3):
+                return _pq_shared_search_fused(*reads, q3, k, adc_k, chunk, self.metric,
+                                               self.lut_bf16)
 
-        return base.blocked_search(q, k, self.metric, run, self.device, block=nb)
+            programs = self.programs.bind(
+                "pq_shared", (k, adc_k, chunk, self.metric, self.lut_bf16), reads)
+        else:
+            reads = (self.centroids, self.codebooks, self.lists.data, self.lists.ids,
+                     self.lists.sizes, refine)
+
+            def run_fused(q3):
+                return _ivf_pq_search_fused(*reads, q3, k, adc_k, nprobe, g, self.metric,
+                                            self.lut_bf16)
+
+            programs = self.programs.bind(
+                "ivf_pq", (k, adc_k, nprobe, g, self.metric, self.lut_bf16), reads)
+        return base.blocked_search(q, k, self.metric, base.per_block(run_fused), self.device,
+                                   block=nb, fused_fn=run_fused, programs=programs)
 
     def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
         ids = np.asarray(ids, np.int64)

@@ -17,7 +17,9 @@ Transforms:
 
 The matrix and mean live on the index's device and the products run
 there; the transformed rows cross to the host once, into the inner index's
-numpy API. ``state_dict`` writes the JAX package's keys (``kind``
+numpy API, whose search programs (``utils/programs.py``) then serve them:
+the product itself is not part of a program, so a search keeps that host
+round trip. ``state_dict`` writes the JAX package's keys (``kind``
 "pretransform", ``opq_m``, ``pca``, ``fit``, ``matrix``, ``mean`` and the
 inner index's state under ``inner.``), so a snapshot of either package
 loads in the other.
@@ -124,6 +126,12 @@ class PreTransformIndex(base.TorchIndex):
     def set_nprobe(self, nprobe: int) -> None:
         self.nprobe = int(nprobe)
         self.inner.set_nprobe(nprobe)
+
+    def release_programs(self) -> None:
+        self.inner.release_programs()
+
+    def program_stats(self) -> dict:
+        return self.inner.program_stats()
 
     def get_centroids(self):
         return self.inner.get_centroids()

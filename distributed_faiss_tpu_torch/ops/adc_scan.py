@@ -45,7 +45,8 @@ with a bf16 one, K2 181 and 302, K4 75 and 112) and ``run_slices``
 launches the kernel once per slice, the first starting each score from 0
 (K3 over the lists: writing the -inf mask) and the rest adding to the live
 scores, so every m the JAX package serves is served here. Each launch adds
-one to the wrapper's ``launches``; ``slices`` holds the number of slices
+one to the wrapper's ``launches`` (each replay of a captured program, the
+launches it holds: ``utils/programs.py``); ``slices`` holds the number of slices
 of its latest call on the card. The JAX package's ``USE_NIBBLE`` switch
 and demotion state are not ported. Under GRAFT_SANITIZE=1 each wrapper
 checks its operands' shapes and gather bounds on the host before any
@@ -59,7 +60,7 @@ import torch
 
 from distributed_faiss_tpu_torch.ops import cuda_build
 from distributed_faiss_tpu_torch.ops.distance import NEG_INF
-from distributed_faiss_tpu_torch.utils import lockdep, sanitize
+from distributed_faiss_tpu_torch.utils import lockdep, programs, sanitize
 
 LUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -291,9 +292,7 @@ def _count_launch(err, *wrappers):
     """Raise on a failed launch, else add one to each wrapper's count."""
     if err != 0:
         raise RuntimeError(f"{wrappers[0].__name__} kernel launch failed: CUDA error {err}")
-    with _counter_lock:
-        for wrapper in wrappers:
-            wrapper.launches += 1
+    programs.count_launches(_counter_lock, *wrappers)
 
 
 def _launch(wrapper, lut, codes):

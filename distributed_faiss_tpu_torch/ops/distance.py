@@ -17,6 +17,7 @@ slots are normalised to id -1 explicitly (``merge_topk``) instead of
 relying on the order of ties.
 """
 
+import numpy as np
 import torch
 
 from distributed_faiss_tpu_torch.ops import sq
@@ -29,6 +30,25 @@ NEG_INF = float("-inf")
 # segment's top-k). Same segment as the JAX package, so the two packages
 # reduce in the same shape.
 _TOPK_SEGMENT = 2048
+
+
+def bucket_size(n: int, minimum: int = 8) -> int:
+    """Smallest power of two >= n (>= minimum): the query buckets that bound
+    the set of captured programs (``utils/programs.py``), as they bound the
+    JAX package's jit cache."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def pad_rows(x: np.ndarray, bucket: int) -> np.ndarray:
+    """Pad the leading dim of ``x`` up to ``bucket`` rows with zeros."""
+    n = x.shape[0]
+    if n == bucket:
+        return x
+    pad = np.zeros((bucket - n,) + x.shape[1:], dtype=x.dtype)
+    return np.concatenate([x, pad], axis=0)
 
 
 def row_norms_f32(rows: torch.Tensor) -> torch.Tensor:

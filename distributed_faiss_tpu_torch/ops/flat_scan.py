@@ -8,7 +8,8 @@ CPU it runs ``flat_list_scan_plain`` (gather + decode + einsum + mask,
 the JAX package's non-Pallas body at models/ivf.py:176-196). For CUDA
 tensors it launches the hand-written kernel in ``csrc/flat_scan.cu`` or
 raises: there is no fallback. Each launch adds one to
-``flat_list_scan.launches``. Under GRAFT_SANITIZE=1 the operands' shapes
+``flat_list_scan.launches``, and each replay of a captured program adds
+the launches it holds (``utils/programs.py``). Under GRAFT_SANITIZE=1 the operands' shapes
 and gather bounds are checked on the host first (``utils/sanitize.py``).
 """
 
@@ -18,7 +19,7 @@ import torch
 
 from distributed_faiss_tpu_torch.ops import cuda_build, sq
 from distributed_faiss_tpu_torch.ops.distance import NEG_INF, row_norms_f32
-from distributed_faiss_tpu_torch.utils import lockdep, sanitize
+from distributed_faiss_tpu_torch.utils import lockdep, programs, sanitize
 
 # list codec -> (the kernel's codec id, the lists' storage dtype)
 CODECS = {"f32": (0, torch.float32), "f16": (1, torch.float16), "sq8": (2, torch.uint8)}
@@ -150,6 +151,5 @@ def _launch(q, list_data, list_ids, li, sizes_g, list_norms, vmin, span,
              ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {err}")
-    with _counter_lock:
-        flat_list_scan.launches += 1
+    programs.count_launches(_counter_lock, flat_list_scan)
     return out

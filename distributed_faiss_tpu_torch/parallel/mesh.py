@@ -51,10 +51,21 @@ merges on the mesh's first device before the results reach the host. The
 engine diffs the counter around each scheduler window into
 ``device_launches`` / ``rows_per_launch`` (1.0 a window in both modes;
 the JAX package counts one a query block in routed mode). The kernels'
-own launches a shard are in ``index.shard_launches`` (read from the
-wrappers' counters around that shard's calls).
+own launches a shard are in ``index.shard_launches`` (tallied around that
+shard's calls, and added again by each replay of a captured program).
+
+Programs: in masked mode on a mesh whose shards all lie on one device
+(the card machine's virtual shards), a query block's search and a
+multi-block batch (``_sharded_knn_fused``,
+``_sharded_ivf_flat_search_fused``, ``_sharded_ivf_pq_search_fused``) are
+captured and replayed through the model's program cache, as the JAX
+package runs its fused masked entries. Routed mode runs op by op, as the
+JAX package has no fused routed entry (its pair compaction reads the
+device: ``torch.nonzero`` and ``.item()``), and so does a mesh over
+several devices: both are explicit branches (``_programs``).
 """
 
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,6 +76,7 @@ from distributed_faiss_tpu_torch.models import ivf as ivfmod
 from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
 from distributed_faiss_tpu_torch.ops import adc_scan, distance, flat_scan, pq
 from distributed_faiss_tpu_torch.ops import kmeans as km
+from distributed_faiss_tpu_torch.utils import programs as programs_mod
 from distributed_faiss_tpu_torch.utils import xfercheck
 from distributed_faiss_tpu_torch.utils.config import MeshCfg
 from distributed_faiss_tpu_torch.utils.device import resolve_device
@@ -170,11 +182,23 @@ def _index_device(mesh: Optional[Mesh], device):
     return device
 
 
-def _counted_search(index, q: np.ndarray, k: int, run, block: int):
+def _counted_search(index, q: np.ndarray, k: int, run, block: int, fused_fn=None,
+                    programs=None):
     """One counted launch (module docstring) over every query block of
-    ``q``: ``run(q_block)`` returns bigger-is-better (scores, ids)."""
+    ``q``: ``run(q_block)`` returns bigger-is-better (scores, ids);
+    ``fused_fn`` and ``programs`` as ``models.base.blocked_search``."""
     index.launches += 1
-    return base.blocked_search(q, k, index.metric, run, index.device, block=block)
+    return base.blocked_search(q, k, index.metric, run, index.device, block=block,
+                               fused_fn=fused_fn, programs=programs)
+
+
+def _programs(index, prefix: str, static: tuple, reads: tuple):
+    """The model's programs for a masked search on a mesh whose shards all
+    lie on one device; None (op by op) across devices. Routed mode never
+    asks."""
+    if len(set(index.mesh.devices)) > 1:
+        return None
+    return index.programs.bind(prefix, static, reads)
 
 
 # --------------------------------------------------------------------- search
@@ -196,6 +220,15 @@ def local_scan_merge(mesh: Mesh, q: torch.Tensor, x, ntotals, k: int, metric: st
         vals.append(v)
         ids.append(torch.where(i >= 0, i + s * cap_local, i))
     return merge_shards(mesh, vals, ids, k)
+
+
+def _sharded_knn_fused(mesh: Mesh, q3, x, ntotals, k: int, metric: str, chunk: int,
+                       live=None):
+    """The sharded exact search of each block of the stacked (nblocks,
+    block, d) queries, block after block, as one program (the JAX
+    package's ``_sharded_knn_fused``)."""
+    return base.map_blocks(
+        lambda qb: local_scan_merge(mesh, qb, x, ntotals, k, metric, chunk, live=live), q3)
 
 
 def _knn_chunk(cap_local: int, chunk: int = 65536) -> int:
@@ -393,12 +426,17 @@ class ShardedFlatIndex(base.TorchIndex):
             d = np.full((q.shape[0], k), np.inf if self.metric == "l2" else -np.inf, np.float32)
             return d, np.full((q.shape[0], k), -1, np.int64)
         self._sync()
+        chunk = _knn_chunk(self._cap_local)
+        reads = (self._dev, self._ntotals, self._live)
 
-        def run(qb):
-            return sharded_knn(self.mesh, qb, self._dev, self._ntotals, k, self.metric,
-                               live=self._live)
+        def run_fused(q3):
+            return _sharded_knn_fused(self.mesh, q3, self._dev, self._ntotals, k, self.metric,
+                                      chunk, live=self._live)
 
-        return _counted_search(self, q, k, run, base.pick_query_block(65536 * 4))
+        return _counted_search(self, q, k, base.per_block(run_fused),
+                               base.pick_query_block(65536 * 4), fused_fn=run_fused,
+                               programs=_programs(self, "sharded_flat",
+                                                  (k, self.metric, chunk), reads))
 
     def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
         ids = np.asarray(ids, np.int64)
@@ -630,9 +668,16 @@ def _finish_local(q, vals, cells, ids_local, raw_local, k: int, metric: str):
     return best, torch.where(torch.isneginf(best), torch.full_like(out, -1), out)
 
 
-def _shard_launches(shard_launches, s: int, wrapper, before: int) -> None:
-    if shard_launches is not None:
-        shard_launches[s] += wrapper.launches - before
+def _add_shard_launches(shard_launches, s: int, n: int) -> None:
+    shard_launches[s] += n
+
+
+def _shard_launches(shard_launches, s: int, launched) -> None:
+    """Add the launches ``launched`` (a ``programs.tally``) counted on
+    shard s, now or at each replay of the program being captured."""
+    n = sum(launched.values())
+    if shard_launches is not None and n:
+        programs_mod.count(functools.partial(_add_shard_launches, shard_launches, s, n))
 
 
 def _sharded_ivf_flat_search(mesh: Mesh, centroids, lists: ShardedPaddedLists, q, k: int,
@@ -655,12 +700,12 @@ def _sharded_ivf_flat_search(mesh: Mesh, centroids, lists: ShardedPaddedLists, q
     for li in ivfmod._probe_groups(centroids, q, nprobe, g, metric):
         for s, dev in enumerate(mesh.devices):
             slot, sizes = _owned(li.to(dev), lists.sizes[s], S, s)
-            before = flat_scan.flat_list_scan.launches
-            sc = flat_scan.flat_list_scan(
-                qs[s], lists.data[s], lists.ids[s], slot, sizes,
-                None if list_norms is None else list_norms[s],
-                metric=metric, codec="f32", scan_bf16=scan_bf16)
-            _shard_launches(shard_launches, s, flat_scan.flat_list_scan, before)
+            with programs_mod.tally() as launched:
+                sc = flat_scan.flat_list_scan(
+                    qs[s], lists.data[s], lists.ids[s], slot, sizes,
+                    None if list_norms is None else list_norms[s],
+                    metric=metric, codec="f32", scan_bf16=scan_bf16)
+            _shard_launches(shard_launches, s, launched)
             carries[s] = _merge_cells(carries[s], sc, slot, local_k)
     vals, ids = zip(*[_finish_local(qs[s], *carries[s], lists.ids[s],
                                     None if raw_data is None else raw_data[s], k, metric)
@@ -696,8 +741,6 @@ def _sharded_ivf_pq_search(mesh: Mesh, centroids, codebooks, lists: ShardedPadde
     q = q.float()
     nq = q.shape[0]
     S = mesh.size
-    m, ksub, _ = codebooks.shape
-    wrapper = _pq_wrapper(m, ksub)
     local_k = adc_k if raw_data is not None else k
     shared_lut = None if metric == "l2" else pq.adc_lut(q, codebooks, metric=metric)
     qs = [q.to(dev) for dev in mesh.devices]
@@ -706,14 +749,46 @@ def _sharded_ivf_pq_search(mesh: Mesh, centroids, codebooks, lists: ShardedPadde
         lut = ivfmod._pq_group_lut(centroids, codebooks, q, li, metric, lut_bf16, shared_lut)
         for s, dev in enumerate(mesh.devices):
             slot, sizes = _owned(li.to(dev), lists.sizes[s], S, s)
-            before = wrapper.launches
-            sc = _pq_scores(lut.to(dev), lists.data[s], lists.ids[s], slot, sizes)
-            _shard_launches(shard_launches, s, wrapper, before)
+            with programs_mod.tally() as launched:
+                sc = _pq_scores(lut.to(dev), lists.data[s], lists.ids[s], slot, sizes)
+            _shard_launches(shard_launches, s, launched)
             carries[s] = _merge_cells(carries[s], sc, slot, local_k)
     vals, ids = zip(*[_finish_local(qs[s], *carries[s], lists.ids[s],
                                     None if raw_data is None else raw_data[s], k, metric)
                       for s in range(S)])
     return merge_shards(mesh, vals, ids, k)
+
+
+def _sharded_ivf_flat_search_fused(mesh: Mesh, centroids, lists: ShardedPaddedLists, q3,
+                                   k: int, nprobe: int, g: int, metric: str, list_norms=None,
+                                   scan_bf16: bool = False, adc_k: int = 0, raw_data=None,
+                                   shard_launches=None):
+    """The masked sharded IVF-Flat search of each block of the stacked
+    (nblocks, block, d) queries, block after block, as one program (the
+    JAX package's ``_sharded_ivf_flat_search_fused``)."""
+    return base.map_blocks(
+        lambda qb: _sharded_ivf_flat_search(
+            mesh, centroids, lists, qb, k, nprobe, g, metric, list_norms=list_norms,
+            scan_bf16=scan_bf16, adc_k=adc_k, raw_data=raw_data,
+            shard_launches=shard_launches), q3)
+
+
+def _sharded_ivf_pq_search_fused(mesh: Mesh, centroids, codebooks, lists: ShardedPaddedLists,
+                                 q3, k: int, nprobe: int, g: int, metric: str,
+                                 lut_bf16: bool = False, adc_k: int = 0, raw_data=None,
+                                 shard_launches=None):
+    """The multi-block masked sharded IVF-PQ program (see
+    ``_sharded_ivf_flat_search_fused``)."""
+    return base.map_blocks(
+        lambda qb: _sharded_ivf_pq_search(
+            mesh, centroids, codebooks, lists, qb, k, nprobe, g, metric, lut_bf16=lut_bf16,
+            adc_k=adc_k, raw_data=raw_data, shard_launches=shard_launches), q3)
+
+
+def _list_reads(lists: ShardedPaddedLists, *extra) -> tuple:
+    """The state a sharded IVF program reads: every shard's lists, ids and
+    sizes, then ``extra`` (centroids, codebooks, norms, refine rows)."""
+    return (lists.data, lists.ids, lists.sizes) + extra
 
 
 # --------------------------------------------------------- routed IVF search
@@ -786,11 +861,11 @@ def _sharded_ivf_flat_search_routed(mesh: Mesh, centroids, lists: ShardedPaddedL
         def score(qi, slot, s=s, qd=qd, norms=norms):
             slot = slot[:, None].contiguous()
             sizes = lists.sizes[s][slot.long()].contiguous()
-            before = flat_scan.flat_list_scan.launches
-            sc = flat_scan.flat_list_scan(qd[qi].contiguous(), lists.data[s], lists.ids[s],
-                                          slot, sizes, norms, metric=metric, codec="f32",
-                                          scan_bf16=scan_bf16)
-            _shard_launches(shard_launches, s, flat_scan.flat_list_scan, before)
+            with programs_mod.tally() as launched:
+                sc = flat_scan.flat_list_scan(qd[qi].contiguous(), lists.data[s],
+                                              lists.ids[s], slot, sizes, norms, metric=metric,
+                                              codec="f32", scan_bf16=scan_bf16)
+            _shard_launches(shard_launches, s, launched)
             return sc[:, 0]
 
         v, c = _routed_pairs_local(probes.to(dev), s, S, local_k, cap,
@@ -831,9 +906,9 @@ def _sharded_ivf_pq_search_routed(mesh: Mesh, centroids, codebooks, lists: Shard
             lut = lut.to(torch.bfloat16 if lut_bf16 else torch.float32).contiguous()
             slot = slot[:, None].contiguous()
             sizes = lists.sizes[s][slot.long()].contiguous()
-            before = wrapper.launches
-            sc = _pq_scores(lut, lists.data[s], lists.ids[s], slot, sizes)
-            _shard_launches(shard_launches, s, wrapper, before)
+            with programs_mod.tally() as launched:
+                sc = _pq_scores(lut, lists.data[s], lists.ids[s], slot, sizes)
+            _shard_launches(shard_launches, s, launched)
             return sc[:, 0]
 
         v, c = _routed_pairs_local(probes_d, s, S, local_k, cap, _routed_chunk(per_pair), score)
@@ -913,18 +988,26 @@ class ShardedIVFFlatIndex(IVFFlatIndex):
         raw = _refine_data(self)
         adc_k = k * self.refine_k_factor if raw is not None else 0
 
-        def run(qb):
-            if self.probe_routing:
+        if self.probe_routing:
+            def run(qb):
                 return _sharded_ivf_flat_search_routed(
                     self.mesh, self.centroids, self.lists, qb, k, nprobe, self.metric,
                     list_norms=norms, scan_bf16=self.scan_bf16, adc_k=adc_k, raw_data=raw,
                     shard_launches=self.shard_launches)
-            return _sharded_ivf_flat_search(
-                self.mesh, self.centroids, self.lists, qb, k, nprobe, g, self.metric,
+
+            return _counted_search(self, q, k, run, nb)
+
+        def run_fused(q3):
+            return _sharded_ivf_flat_search_fused(
+                self.mesh, self.centroids, self.lists, q3, k, nprobe, g, self.metric,
                 list_norms=norms, scan_bf16=self.scan_bf16, adc_k=adc_k, raw_data=raw,
                 shard_launches=self.shard_launches)
 
-        return _counted_search(self, q, k, run, nb)
+        programs = _programs(self, "sharded_ivf_flat",
+                             (k, nprobe, g, self.metric, self.scan_bf16, adc_k),
+                             _list_reads(self.lists, self.centroids, norms, raw))
+        return _counted_search(self, q, k, base.per_block(run_fused), nb, fused_fn=run_fused,
+                               programs=programs)
 
     def state_dict(self) -> Dict[str, np.ndarray]:
         state = super().state_dict()
@@ -1010,18 +1093,26 @@ class ShardedIVFPQIndex(IVFPQIndex):
         raw = _refine_data(self)
         adc_k = k * self.refine_k_factor if raw is not None else 0
 
-        def run(qb):
-            if self.probe_routing:
+        if self.probe_routing:
+            def run(qb):
                 return _sharded_ivf_pq_search_routed(
                     self.mesh, self.centroids, self.codebooks, self.lists, qb, k, nprobe,
                     self.metric, lut_bf16=self.lut_bf16, adc_k=adc_k, raw_data=raw,
                     shard_launches=self.shard_launches)
-            return _sharded_ivf_pq_search(
-                self.mesh, self.centroids, self.codebooks, self.lists, qb, k, nprobe, g,
+
+            return _counted_search(self, q, k, run, nb)
+
+        def run_fused(q3):
+            return _sharded_ivf_pq_search_fused(
+                self.mesh, self.centroids, self.codebooks, self.lists, q3, k, nprobe, g,
                 self.metric, lut_bf16=self.lut_bf16, adc_k=adc_k, raw_data=raw,
                 shard_launches=self.shard_launches)
 
-        return _counted_search(self, q, k, run, nb)
+        programs = _programs(self, "sharded_ivf_pq",
+                             (k, nprobe, g, self.metric, self.lut_bf16, adc_k),
+                             _list_reads(self.lists, self.centroids, self.codebooks, raw))
+        return _counted_search(self, q, k, base.per_block(run_fused), nb, fused_fn=run_fused,
+                               programs=programs)
 
     def state_dict(self) -> Dict[str, np.ndarray]:
         state = super().state_dict()

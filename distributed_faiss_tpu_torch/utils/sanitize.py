@@ -19,8 +19,11 @@ land where the port can check them:
   the process's CUDA context with it, so a bad index must never reach a
   launch.
 
-Every check reads the device (a sync), inside ``xfercheck.explicit``. It
-is a test and drill knob, never a serving default. ``enabled()`` reads
+Every check reads the device (a sync), inside ``xfercheck.explicit``. So
+with the sanitizer on, the search programs run op by op, never captured
+(``utils/programs.py``): the bounds checks before each launch need the
+operands on the host, where the JAX package checks inside its program.
+It is a test and drill knob, never a serving default. ``enabled()`` reads
 the environment per call; disabled (the default), ``maybe_checked`` is a
 plain call and the wrappers check nothing more than before.
 """

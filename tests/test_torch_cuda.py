@@ -37,6 +37,12 @@ against the plain versions or the CPU. Then replication: an ``ivfsq`` and
 a ``knnlm`` snapshot moved from one card engine to another (served through
 K1 and K3 over the lists with the donor's ids), and a delta heal between
 two card ranks of one group in one process (equal digests, K1 launched).
+Last, the captured search programs (``utils/programs.py``): each kernel's
+path, the exact flat scan and a 4-shard masked mesh replayed against
+``programs.eager()`` for one block and for a window of blocks, a doctored
+host sync refused at capture, a capture while another index serves from
+another thread, an add that reallocates the lists, deletes read by a
+replay, and a steady scheduler window's syncs under DFT_XFERCHECK=1.
 """
 
 import numpy as np
@@ -710,8 +716,9 @@ def test_flat_pq_path_with_a_dead_chunk(card, monkeypatch):
     cpu.add(x)
     dead = np.union1d(np.arange(512, 1024), np.arange(0, 3000, 5))
     on_card = _mutated(cpu, dead, card)
+    on_card.search(q, 10)  # captures the program: its warm-up launches count too
     before = adc_scan.adc_scan_shared.launches
-    d_card, i_card = on_card.search(q, 10)
+    d_card, i_card = on_card.search(q, 10)  # one replay
     assert adc_scan.adc_scan_shared.launches - before == -(-3000 // 512)
     d_cpu, i_cpu = cpu.search(q, 10)
     np.testing.assert_array_equal(i_card, i_cpu)
@@ -1076,3 +1083,229 @@ def test_doctored_item_under_guarded_raises_on_the_card(card, monkeypatch):
     assert len(xfercheck.drain()) == 1
     assert sum(xfercheck.syncs().values()) == 1
     xfercheck.reset()
+
+
+# ------------------------------------------------ captured search programs
+
+
+def _program_index(kind, card):
+    """A small index of ``kind`` trained on the CPU, served on the card
+    from its state, with the path's kernel wrapper."""
+    from distributed_faiss_tpu_torch.parallel import mesh as tmesh
+
+    x, q = correlated_corpus(21, n=3000, nq=40)
+    if kind == "mesh":
+        cpu = tmesh.ShardedIVFFlatIndex(32, 16, "l2", mesh=tmesh.make_mesh(
+            4, device="cpu", virtual=True), kmeans_iters=4)
+    elif kind == "flat":
+        cpu = factory.build_index(IndexCfg(faiss_factory="Flat", dim=32, metric="l2"),
+                                  device="cpu")
+    else:
+        spec = {"K1": "IVF16,SQfp16", "K2": "IVF16,PQ4", "K3": "IVF16,PQ8,RFlat",
+                "K4": "PQ8,RFlat"}[kind]
+        cpu = factory.build_index(IndexCfg(faiss_factory=spec, dim=32, metric="l2",
+                                           kmeans_iters=4), device="cpu")
+    cpu.train(x[:2000])
+    cpu.add(x)
+    cpu.set_nprobe(4)
+    state = cpu.state_dict()
+    if kind == "mesh":
+        on_card = carry_mesh(state, card)
+    else:
+        on_card = factory.index_from_state_dict(state, device=card)
+    fn = {"K1": flat_scan.flat_list_scan, "mesh": flat_scan.flat_list_scan,
+          "K2": adc_scan.adc_scan, "K3": adc_scan.adc_scan_lists,
+          "K4": adc_scan.adc_scan_shared, "flat": None}[kind]
+    return on_card, fn, x, q
+
+
+def carry_mesh(state, card):
+    """A 4-shard masked IVF-Flat on the card from a CPU index's state."""
+    from distributed_faiss_tpu_torch.parallel import mesh as tmesh
+
+    idx = tmesh.ShardedIVFFlatIndex(32, 16, "l2", mesh=tmesh.make_mesh(4, device=card,
+                                                                       virtual=True))
+    idx.centroids = torch.as_tensor(np.asarray(state["centroids"]), device=card)
+    idx.lists = idx._make_lists()
+    idx.add(np.asarray(state["rows"], np.float32))
+    idx.set_nprobe(4)
+    return idx
+
+
+@pytest.mark.parametrize("kind", ["K1", "K2", "K3", "K4", "flat", "mesh"])
+@pytest.mark.parametrize("nq", [20, 29])
+def test_graph_replay_matches_eager(card, kind, nq, monkeypatch):
+    """Each kernel's path as a captured program (one block, and with 8-query
+    blocks a window of 4) against ``programs.eager()``: the same ids, the
+    scores within 1e-4, one capture then replays, and each replay adds the
+    eager search's launches to the wrapper's count."""
+    from distributed_faiss_tpu_torch.models import base
+    from distributed_faiss_tpu_torch.utils import programs
+
+    if nq == 29:
+        monkeypatch.setattr(base, "MAX_QUERY_BLOCK", 8)
+    idx, fn, _, q = _program_index(kind, card)
+    q = q[:nq]
+    with programs.eager():
+        before = fn.launches if fn else 0
+        d_eager, i_eager = idx.search(q, 10)
+        per_search = (fn.launches - before) if fn else 0
+    assert idx.program_stats()["captures"] == 0
+    if fn:
+        assert per_search > 0
+    d1, i1 = idx.search(q, 10)
+    before = fn.launches if fn else 0
+    d2, i2 = idx.search(q, 10)
+    stats = idx.program_stats()
+    assert stats["captures"] == 1 and stats["replays"] == 2 and stats["pool_bytes"] > 0
+    if fn:
+        assert fn.launches - before == per_search
+    for d, i in ((d1, i1), (d2, i2)):
+        np.testing.assert_array_equal(i, i_eager)
+        np.testing.assert_allclose(d, d_eager, rtol=1e-4, atol=1e-4)
+    idx.release_programs()
+    assert idx.program_stats()["programs"] == 0
+
+
+def test_a_host_sync_inside_a_program_raises_at_capture(card, monkeypatch):
+    """A doctored ``.item()`` in the block program fails its capture, and
+    the search raises instead of going on op by op; the context survives
+    and the undoctored search then captures and serves."""
+    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.utils import programs
+
+    idx, _, _, q = _program_index("K1", card)
+    merge = ivf._merge_group
+
+    def doctored(carry, s, li, list_ids, k):
+        s.max().item()
+        return merge(carry, s, li, list_ids, k)
+
+    monkeypatch.setattr(ivf, "_merge_group", doctored)
+    with pytest.raises(RuntimeError):
+        idx.search(q, 10)
+    assert idx.program_stats()["replays"] == 0
+    monkeypatch.setattr(ivf, "_merge_group", merge)
+    with programs.eager():
+        want = idx.search(q, 10)
+    np.testing.assert_array_equal(idx.search(q, 10)[1], want[1])
+    assert idx.program_stats()["replays"] == 1
+
+
+def test_capture_while_another_index_serves(card):
+    """Index B captures program after program (one an nprobe) while index A
+    serves from another thread, replaying its own: both answer right."""
+    import threading
+
+    a, _, _, qa = _program_index("K3", card)
+    b, _, _, qb = _program_index("K1", card)
+    want_a = a.search(qa, 10)[1]
+    want_b = {}
+    from distributed_faiss_tpu_torch.utils import programs
+    with programs.eager():
+        for nprobe in (1, 2, 4, 8, 16):
+            b.set_nprobe(nprobe)
+            want_b[nprobe] = b.search(qb, 10)[1]
+    stop, errors, served = threading.Event(), [], [0]
+
+    def serve_a():
+        try:
+            while not stop.is_set():
+                np.testing.assert_array_equal(a.search(qa, 10)[1], want_a)
+                served[0] += 1
+        except BaseException as e:  # pragma: no cover - the failure
+            errors.append(e)
+
+    th = threading.Thread(target=serve_a)
+    th.start()
+    try:
+        for nprobe in (1, 2, 4, 8, 16):
+            b.set_nprobe(nprobe)
+            np.testing.assert_array_equal(b.search(qb, 10)[1], want_b[nprobe])
+    finally:
+        stop.set()
+        th.join(60.0)
+    assert not th.is_alive() and not errors, errors
+    assert served[0] > 0 and b.program_stats()["captures"] == 5
+
+
+def test_lists_reallocated_by_an_add_recapture(card):
+    """An add that grows the lists changes the program's key: the next
+    search captures anew, evicts the stale program and serves the new rows."""
+    idx, _, x, q = _program_index("K1", card)
+    idx.search(q, 10)
+    cap = idx.lists.cap
+    rng = np.random.default_rng(22)
+    new = np.concatenate([x, x]) + rng.standard_normal((6000, 32)).astype(np.float32) * 0.01
+    idx.add(new)
+    assert idx.lists.cap > cap
+    d, i = idx.search(new[:20], 1)
+    stats = idx.program_stats()
+    assert stats["captures"] == 2 and stats["evictions"] == 1 and stats["programs"] == 1
+    np.testing.assert_array_equal(i[:, 0], 3000 + np.arange(20))
+
+
+@pytest.mark.parametrize("kind", ["K1", "K3", "K4", "flat"])
+def test_a_deleted_id_is_never_served_from_a_replayed_graph(card, kind):
+    """Tombstones written in place after the capture: the replay reads them
+    (no new capture) and serves none of the deleted ids."""
+    idx, _, _, q = _program_index(kind, card)
+    if kind == "flat":
+        idx.remove_rows(np.asarray([2999]))  # the live mask: allocated once
+    _, i = idx.search(q, 10)
+    captures = idx.program_stats()["captures"]
+    dead = np.unique(i[:, :3])
+    idx.remove_rows(dead)
+    _, i2 = idx.search(q, 10)
+    assert idx.program_stats()["captures"] == captures
+    assert not np.isin(i2, dead).any()
+    assert (i2 >= 0).all()
+
+
+def test_steady_scheduler_window_on_the_card(card, monkeypatch):
+    """DFT_XFERCHECK=1 with the card's sync debug mode: a warmed window
+    through the SearchScheduler captures nothing and syncs only at the
+    program's upload and fetch, once each a window."""
+    import time
+
+    from distributed_faiss_tpu_torch.engine import Index
+    from distributed_faiss_tpu_torch.serving.scheduler import SearchScheduler
+    from distributed_faiss_tpu_torch.utils import compilecheck, xfercheck
+    from distributed_faiss_tpu_torch.utils.config import SchedulerCfg
+    from distributed_faiss_tpu_torch.utils.state import IndexState
+
+    monkeypatch.setenv("DFT_COMPACT", "0")
+    x, q = correlated_corpus(23)
+    eng = Index(IndexCfg(index_builder_type="ivfsq", dim=32, metric="l2", train_num=2000,
+                         centroids=16, nprobe=4), device=card)
+    sched = None
+    compilecheck.reset()
+    compilecheck.install()
+    try:
+        eng.add_batch(x, [(i,) for i in range(x.shape[0])], train_async_if_triggered=False)
+        deadline = time.monotonic() + 120
+        while not (eng.get_idx_data_num() == (0, x.shape[0])
+                   and eng.get_state() == IndexState.TRAINED):
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        sched = SearchScheduler(lambda iid, qb, k, emb: eng.search_batched(qb, k, emb),
+                                SchedulerCfg(max_batch_rows=16, max_wait_ms=1.0))
+        want = sched.submit("i", q[:16], 10, False)[1]
+        monkeypatch.setenv("DFT_XFERCHECK", "1")
+        xfercheck.reset()
+        snap = compilecheck.snapshot()
+        for _ in range(4):
+            assert sched.submit("i", q[:16], 10, False)[1] == want
+        assert not [n for n in compilecheck.new_since(snap) if n.startswith("capture:")]
+        assert xfercheck.drain() == []
+        sites = xfercheck.syncs()
+        assert sorted(s.split(" (")[0] for s in sites) == ["program query upload",
+                                                          "program result fetch"], sites
+        assert all(n == 4 for n in sites.values()), sites
+    finally:
+        if sched is not None:
+            sched.stop()
+        eng.retire()
+        compilecheck.uninstall()
+        compilecheck.reset()
+        xfercheck.reset()

@@ -44,7 +44,8 @@ _NAMED = ("distributed_faiss_tpu_torch.parallel.wire",
           "distributed_faiss_tpu_torch.utils.racecheck",
           "distributed_faiss_tpu_torch.utils.xfercheck",
           "distributed_faiss_tpu_torch.utils.sanitize",
-          "distributed_faiss_tpu_torch.utils.compilecheck")
+          "distributed_faiss_tpu_torch.utils.compilecheck",
+          "distributed_faiss_tpu_torch.utils.programs")
 
 
 def test_port_modules_import_without_jax():

@@ -281,16 +281,19 @@ def test_search_at_generation_and_retained_generations(rng, tmp_path, monkeypatc
         assert t.versioning.retain_generations == 3
         t.add_batch(x, [(i,) for i in range(30)], train_async_if_triggered=False)
         _drained(t, 30)
-        gens = []
+        gens, served = [], []
         for i in range(4):
             t.remove_ids([i], version=(100 + i, 0, 1))
             assert t.save() is True  # a delete alone commits
             gens.append(t.current_generation())
+            served.append(t.search(x[2:3], 1)[1])  # what this generation serves live
         assert [g for g, _ in serialization.list_generations(storage)] == gens[:0:-1]
         _, meta, _ = t.search_at_generation(x[2:3], 1, generation=gens[1])
-        assert meta == [[(2,)]]  # deleted in gens[2]
+        assert meta == [[(2,)]] == served[1]  # deleted in gens[2]
+        # row 2's nearest survivor at gens[2] may be row 3, deleted in
+        # gens[3]: the pin serves what gens[2] served, not today's answer
         _, meta, _ = t.search_at_generation(x[2:3], 1, generation=gens[2])
-        assert meta != [[(2,)]] and t.search(x[2:3], 1)[1] == meta
+        assert meta != [[(2,)]] and meta == served[2]
         with pytest.raises(RuntimeError, match="not retained"):
             t.search_at_generation(x[:1], 1, generation=gens[0])
         j = JIndex(_cfg(JCfg, storage))
@@ -299,6 +302,31 @@ def test_search_at_generation_and_retained_generations(rng, tmp_path, monkeypatc
                     == t.search_at_generation(x[:5], 3, generation=gens[1])[1])
         finally:
             j.retire()
+    finally:
+        t.retire()
+
+
+def test_pinned_generation_serves_a_neighbour_deleted_since(tmp_path, monkeypatch):
+    """Row 3 is row 2's twin: once rows 0-2 are deleted, the generation of
+    that commit serves row 3 as row 2's nearest, and keeps serving it after
+    a later generation deletes row 3 too, while the live index serves
+    another row."""
+    monkeypatch.setenv("DFT_RETAIN_GENERATIONS", "3")
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((30, D)).astype(np.float32)
+    x[3] = x[2] + np.float32(1e-3)
+    t = TIndex(_cfg(IndexCfg, str(tmp_path / "port")), device="cpu")
+    try:
+        t.add_batch(x, [(i,) for i in range(30)], train_async_if_triggered=False)
+        _drained(t, 30)
+        gens = []
+        for i in range(4):
+            t.remove_ids([i], version=(100 + i, 0, 1))
+            assert t.save() is True
+            gens.append(t.current_generation())
+        assert t.search_at_generation(x[2:3], 1, generation=gens[2])[1] == [[(3,)]]
+        now = t.search(x[2:3], 1)[1]
+        assert now != [[(3,)]] and now[0][0][0] > 3
     finally:
         t.retire()
 

@@ -254,6 +254,7 @@ def _port_objects(tmp_path):
     from distributed_faiss_tpu_torch.utils.atomics import AtomicCounters
     from distributed_faiss_tpu_torch.utils.batching import SearchBatcher
     from distributed_faiss_tpu_torch.utils.config import IndexCfg
+    from distributed_faiss_tpu_torch.utils.programs import ProgramCache
     from distributed_faiss_tpu_torch.utils.tracing import LatencyStats
 
     eng = Index(IndexCfg(dim=8, index_builder_type="flat"), device="cpu")
@@ -284,6 +285,7 @@ def _port_objects(tmp_path):
         ("counters", AtomicCounters(), "_lock", "AtomicCounters._lock"),
         ("batcher", SearchBatcher(lambda q, k: None), "_lock", "SearchBatcher._lock"),
         ("stats", LatencyStats(), "_lock", "LatencyStats._lock"),
+        ("programs", ProgramCache(), "_lock", "ProgramCache.lock"),
         ("proxy", ChaosProxy("localhost", 1), "_lock", "ChaosProxy._lock"),
         ("harness", ServerHarness(1, str(tmp_path / "d"), str(tmp_path / "s"), 1), "_lock",
          "ServerHarness._lock"),
@@ -328,17 +330,20 @@ def test_port_module_locks_have_keys_of_their_own(monkeypatch):
     from distributed_faiss_tpu_torch.models import hnsw
     from distributed_faiss_tpu_torch.observability import spans
     from distributed_faiss_tpu_torch.ops import adc_scan, cuda_build, flat_scan
+    from distributed_faiss_tpu_torch.utils import programs
 
     monkeypatch.setenv("DFT_LOCKDEP", "1")
     locks = [flat_scan._counter_lock, adc_scan._counter_lock, cuda_build._lock, hnsw._lock,
-             spans._local_mu]
+             spans._local_mu, programs._capture_lock, programs._eager_lock]
     keys = ["flat_scan._counter_lock", "adc_scan._counter_lock", "cuda_build._lock",
-            "hnsw._lock", "spans._local_mu"]
+            "hnsw._lock", "spans._local_mu", "programs._capture_lock", "programs._eager_lock"]
     code = ("from distributed_faiss_tpu_torch.models import hnsw\n"
             "from distributed_faiss_tpu_torch.observability import spans\n"
             "from distributed_faiss_tpu_torch.ops import adc_scan, cuda_build, flat_scan\n"
+            "from distributed_faiss_tpu_torch.utils import programs\n"
             "print([l.name for l in (flat_scan._counter_lock, adc_scan._counter_lock, "
-            "cuda_build._lock, hnsw._lock, spans._local_mu)])")
+            "cuda_build._lock, hnsw._lock, spans._local_mu, programs._capture_lock, "
+            "programs._eager_lock)])")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, env=dict(os.environ, DFT_LOCKDEP="1"))
     assert out.returncode == 0, out.stderr
