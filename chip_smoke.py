@@ -117,8 +117,9 @@ d. ``hnswsq``: the builder at its defaults (graph degree 128,
 
 Every model search on the card, in every phase, runs as captured
 programs (``utils/programs.py``: one CUDA graph a query block or a
-multi-block window, replayed), except inside ``programs.eager()``, in the
-mesh's routed mode, and under GRAFT_SANITIZE=1 (phase i.3). After phase 9,
+multi-block window, replayed; the mesh's routed mode one a routed block),
+except inside ``programs.eager()`` and under GRAFT_SANITIZE=1 (phase
+i.3). After phase 9,
 on the servers of phases 3 and 4:
 
 j. Programs against op by op (``GRAPH_NPROBES``): the ``ivfsq`` (K1) and
@@ -237,7 +238,22 @@ h. The mesh (``parallel/mesh.py``), ``MESH_SHARDS`` (4) virtual shards on
       queries served, K3 over the lists launched on every shard, neither
       K2 nor K4.
    4. Masked and routed mode for the indexes of h.2 and h.3 at nprobe
-      32: the same top-10 ids on the tie-free queries, each mode served.
+      32, masked served first; routed served twice (``routed_mode``), with
+      its captured programs (one a block bucket and pair bucket,
+      ``_sharded_ivf_*_search_routed``) and inside ``programs.eager()``:
+      QPS and p50/p99 of each, the routed blocks, relaunches and replays
+      (exactly one replay a block), no capture in a timed window, the
+      masked mode's top-10 ids on the tie-free queries (and the same ids
+      in both routed modes), every shard launched; then 2000 queries under
+      DFT_XFERCHECK (no implicit sync, one upload and one fetch a block);
+      each routed capture a registered ``utils/jitreg.py`` row within its
+      budget; the model's programs and graph pool logged. The skew arm
+      (after h.2's index is dropped): ``SKEW_ROWS`` (4096) rows in one list
+      of a 64-list index on the 4 shards, the lists every query probes
+      (nprobe 8) all shard 0's: the first 256-row search relaunches at
+      grown pair buckets and answers as the exact scan on the tie-free
+      queries; seven more such searches capture nothing and relaunch no
+      more.
    5. ``flat`` with ``mesh_shards`` over phase 3's first 200,000 rows: the
       same top-10 ids as the single-device exact FlatIndex on the tie-free
       queries, ``--nq`` queries served.
@@ -2666,23 +2682,181 @@ def arm(args, s, counters, iid: str, q_all: np.ndarray, nprobe: int, card: str, 
     return out
 
 
+def routed_mode(s, iid: str, q_all: np.ndarray, counters, kernel: str, mode: str, card: str,
+                what: str, model) -> dict:
+    """h.4: the routed model served in one mode (``graph_arm``: a warm run,
+    ``--nq`` queries timed with no capture, the same queries at top-11),
+    with its routed blocks (counted launches), relaunches and replays:
+    with programs exactly one replay a block, and every shard launched."""
+    launches0, relaunches0 = model.launches, model.routed_relaunches
+    shard0, st0 = model.shard_launches.copy(), model.program_stats()
+    out = graph_arm(s, iid, q_all, counters, kernel, mode, card, what)
+    st1 = model.program_stats()
+    blocks = model.launches - launches0
+    replays = st1["replays"] - st0["replays"]
+    out.update(blocks=blocks, relaunches=model.routed_relaunches - relaunches0,
+               replays_per_block=replays / max(blocks, 1),
+               shard_launches=(model.shard_launches - shard0).tolist())
+    if mode == "graphs" and replays != blocks:
+        raise AssertionError(f"{what} [{mode}]: {replays} replays for {blocks} routed blocks")
+    if min(out["shard_launches"]) <= 0:
+        raise AssertionError(f"{what} [{mode}]: {kernel} did not launch on every shard: "
+                             f"{out['shard_launches']}")
+    log(f"{what} [{mode}]: {blocks} routed blocks, {out['relaunches']} relaunches, "
+        f"{out['replays_per_block']:.3f} replays a block, {kernel} per shard "
+        f"{out['shard_launches']}, on {card}")
+    return out
+
+
+def routed_syncs(s, iid: str, q: np.ndarray, model, what: str) -> dict:
+    """h.4: ``q`` served with DFT_XFERCHECK=1: no implicit sync, and the
+    designed syncs are exactly one ``program query upload`` and one
+    ``program result fetch`` a routed block."""
+    from distributed_faiss_tpu_torch.utils import xfercheck
+
+    xfercheck.reset()
+    launches0 = model.launches
+    try:
+        with env_set("DFT_XFERCHECK", "1"):
+            serve_queries(s.client, q, iid, 100, 8)
+        violations, sites = xfercheck.drain(), xfercheck.syncs()
+    finally:
+        xfercheck.reset()
+    blocks = model.launches - launches0
+    by_reason = {}
+    for site, n in sites.items():
+        reason = site.split(" (")[0]
+        by_reason[reason] = by_reason.get(reason, 0) + n
+    if violations:
+        raise AssertionError(f"{what}: implicit syncs under xfercheck: {violations[:3]}")
+    if by_reason != {"program query upload": blocks, "program result fetch": blocks}:
+        raise AssertionError(f"{what}: designed syncs {by_reason} for {blocks} routed blocks")
+    log(f"{what}: under xfercheck {blocks} routed blocks, {by_reason['program query upload']} "
+        f"uploads and {by_reason['program result fetch']} fetches, no implicit sync")
+    return dict(blocks=blocks, **by_reason)
+
+
 def routed_arm(args, s, counters, iid: str, q_all: np.ndarray, card: str, what: str, model,
                kernel: str) -> dict:
-    """h.4: the same index at nprobe 32, masked then probe-routed (the
-    served model's mode switched in place): the same top-10 ids on the
-    tie-free queries; each mode served, masked first."""
+    """h.4: the same index at nprobe 32, masked, then probe-routed (the
+    served model's mode switched in place) with its captured programs and
+    inside ``programs.eager()``: each mode's QPS and p50/p99, one replay a
+    routed block, no capture in a timed window, the masked top-10 ids on
+    the tie-free queries (and eager's), one upload and one fetch a block
+    under xfercheck, each routed capture registered and within its budget,
+    the model's programs and graph pool."""
+    from distributed_faiss_tpu_torch.utils import compilecheck, jitreg
+
     q_eval = q_all[:1000]
     s.client.set_nprobe(iid, 32)
     Dm, Mm = s.client.search(q_eval, 11, iid)
     masked = arm(args, s, counters, iid, q_all, 32, card, f"{what} (masked)", model, kernel)
     model.probe_routing = True
+    compilecheck.reset()
+    compilecheck.install()
     try:
-        Dr, Mr = s.client.search(q_eval, 11, iid)
-        share = same_top10(Dm, Mm, Dr, Mr, f"{what}: routed vs masked at nprobe=32")
-        out = arm(args, s, counters, iid, q_all, 32, card, f"{what} (routed)", model, kernel)
+        modes = {mode: routed_mode(s, iid, q_all, counters, kernel, mode, card, what, model)
+                 for mode in ("graphs", "eager")}
+        g, e = modes["graphs"], modes["eager"]
+        share = same_top10(Dm, Mm, g["D"][:1000], g["M"][:1000],
+                           f"{what}: routed (graphs) vs masked at nprobe=32")
+        same_top10(g.pop("D"), g.pop("M"), e.pop("D"), e.pop("M"),
+                   f"{what}: routed graphs against programs.eager()", min_share=0.5)
+        syncs = routed_syncs(s, iid, q_all[:2000], model, what)
+        captured = compilecheck.by_entry()
+        unregistered = compilecheck.unregistered()
     finally:
+        compilecheck.uninstall()
+        compilecheck.reset()
         model.probe_routing = False
-    out.update(tie_free_share=share, masked=masked)
+    name = ROUTED_PROGRAMS[type(model).__name__]
+    budget = jitreg.row_of(name)["budget"]
+    if unregistered or not 0 < captured.get(name, 0) <= budget:
+        raise AssertionError(f"{what}: captures {captured} (unregistered {unregistered}); "
+                             f"{name} may capture 1..{budget}")
+    programs = log_programs(s, iid, what)
+    log(f"{what}: graphs {g['qps']:.1f} QPS (p50 {g['p50_ms']:.3f} / p99 {g['p99_ms']:.3f} ms) "
+        f"against eager {e['qps']:.1f} QPS (p50 {e['p50_ms']:.3f} / p99 {e['p99_ms']:.3f} ms): "
+        f"{g['qps'] / e['qps']:.4f}x; {name} captured {captured[name]} of its budget "
+        f"{budget}; graph pool {programs['pool_bytes']} bytes, on {card}")
+    return dict(graphs=g, eager=e, tie_free_share=share, masked=masked, syncs=syncs,
+                captures=captured, programs=programs)
+
+
+# each routed model's program (utils/jitreg.py)
+ROUTED_PROGRAMS = {"ShardedIVFFlatIndex": "sharded_ivf_flat.routed",
+                   "ShardedIVFPQIndex": "sharded_ivf_pq.routed"}
+SKEW_ROWS, SKEW_LISTS, SKEW_NPROBE, SKEW_BLOCK = 4096, 64, 8, 256
+
+
+def skew_arm(card: str, counters) -> dict:
+    """h.4's skew arm: on MESH_SHARDS virtual shards, every row in list 0
+    and shard 0's lists (l % S == 0) the nearest to every query, so shard
+    0 owns every pair. The first SKEW_BLOCK-row search relaunches at grown
+    pair buckets; it answers as the exact scan on the tie-free queries;
+    then the remaining searches capture nothing and relaunch no more."""
+    from distributed_faiss_tpu_torch.models.flat import FlatIndex
+    from distributed_faiss_tpu_torch.parallel import mesh
+    from distributed_faiss_tpu_torch.utils import compilecheck
+
+    what, d = "h.4 skew arm", 128
+    rng = np.random.default_rng(4242)
+    base = rng.standard_normal(d).astype(np.float32)
+    cents = base + 60.0 * rng.standard_normal((SKEW_LISTS, d)).astype(np.float32)
+    cents[::MESH_SHARDS] = base + 3.0 * rng.standard_normal(
+        (SKEW_LISTS // MESH_SHARDS, d)).astype(np.float32)
+    cents[0] = base
+    x = base + 0.5 * rng.standard_normal((SKEW_ROWS, d)).astype(np.float32)
+    q = base + 0.5 * rng.standard_normal((8 * SKEW_BLOCK, d)).astype(np.float32)
+    model = mesh.ShardedIVFFlatIndex(d, SKEW_LISTS, "l2", mesh=mesh.make_mesh(
+        MESH_SHARDS, device="cuda", virtual=True), probe_routing=True)
+    model.centroids = torch.as_tensor(cents, device="cuda")
+    model.lists = model._make_lists()
+    model.add(x)
+    model.set_nprobe(SKEW_NPROBE)
+    if int(model.lists.sizes_host[0]) != SKEW_ROWS:
+        raise AssertionError(f"{what}: list 0 holds {model.lists.sizes_host[0]} rows")
+    zero_counts(counters)
+    D, I = model.search(q[:SKEW_BLOCK], 11)
+    first = dict(launches=model.launches, relaunches=model.routed_relaunches,
+                 captures=model.program_stats()["captures"], slack=model._routed_slack)
+    if first["relaunches"] < 1 or first["captures"] != first["launches"]:
+        raise AssertionError(f"{what}: the first search: {first}")
+    exact = FlatIndex(d, "l2", device="cuda")
+    exact.add(x)
+    De, Ie = exact.search(q[:SKEW_BLOCK], 11)
+    del exact
+    meta = lambda ids: [[(int(i),) for i in row] for row in ids]
+    share = same_top10(De, meta(Ie), D, meta(I), f"{what}: routed vs the exact scan")
+    compilecheck.install()
+    snap, st0 = compilecheck.snapshot(), model.program_stats()
+    launches0, relaunches0 = model.launches, model.routed_relaunches
+    try:
+        t0 = time.perf_counter()
+        for s0 in range(SKEW_BLOCK, q.shape[0], SKEW_BLOCK):
+            Dr, Ir = model.search(q[s0:s0 + SKEW_BLOCK], 11)
+            check_result(Dr, meta(Ir), SKEW_BLOCK, 11, f"{what} search")
+        wall = time.perf_counter() - t0
+        captured = compilecheck.new_since(snap)
+    finally:
+        compilecheck.uninstall()
+    st1 = model.program_stats()
+    steady = dict(searches=q.shape[0] // SKEW_BLOCK - 1, launches=model.launches - launches0,
+                  relaunches=model.routed_relaunches - relaunches0,
+                  replays=st1["replays"] - st0["replays"], captures=captured, wall_s=wall)
+    if captured or steady["relaunches"] or steady["replays"] != steady["launches"]:
+        raise AssertionError(f"{what}: the steady searches: {steady}")
+    counts = read_counts(counters)
+    if counts["K1"] <= 0:
+        raise AssertionError(f"{what}: K1 was not launched")
+    log(f"{what}: {SKEW_ROWS} rows in list 0 of {SKEW_LISTS} on {MESH_SHARDS} shards, nprobe "
+        f"{SKEW_NPROBE}: the first {SKEW_BLOCK}-row search {first}; then {steady}; K1 "
+        f"{counts['K1']} launches; pool {st1['pool_bytes']} bytes, on {card}")
+    out = dict(first=first, steady=steady, tie_free_share=share, k1=counts["K1"],
+               pool_bytes=st1["pool_bytes"])
+    model.release_programs()
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2750,6 +2924,7 @@ def mesh_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
         for i in (iid, iid2):
             s.client.drop_index(i)
         torch.cuda.empty_cache()
+        out["h.4 skew"] = skew_arm(card, counters)
 
         # ---- h.5: flat with mesh_shards over phase 3's first 200,000 rows ----
         what, iid5 = "h.5 flat mesh_shards", "flat_mesh"

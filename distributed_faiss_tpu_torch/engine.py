@@ -1109,8 +1109,9 @@ class Index:
         lock also serializes against add, list growth and the tombstone
         masks). A model with a ``launches`` counter (the mesh-sharded ones,
         parallel/mesh.py) gets it diffed around the call into
-        ``device_launches`` (launches this window took: 1.0 on the mesh)
-        and ``rows_per_launch``."""
+        ``device_launches`` (launches this window took: 1.0 on the masked
+        mesh, a routed block and each relaunch in routed mode) and
+        ``rows_per_launch``."""
         with self.index_lock:
             if self.state != IndexState.TRAINED:
                 raise RuntimeError(NOT_TRAINED_REJECTION_FMT.format(state=self.state))

@@ -39,33 +39,40 @@ and their sizes ``where(owned, sizes_local[li_local], 0)``, so K1
 (``ops.adc_scan.adc_scan_lists``) compute exactly the JAX body's masked
 scores and skip the pairs the shard does not own; in the other PQ
 geometry the gathered codes go through K2 (``adc_scan``) and are masked
-after it. Routed mode: each shard compacts the (query, probe) pairs it
-owns, exactly (no fixed bucket: torch has no fixed-shape constraint, so
-the JAX package's bucket-overflow relaunches are not needed), scores them
-with K1 (the gathered query rows, one probe each) or K3 (one LUT per
-pair), and reduces them per query.
+after it. Routed mode (the JAX package's ``_routed_pairs_local``): each
+shard compacts the (query, probe) pairs it owns into a fixed bucket of
+``routed_pair_bucket`` slots, in query order, scores them in pieces of
+whole pair groups (``_routed_piece``) with K1 (the gathered query rows,
+one probe each) or K3 (one LUT per pair), and reduces them per query;
+owned pairs past the bucket are dropped and counted, and
+``_routed_search_blocks`` runs such a block again with the bucket doubled
+until none drops.
 
-One "launch" (``index.launches``): one call of a model's search entry,
-which loops over the query blocks of the call, scans every shard and
-merges on the mesh's first device before the results reach the host. The
-engine diffs the counter around each scheduler window into
-``device_launches`` / ``rows_per_launch`` (1.0 a window in both modes;
-the JAX package counts one a query block in routed mode). The kernels'
-own launches a shard are in ``index.shard_launches`` (tallied around that
-shard's calls, and added again by each replay of a captured program).
+One "launch" (``index.launches``): in masked mode one call of a model's
+search entry, which loops over the query blocks of the call, scans every
+shard and merges on the mesh's first device before the results reach the
+host; in routed mode, as the JAX package counts them (``_counted``), one
+a query block of ``_routed_block_size`` rows and one more for each
+relaunch at a grown bucket. The engine diffs the counter around each
+scheduler window into ``device_launches`` / ``rows_per_launch``. The
+kernels' own launches a shard are in ``index.shard_launches`` (tallied
+around that shard's calls, and added again by each replay of a captured
+program).
 
-Programs: in masked mode on a mesh whose shards all lie on one device
-(the card machine's virtual shards), a query block's search and a
-multi-block batch (``_sharded_knn_fused``,
-``_sharded_ivf_flat_search_fused``, ``_sharded_ivf_pq_search_fused``) are
-captured and replayed through the model's program cache, as the JAX
-package runs its fused masked entries. Routed mode runs op by op, as the
-JAX package has no fused routed entry (its pair compaction reads the
-device: ``torch.nonzero`` and ``.item()``), and so does a mesh over
-several devices: both are explicit branches (``_programs``).
+Programs: on a mesh whose shards all lie on one device (the card
+machine's virtual shards), a query block's search and a multi-block batch
+(``_sharded_knn_fused``, ``_sharded_ivf_flat_search_fused``,
+``_sharded_ivf_pq_search_fused``) are captured and replayed through the
+model's program cache, as the JAX package runs its fused masked entries;
+so is each routed block (``_sharded_ivf_flat_search_routed``,
+``_sharded_ivf_pq_search_routed``: one program a block bucket and pair
+bucket, as the JAX package compiles one a shape and ``pair_bucket``), its
+real-row count uploaded with the queries and its drop count fetched with
+the results. A mesh over several devices runs op by op (``_programs``).
 """
 
 import functools
+import logging
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -77,7 +84,6 @@ from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
 from distributed_faiss_tpu_torch.ops import adc_scan, distance, flat_scan, pq
 from distributed_faiss_tpu_torch.ops import kmeans as km
 from distributed_faiss_tpu_torch.utils import programs as programs_mod
-from distributed_faiss_tpu_torch.utils import xfercheck
 from distributed_faiss_tpu_torch.utils.config import MeshCfg
 from distributed_faiss_tpu_torch.utils.device import resolve_device
 
@@ -86,8 +92,12 @@ AXIS = "shard"
 # the JAX package's sync bucket (models/base.py DeviceVectorStore.WRITE_BUCKET):
 # the flat corpus grows so that the next bucket of rows fits, as there
 _WRITE_BUCKET = 1024
-# bound on a routed chunk of pairs' transients (scores, LUTs, gathered codes)
-_ROUTED_CHUNK_BYTES = 256 * 1024 * 1024
+# the JAX package's bound on a routed block's per-shard transients
+_ROUTED_TRANSIENT_BUDGET = 256 * 1024 * 1024
+# bound on one routed scoring call's transients (scores, LUTs, gathered codes)
+_ROUTED_PIECE_BYTES = 256 * 1024 * 1024
+
+logger = logging.getLogger()
 
 
 class Mesh:
@@ -193,9 +203,8 @@ def _counted_search(index, q: np.ndarray, k: int, run, block: int, fused_fn=None
 
 
 def _programs(index, prefix: str, static: tuple, reads: tuple):
-    """The model's programs for a masked search on a mesh whose shards all
-    lie on one device; None (op by op) across devices. Routed mode never
-    asks."""
+    """The model's programs for a search on a mesh whose shards all lie on
+    one device; None (op by op) across devices."""
     if len(set(index.mesh.devices)) > 1:
         return None
     return index.programs.bind(prefix, static, reads)
@@ -794,129 +803,245 @@ def _list_reads(lists: ShardedPaddedLists, *extra) -> tuple:
 # --------------------------------------------------------- routed IVF search
 
 
-def _routed_pairs_local(probes: torch.Tensor, s: int, S: int, local_k: int, cap: int,
-                        chunk: int, score_pairs):
-    """Shard s's part of a probe-routed search: compact the (query, probe)
-    pairs it owns, score them ``chunk`` pairs at a time with
-    ``score_pairs(qi, slot)`` -> (p, cap) masked scores (qi: query rows,
-    slot: the lists' local slots), keep each pair's top-k cell positions,
-    and reduce them to a per-query (nq, local_k) top-k."""
+def routed_pair_bucket(nq: int, nprobe: int, S: int, group: int, slack: float = 2.0) -> int:
+    """Fixed per-shard pair budget: slack x the uniform share, group-aligned
+    (the JAX package's)."""
+    b = max(group, int(-(-nq * nprobe * slack // S)))
+    return -(-b // group) * group
+
+
+def _routed_block_size(nprobe: int, S: int, group: int, slack: float, local_k: int,
+                       budget: int = _ROUTED_TRANSIENT_BUDGET) -> int:
+    """Largest query block whose routed per-shard transients fit the budget:
+    the JAX package's estimate (3 arrays * 4 bytes * pair_bucket * kk *
+    (QB + 1), its QB=16 masked reduce) at the bucket the block would start
+    with, kept so that blocks, buckets and drops are the JAX package's."""
+    block = base.MAX_QUERY_BLOCK
+    while block > 256:
+        bucket = routed_pair_bucket(block, nprobe, S, group, slack)
+        if 3 * 4 * bucket * local_k * (16 + 1) <= budget:
+            break
+        block //= 2
+    return block
+
+
+def _routed_piece(pair_bucket: int, group: int, per_pair_bytes: int) -> int:
+    """Pairs a routed scoring call takes: whole groups (the JAX package's
+    scan step, sized for its gathered (group, cap, d) block), as many as
+    keep the call's transients within ``_ROUTED_PIECE_BYTES``; the kernels
+    read the lists in place, so a call of many groups is one launch where
+    a group a call is hundreds."""
+    groups = max(1, _ROUTED_PIECE_BYTES // max(1, group * per_pair_bytes))
+    return min(pair_bucket, groups * group)
+
+
+def _routed_pairs_local(probes: torch.Tensor, nq_real, s: int, S: int, pair_bucket: int,
+                        piece: int, local_k: int, cap: int, score_pairs):
+    """Shard s's part of a probe-routed search of one query block (the JAX
+    package's ``_routed_pairs_local``), with no read of the device.
+
+    The pairs it owns (``li % S == s`` of a real query row, ``< nq_real``:
+    padded rows own none) are compacted stably, in query order, into
+    ``pair_bucket`` slots (a cumsum of the mask and a scatter; owned pairs
+    past the bucket are dropped, as the JAX package's ``top_k`` keeps the
+    lowest pair indices). The slots are scored ``piece`` at a time with
+    ``score_pairs(qi, li, slot, valid)`` -> (piece, cap) masked scores (qi:
+    query rows, li: global list ids, slot: local slots, valid: False for
+    an empty slot, which must score -inf); each pair keeps its top-kk cell
+    positions (slot * cap + pos) at its (query, probe) place of a dense
+    (nq, nprobe, kk) block, which a query reduces to its (nq, local_k)
+    top-k. Returns (scores, cells int32, dropped: max(owned - bucket, 0))."""
     nq, nprobe = probes.shape
     dev = probes.device
-    flat_li = probes.reshape(-1)
-    with xfercheck.explicit("routed pair compaction: torch.nonzero of the owned pairs"):
-        sel = torch.nonzero((flat_li % S) == s).squeeze(1)  # exact compaction, query order
-    if sel.numel() == 0:
-        return _empty_topk(nq, local_k, dev)
+    n_pairs = nq * nprobe
+    flat_li = probes.reshape(-1).long()
+    pidx = torch.arange(n_pairs, device=dev)
+    mine = ((flat_li % S) == s) & ((pidx // nprobe) < nq_real)
+    owned = mine.sum()
+    rank = torch.cumsum(mine.long(), 0) - 1
+    dest = torch.where(mine & (rank < pair_bucket), rank, torch.full_like(rank, pair_bucket))
+    sel = torch.zeros(pair_bucket + 1, dtype=torch.long, device=dev).scatter_(
+        0, dest, pidx)[:pair_bucket]
+    valid = torch.arange(pair_bucket, device=dev) < owned
     pair_qi = sel // nprobe
-    pair_slot = (flat_li[sel] // S).to(torch.int32)
+    pair_li = flat_li[sel]
+    pair_slot = torch.where(valid, pair_li // S, torch.zeros_like(pair_li))
+    # an empty slot lands in a dump row past the block
+    pair_row = torch.where(valid, pair_qi, torch.full_like(pair_qi, nq))
+    pair_j = sel % nprobe
     kk = min(local_k, cap)
-    pv, pc = [], []
-    for c0 in range(0, sel.numel(), chunk):
-        slot = pair_slot[c0:c0 + chunk]
-        sc = score_pairs(pair_qi[c0:c0 + chunk], slot)
+    dv = torch.full((nq + 1, nprobe, kk), distance.NEG_INF, dtype=torch.float32, device=dev)
+    dc = torch.full((nq + 1, nprobe, kk), -1, dtype=torch.int32, device=dev)
+    for g0 in range(0, pair_bucket, piece):
+        part = slice(g0, g0 + piece)
+        slot = pair_slot[part]
+        sc = score_pairs(pair_qi[part], pair_li[part], slot, valid[part])
         v, p = torch.topk(sc, kk, dim=1)
-        pv.append(v)
-        pc.append(torch.where(torch.isneginf(v), torch.full_like(p, -1),
-                              slot[:, None].long() * cap + p))
-    pair_vals, pair_cells = torch.cat(pv), torch.cat(pc)
-    counts = torch.bincount(pair_qi, minlength=nq)
-    rank = torch.arange(sel.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[pair_qi]
-    with xfercheck.explicit("routed pairs a query: counts.max()"):
-        maxc = int(counts.max().item())
-    dv = torch.full((nq, maxc, kk), distance.NEG_INF, dtype=torch.float32, device=dev)
-    dc = torch.full((nq, maxc, kk), -1, dtype=torch.int64, device=dev)
-    dv[pair_qi, rank] = pair_vals
-    dc[pair_qi, rank] = pair_cells
-    best, pos = distance.segmented_argtopk(dv.reshape(nq, maxc * kk), local_k)
+        c = torch.where(torch.isneginf(v), torch.full_like(p, -1), slot[:, None] * cap + p)
+        dv[pair_row[part], pair_j[part]] = v
+        dc[pair_row[part], pair_j[part]] = c.to(torch.int32)
+    best, pos = distance.segmented_argtopk(dv[:nq].reshape(nq, nprobe * kk), local_k)
     safe = torch.where(pos >= 0, pos, torch.zeros_like(pos))
-    cells = torch.gather(dc.reshape(nq, maxc * kk), 1, safe)
+    cells = torch.gather(dc[:nq].reshape(nq, nprobe * kk), 1, safe)
     cells = torch.where(torch.isneginf(best) | (pos < 0), torch.full_like(cells, -1), cells)
     carry = _empty_topk(nq, local_k, dev)
-    return distance.merge_topk(carry[0], carry[1], best, cells.to(torch.int32), local_k)
+    vals, cells = distance.merge_topk(carry[0], carry[1], best, cells, local_k)
+    return vals, cells, torch.clamp(owned - pair_bucket, min=0)
 
 
-def _routed_chunk(per_pair_bytes: int) -> int:
-    return max(1, _ROUTED_CHUNK_BYTES // max(1, per_pair_bytes))
+def _routed_finish(mesh: Mesh, parts, k: int):
+    """Merge the shards' (scores, ids, dropped) into the block's (scores,
+    ids, the most any shard dropped)."""
+    vals, ids = merge_shards(mesh, [p[0] for p in parts], [p[1] for p in parts], k)
+    return vals, ids, all_gather(mesh, [p[2] for p in parts]).max()
 
 
 def _sharded_ivf_flat_search_routed(mesh: Mesh, centroids, lists: ShardedPaddedLists, q,
-                                    k: int, nprobe: int, metric: str, list_norms=None,
+                                    nq_real, k: int, nprobe: int, pair_bucket: int,
+                                    group: int, metric: str, list_norms=None,
                                     scan_bf16: bool = False, adc_k: int = 0, raw_data=None,
                                     shard_launches=None):
-    """Probe-routed sharded IVF-Flat of one query block: each shard scores
-    only the pairs it owns, with K1 over the gathered query rows (one
-    probe each), then as ``_sharded_ivf_flat_search``."""
+    """Probe-routed sharded IVF-Flat of one query block -> (scores, ids
+    int32, dropped): each shard scores only the pairs it owns
+    (``_routed_pairs_local``), K1 over the gathered query rows (one probe
+    each), rescoring its shortlist exactly first with ``raw_data``, then
+    the merge. ``nq_real``: the block's real rows (a tensor or an int);
+    ``group``: the JAX package's pair group, which aligns the bucket."""
     q = q.float()
     S = mesh.size
     cap = lists.cap
     local_k = adc_k if raw_data is not None else k
+    piece = _routed_piece(pair_bucket, group, cap * 4 + q.shape[1] * 4)
     _, probes = distance.segmented_argtopk(distance.pairwise_scores(q, centroids, metric), nprobe)
-    probes = probes.to(torch.int32)
-    vals, ids = [], []
+    parts = []
     for s, dev in enumerate(mesh.devices):
         qd = q.to(dev)
         norms = None if list_norms is None else list_norms[s]
+        sizes_local = lists.sizes[s]
 
-        def score(qi, slot, s=s, qd=qd, norms=norms):
-            slot = slot[:, None].contiguous()
-            sizes = lists.sizes[s][slot.long()].contiguous()
+        def score(qi, li, slot, valid, s=s, qd=qd, norms=norms, sizes_local=sizes_local):
+            slot = slot[:, None].to(torch.int32).contiguous()
+            sizes = torch.where(valid[:, None], sizes_local[slot.long()],
+                                torch.zeros_like(slot)).contiguous()
             with programs_mod.tally() as launched:
-                sc = flat_scan.flat_list_scan(qd[qi].contiguous(), lists.data[s],
-                                              lists.ids[s], slot, sizes, norms, metric=metric,
-                                              codec="f32", scan_bf16=scan_bf16)
+                sc = flat_scan.flat_list_scan(qd[qi].contiguous(), lists.data[s], lists.ids[s],
+                                              slot, sizes, norms, metric=metric, codec="f32",
+                                              scan_bf16=scan_bf16)
             _shard_launches(shard_launches, s, launched)
             return sc[:, 0]
 
-        v, c = _routed_pairs_local(probes.to(dev), s, S, local_k, cap,
-                                   _routed_chunk(cap * 4 + lists.payload_shape[0] * 4), score)
-        v, i = _finish_local(qd, v, c, lists.ids[s], None if raw_data is None else raw_data[s],
-                             k, metric)
-        vals.append(v)
-        ids.append(i)
-    return merge_shards(mesh, vals, ids, k)
+        v, c, dropped = _routed_pairs_local(probes.to(dev), torch.as_tensor(nq_real, device=dev),
+                                            s, S, pair_bucket, piece, local_k, cap, score)
+        parts.append(_finish_local(qd, v, c, lists.ids[s],
+                                   None if raw_data is None else raw_data[s], k, metric)
+                     + (dropped,))
+    return _routed_finish(mesh, parts, k)
 
 
 def _sharded_ivf_pq_search_routed(mesh: Mesh, centroids, codebooks, lists: ShardedPaddedLists,
-                                  q, k: int, nprobe: int, metric: str, lut_bf16: bool = False,
-                                  adc_k: int = 0, raw_data=None, shard_launches=None):
-    """Probe-routed sharded IVF-PQ of one query block: per owned pair its
-    LUT (of the residual to the probed centroid for l2), K3 over the lists
-    (or K2 over the gathered codes, masked), then as the flat variant."""
+                                  q, nq_real, k: int, nprobe: int, pair_bucket: int, group: int,
+                                  metric: str, lut_bf16: bool = False, adc_k: int = 0,
+                                  raw_data=None, shard_launches=None):
+    """Probe-routed sharded IVF-PQ of one query block -> (scores, ids int32,
+    dropped): per owned pair its LUT (of the residual to the probed
+    centroid for l2), K3 over the lists (or K2 over the gathered codes,
+    masked), then as the flat variant."""
     q = q.float()
     S = mesh.size
     cap = lists.cap
     m, ksub, _ = codebooks.shape
-    wrapper = _pq_wrapper(m, ksub)
     local_k = adc_k if raw_data is not None else k
+    # a pair's LUT in fp32 and its bf16 copy, its scores, K2's gathered codes
+    gathered = 0 if _pq_wrapper(m, ksub) is adc_scan.adc_scan_lists else cap * m
+    piece = _routed_piece(pair_bucket, group, m * ksub * 6 + cap * 4 + gathered)
     _, probes = distance.segmented_argtopk(distance.pairwise_scores(q, centroids, metric), nprobe)
-    probes = probes.to(torch.int32)
-    per_pair = cap * 4 + m * ksub * 4 + (0 if wrapper is adc_scan.adc_scan_lists else cap * m)
-    vals, ids = [], []
+    parts = []
     for s, dev in enumerate(mesh.devices):
         qd, cents, books = q.to(dev), centroids.to(dev), codebooks.to(dev)
-        probes_d = probes.to(dev)
+        sizes_local = lists.sizes[s]
 
-        def score(qi, slot, s=s, qd=qd, cents=cents, books=books, probes_d=probes_d):
+        def score(qi, li, slot, valid, s=s, qd=qd, cents=cents, books=books,
+                  sizes_local=sizes_local):
             r = qd[qi]
             if metric == "l2":
-                # the pair's list: slot * S + s (its global id)
-                r = r - cents[slot.long() * S + s]
+                r = r - cents[li]
             lut = pq.adc_lut(r, books, metric=metric)
             lut = lut.to(torch.bfloat16 if lut_bf16 else torch.float32).contiguous()
-            slot = slot[:, None].contiguous()
-            sizes = lists.sizes[s][slot.long()].contiguous()
+            slot = slot[:, None].to(torch.int32).contiguous()
+            sizes = torch.where(valid[:, None], sizes_local[slot.long()],
+                                torch.zeros_like(slot)).contiguous()
             with programs_mod.tally() as launched:
                 sc = _pq_scores(lut, lists.data[s], lists.ids[s], slot, sizes)
             _shard_launches(shard_launches, s, launched)
             return sc[:, 0]
 
-        v, c = _routed_pairs_local(probes_d, s, S, local_k, cap, _routed_chunk(per_pair), score)
-        v, i = _finish_local(qd, v, c, lists.ids[s], None if raw_data is None else raw_data[s],
-                             k, metric)
-        vals.append(v)
-        ids.append(i)
-    return merge_shards(mesh, vals, ids, k)
+        v, c, dropped = _routed_pairs_local(probes.to(dev), torch.as_tensor(nq_real, device=dev),
+                                            s, S, pair_bucket, piece, local_k, cap, score)
+        parts.append(_finish_local(qd, v, c, lists.ids[s],
+                                   None if raw_data is None else raw_data[s], k, metric)
+                     + (dropped,))
+    return _routed_finish(mesh, parts, k)
+
+
+def _routed_search_blocks(index, q: np.ndarray, k: int, nprobe: int, group: int, call,
+                          local_k: int = None):
+    """The block loop of a probe-routed search (the JAX package's).
+
+    ``call(block, n, bucket)`` -> host (scores, ids, dropped) of one padded
+    block with ``n`` real rows at pair bucket ``bucket``
+    (``_routed_call``). Each block of ``_routed_block_size`` rows is one
+    counted launch (``index.launches``). Dropped pairs are candidates left
+    unscanned, so while a block drops any it runs again with the bucket
+    doubled, one more counted launch (``index.routed_relaunches`` too; a
+    new program: the JAX package's one extra compile), up to the bucket
+    that holds every pair of the block;
+    the grown slack stays on the index (``_routed_slack``) for later
+    blocks and searches."""
+    S = index.mesh.size
+    q = np.asarray(q, np.float32)
+    nq = q.shape[0]
+    out_s = np.empty((nq, k), np.float32)
+    out_i = np.empty((nq, k), np.int64)
+    slack = index._routed_slack
+    nb = _routed_block_size(nprobe, S, group, slack, local_k if local_k is not None else k)
+    for s0, n, block in base.query_blocks(q, nb):
+        bq = block.shape[0]
+        # every pair on one shard: a bucket this big cannot drop, so the
+        # loop below ends
+        hard_cap = -(-bq * nprobe // group) * group
+        bucket = min(routed_pair_bucket(bq, nprobe, S, group, slack), hard_cap)
+        while True:
+            index.launches += 1
+            vals, ids, dropped = call(block, n, bucket)
+            if dropped == 0 or bucket >= hard_cap:
+                break
+            bucket = min(2 * bucket, hard_cap)
+            slack = min(2.0 * slack, float(S))
+            index.routed_relaunches += 1
+            logger.info("probe routing dropped %d pairs (skewed list ownership); "
+                        "retrying block with bucket=%d", dropped, bucket)
+        out_s[s0:s0 + n] = vals[:n]
+        out_i[s0:s0 + n] = ids[:n]
+    index._routed_slack = slack
+    return base.finalize_results(out_s, out_i, index.metric)
+
+
+def _routed_call(index, prefix: str, static: tuple, reads: tuple, body):
+    """``call`` of ``_routed_search_blocks``: ``body(bucket)``, a block's
+    search ``(queries, nq_real) -> (scores, ids, dropped)``, run as the
+    program ``<prefix>.routed`` of its bucket on a mesh whose shards all
+    lie on one device (``_programs``), else op by op; the queries and the
+    real-row count go up in one upload, the three outputs come back in
+    one fetch."""
+    programs = _programs(index, prefix, static, reads)
+
+    def call(block: np.ndarray, n: int, bucket: int):
+        x = (block, np.array([n], np.int32))
+        if programs is None:
+            return programs_mod.run_eager(body(bucket), x, index.device)
+        return programs.run("routed", body(bucket), x, index.device, static=(bucket,))
+
+    return call
 
 
 # ------------------------------------------------------ sharded IVF models
@@ -960,6 +1085,8 @@ class ShardedIVFFlatIndex(IVFFlatIndex):
         self.mesh = mesh or make_mesh(device=self.device)
         self.device = self.mesh.root
         self.probe_routing = bool(probe_routing)
+        self._routed_slack = 2.0
+        self.routed_relaunches = 0
         self.launches = 0
         self.shard_launches = np.zeros(self.mesh.size, np.int64)
 
@@ -989,13 +1116,19 @@ class ShardedIVFFlatIndex(IVFFlatIndex):
         adc_k = k * self.refine_k_factor if raw is not None else 0
 
         if self.probe_routing:
-            def run(qb):
-                return _sharded_ivf_flat_search_routed(
-                    self.mesh, self.centroids, self.lists, qb, k, nprobe, self.metric,
-                    list_norms=norms, scan_bf16=self.scan_bf16, adc_k=adc_k, raw_data=raw,
-                    shard_launches=self.shard_launches)
+            # the JAX package's pair group: a (group, cap, d) fp32 block <= 64 MB
+            group = max(8, min(1024, (64 << 20) // max(1, self.lists.cap * self.dim * 4)))
 
-            return _counted_search(self, q, k, run, nb)
+            def body(bucket):
+                return lambda qb, nq_real: _sharded_ivf_flat_search_routed(
+                    self.mesh, self.centroids, self.lists, qb, nq_real, k, nprobe, bucket, group,
+                    self.metric, list_norms=norms, scan_bf16=self.scan_bf16, adc_k=adc_k,
+                    raw_data=raw, shard_launches=self.shard_launches)
+
+            call = _routed_call(self, "sharded_ivf_flat",
+                                (k, nprobe, group, self.metric, self.scan_bf16, adc_k),
+                                _list_reads(self.lists, self.centroids, norms, raw), body)
+            return _routed_search_blocks(self, q, k, nprobe, group, call, local_k=adc_k or k)
 
         def run_fused(q3):
             return _sharded_ivf_flat_search_fused(
@@ -1070,6 +1203,8 @@ class ShardedIVFPQIndex(IVFPQIndex):
         self.mesh = mesh or make_mesh(device=self.device)
         self.device = self.mesh.root
         self.probe_routing = bool(probe_routing)
+        self._routed_slack = 2.0
+        self.routed_relaunches = 0
         self.launches = 0
         self.shard_launches = np.zeros(self.mesh.size, np.int64)
 
@@ -1094,13 +1229,19 @@ class ShardedIVFPQIndex(IVFPQIndex):
         adc_k = k * self.refine_k_factor if raw is not None else 0
 
         if self.probe_routing:
-            def run(qb):
-                return _sharded_ivf_pq_search_routed(
-                    self.mesh, self.centroids, self.codebooks, self.lists, qb, k, nprobe,
-                    self.metric, lut_bf16=self.lut_bf16, adc_k=adc_k, raw_data=raw,
-                    shard_launches=self.shard_launches)
+            # the JAX package's pair group: codes and transients bounded
+            group = max(8, min(512, (32 << 20) // max(1, self.lists.cap * self.m)))
 
-            return _counted_search(self, q, k, run, nb)
+            def body(bucket):
+                return lambda qb, nq_real: _sharded_ivf_pq_search_routed(
+                    self.mesh, self.centroids, self.codebooks, self.lists, qb, nq_real, k,
+                    nprobe, bucket, group, self.metric, lut_bf16=self.lut_bf16, adc_k=adc_k,
+                    raw_data=raw, shard_launches=self.shard_launches)
+
+            call = _routed_call(self, "sharded_ivf_pq",
+                                (k, nprobe, group, self.metric, self.lut_bf16, adc_k),
+                                _list_reads(self.lists, self.centroids, self.codebooks, raw), body)
+            return _routed_search_blocks(self, q, k, nprobe, group, call, local_k=adc_k or k)
 
         def run_fused(q3):
             return _sharded_ivf_pq_search_fused(

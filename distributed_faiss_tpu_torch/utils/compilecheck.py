@@ -1,22 +1,25 @@
-"""Runtime compile-count witness (DFT_COMPILECHECK=1): the builds and loads
-of native code on the serving path, tallied so a steady-state window can
-assert it compiled NOTHING new after warm-up (counterpart of
+"""Runtime compile-count witness (DFT_COMPILECHECK=1): the builds, loads and
+captures on the serving path, tallied so a steady-state window can assert
+it compiled NOTHING new after warm-up (counterpart of
 distributed_faiss_tpu/utils/compilecheck.py).
 
 The port has no jit. What compiles on its path is native code built at
 first use: one nvcc per kernel source (``ops/cuda_build.py`` ``build``),
 the ctypes load of each library (``load``), and the g++ build and load of
-the ``hnswsq`` graph library (``models/hnsw.py``). Those sites call
-``record`` with "nvcc:<source>", "load:<source>", "g++:hnsw" or
-"load:hnsw"; ``install()`` turns the tally on and ``uninstall()`` off.
+the ``hnswsq`` graph library (``models/hnsw.py``); and each search program
+the program cache captures as a CUDA graph (``utils/programs.py``), the
+counterpart of a jit compile. Those sites call ``record`` with
+"nvcc:<source>", "load:<source>", "g++:hnsw", "load:hnsw" or
+"capture:<program>"; ``install()`` turns the tally on and ``uninstall()``
+off.
 
 - ``snapshot()`` / ``new_since(snap)`` bound a serving window: warm the
   entries, snapshot, serve, then assert ``new_since(snap) == {}``.
+- ``by_entry()`` tallies the captures under their ``utils/jitreg.py`` row
+  (the JAX witness reports its compiles per registered qualname);
+  ``unregistered()`` lists captured names no row declares.
 - Counting is passive: nothing raises mid-serve; the assertion lives with
   whoever owns the window.
-
-The JAX package's ``utils/jitreg.py`` (the jitted programs traced for the
-IR tier of its lint) has no counterpart: the port traces no programs.
 """
 
 import threading
@@ -25,8 +28,10 @@ from distributed_faiss_tpu_torch.utils import envutil
 
 __all__ = [
     "enabled", "install", "uninstall", "record", "snapshot", "new_since",
-    "counts", "reset",
+    "counts", "reset", "by_entry", "unregistered",
 ]
+
+_CAPTURE = "capture:"
 
 
 def enabled() -> bool:
@@ -36,7 +41,7 @@ def enabled() -> bool:
 
 # _MU is a strict leaf guarding _COUNTS and _installed
 _MU = threading.Lock()
-_COUNTS = {}  # "nvcc:<source>" / "load:<source>" / "g++:hnsw" -> count
+_COUNTS = {}  # "nvcc:<source>" / "load:<source>" / "g++:hnsw" / "capture:<program>" -> count
 _installed = []
 
 
@@ -76,6 +81,26 @@ def new_since(snap: dict) -> dict:
     ``new_since(snap) == {}`` after warm-up."""
     now = counts()
     return {name: n - snap.get(name, 0) for name, n in now.items() if n > snap.get(name, 0)}
+
+
+def by_entry(snap: dict = None) -> dict:
+    """Captures (since ``snap``, when given) by registered program name;
+    names no row declares are left out (``unregistered``)."""
+    from distributed_faiss_tpu_torch.utils import jitreg
+
+    names = set(jitreg.registered_qualnames())
+    tally = counts() if snap is None else new_since(snap)
+    return {n[len(_CAPTURE):]: c for n, c in tally.items()
+            if n.startswith(_CAPTURE) and n[len(_CAPTURE):] in names}
+
+
+def unregistered() -> list:
+    """Captured program names that no ``utils/jitreg.py`` row declares."""
+    from distributed_faiss_tpu_torch.utils import jitreg
+
+    names = set(jitreg.registered_qualnames())
+    return sorted(n[len(_CAPTURE):] for n in counts()
+                  if n.startswith(_CAPTURE) and n[len(_CAPTURE):] not in names)
 
 
 def reset() -> None:

@@ -45,7 +45,13 @@ fails raises; nothing falls back to op by op.
 
 A replay is one upload of the padded queries into the static input, the
 graph's replay, and one fetch of its output, the scores' bits packed
-beside the ids. The kernel wrappers count their launches through
+beside the ids. A program may take host ints beside the queries (the
+mesh's routed programs take the block's real row count) and return a
+third output, a count (the routed pairs dropped): the ints ride in the
+same upload as the queries, the count in the same fetch as the scores
+and ids, so a routed block is one upload, one replay and one fetch where
+the JAX package reads its drop count and its results in two readbacks.
+The kernel wrappers count their launches through
 ``count_launches``: during a capture the counts are recorded into the
 program, and each replay adds them to the wrappers' ``launches``, so the
 counts stay true under replay. ``count`` does the same for any other
@@ -66,9 +72,10 @@ The same functions run op by op (one upload, the ops, one fetch):
   process while entered (the serving threads run the searches);
 - under GRAFT_SANITIZE=1, whose checks read the operands on the host
   before each launch (``utils/sanitize.py``);
-- where the model passes no programs to ``blocked_search``: the mesh's
-  routed mode (``torch.nonzero`` and ``.item()`` sync) and a mesh over
-  several devices.
+- where the model asks for no programs: a mesh over several devices
+  (a graph is one device's).
+
+``utils/jitreg.py`` declares every program name and its bucket budget.
 """
 
 import collections
@@ -187,30 +194,61 @@ def signature(reads) -> tuple:
     return tuple(out)
 
 
-def _pack(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _pack(outs) -> torch.Tensor:
     """(..., k) scores and ids -> one (..., 2k) int32 tensor, the scores'
-    bits beside the ids, so that one copy fetches both."""
-    return torch.cat([vals.float().view(torch.int32), ids.to(torch.int32)], dim=-1)
+    bits beside the ids, so that one copy fetches both; a third output (a
+    count) rides after them in a flat tensor."""
+    packed = torch.cat([outs[0].float().view(torch.int32), outs[1].to(torch.int32)], dim=-1)
+    if len(outs) == 2:
+        return packed
+    return torch.cat([packed.reshape(-1), outs[2].reshape(1).to(torch.int32)])
 
 
-def _upload(x: np.ndarray, dst: torch.Tensor) -> torch.Tensor:
+def _inputs(x) -> tuple:
+    """A program's host inputs: the queries, or a tuple of the queries and
+    other arrays of 4-byte items (host ints), uploaded as one buffer."""
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _static_input(xs: tuple, device):
+    """One flat 4-byte buffer for the inputs ``xs`` and a view of it shaped
+    and typed as each."""
+    flat = torch.empty(sum(a.size for a in xs), dtype=torch.float32, device=device)
+    views, o = [], 0
+    for a in xs:
+        dtype = torch.float32 if a.dtype == np.float32 else torch.int32
+        views.append(flat[o:o + a.size].view(dtype).view(a.shape))
+        o += a.size
+    return flat, views
+
+
+def _upload(xs: tuple, dst: torch.Tensor) -> None:
+    host = xs[0].reshape(-1) if len(xs) == 1 else np.concatenate(
+        [np.ascontiguousarray(a).reshape(-1).view(np.float32) for a in xs])
     with xfercheck.explicit("program query upload"):
-        dst.copy_(torch.from_numpy(x))
-    return dst
+        dst.copy_(torch.from_numpy(host))
 
 
-def _fetch(packed: torch.Tensor):
+def _fetch(packed: torch.Tensor, rows: tuple):
+    """Host (scores float32, ids int32) of a packed output whose leading
+    dims are ``rows``, and its count when it has one."""
     with xfercheck.explicit("program result fetch"):
         host = packed.to("cpu", copy=True).numpy()
+    extra = ()
+    if host.ndim == 1:
+        host, extra = host[:-1].reshape(rows + (-1,)), (int(host[-1]),)
     k = host.shape[-1] // 2
-    return host[..., :k].view(np.float32), host[..., k:]
+    return (host[..., :k].view(np.float32), host[..., k:]) + extra
 
 
-def run_eager(fn, x: np.ndarray, device):
-    """``fn`` op by op over the host batch ``x``: one upload, the ops, one
-    fetch. Returns host (scores float32, ids int32)."""
-    q = _upload(x, torch.empty(x.shape, dtype=torch.float32, device=device))
-    return _fetch(_pack(*fn(q)))
+def run_eager(fn, x, device):
+    """``fn`` op by op over the host batch ``x`` (``_inputs``): one upload,
+    the ops, one fetch. Returns host (scores float32, ids int32) and the
+    count where ``fn`` returns one."""
+    xs = _inputs(x)
+    flat, views = _static_input(xs, device)
+    _upload(xs, flat)
+    return _fetch(_pack(fn(*views)), xs[0].shape[:-1])
 
 
 class CudaGraphs:
@@ -284,13 +322,14 @@ class RecordingGraphs:
 
 
 class _Program:
-    __slots__ = ("static_in", "static_out", "graph", "updates")
+    __slots__ = ("static_in", "static_out", "graph", "updates", "rows")
 
-    def __init__(self, static_in, static_out, graph, updates):
+    def __init__(self, static_in, static_out, graph, updates, rows):
         self.static_in = static_in
         self.static_out = static_out
         self.graph = graph
         self.updates = updates
+        self.rows = rows
 
 
 class _Bound:
@@ -304,8 +343,11 @@ class _Bound:
         self.static = static
         self.state = signature(reads)
 
-    def run(self, name: str, fn, x: np.ndarray, device):
-        return self.cache.run(f"{self.prefix}.{name}", fn, x, device, self.static, self.state)
+    def run(self, name: str, fn, x, device, static: tuple = ()):
+        """``static``: more static arguments of this program (the routed
+        programs' pair bucket)."""
+        return self.cache.run(f"{self.prefix}.{name}", fn, x, device, self.static + static,
+                              self.state)
 
 
 class ProgramCache:
@@ -334,39 +376,43 @@ class ProgramCache:
             return self.backend
         return _CUDA if device.type == "cuda" else None
 
-    def run(self, name: str, fn, x: np.ndarray, device, static: tuple, state: tuple):
-        """``fn`` (a (rows, d) or (nblocks, block, d) device batch -> (scores,
-        ids)) over the host batch ``x`` as the program of ``name`` for these
-        static arguments and read state (``signature``): replayed, captured
-        first when there is none. Returns host (scores float32, ids int32)."""
+    def run(self, name: str, fn, x, device, static: tuple, state: tuple):
+        """``fn`` (a (rows, d) or (nblocks, block, d) device batch, and the
+        other inputs of ``x`` (``_inputs``) -> (scores, ids) or (scores,
+        ids, count)) over the host batch ``x`` as the program of ``name``
+        for these static arguments and read state (``signature``):
+        replayed, captured first when there is none. Returns host (scores
+        float32, ids int32), and the count where ``fn`` returns one."""
         device = torch.device(device)
         backend = self._backend(device)
         if backend is None:
             return run_eager(fn, x, device)
-        key = (name, static, x.shape, state)
+        xs = _inputs(x)
+        key = (name, static, tuple(a.shape for a in xs), state)
         with self._lock:
             prog = self._programs.get(key)
             if prog is None:
                 self._evict(state)
-                prog = self._capture(backend, name, fn, x, device)
+                prog = self._capture(backend, name, fn, xs, device)
                 self._programs[key] = prog
             else:
                 self._programs.move_to_end(key)
-            _upload(x, prog.static_in)
+            _upload(xs, prog.static_in)
             backend.replay(prog.graph)
             for update in prog.updates:
                 update()
             self.replays += 1
-            return _fetch(prog.static_out)
+            return _fetch(prog.static_out, prog.rows)
 
-    def _capture(self, backend, name, fn, x, device) -> _Program:
+    def _capture(self, backend, name, fn, xs, device) -> _Program:
         if self._pool is None:
             self._pool = (backend, backend.pool(device))
-        static_in = torch.zeros(x.shape, dtype=torch.float32, device=device)
+        static_in, views = _static_input(xs, device)
+        static_in.zero_()
         updates = []
 
         def run():
-            return _pack(*fn(static_in))
+            return _pack(fn(*views))
 
         def traced():
             with recording(updates):
@@ -379,7 +425,7 @@ class ProgramCache:
             graph, static_out = backend.capture(run, traced, device, self._pool[1])
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
-        return _Program(static_in, static_out, graph, updates)
+        return _Program(static_in, static_out, graph, updates, xs[0].shape[:-1])
 
     def _drop(self, key) -> None:
         prog = self._programs.pop(key)

@@ -1309,3 +1309,130 @@ def test_steady_scheduler_window_on_the_card(card, monkeypatch):
         compilecheck.uninstall()
         compilecheck.reset()
         xfercheck.reset()
+
+
+# ------------------------------------------------- routed mesh programs
+
+
+def _routed_pair(kind, card, monkeypatch, x, nlist=16, nprobe=5, centroids=None):
+    """A routed sharded index on 4 CPU shards and its state restored on 4
+    virtual shards of the card."""
+    from distributed_faiss_tpu_torch.parallel import mesh
+
+    d = x.shape[1]
+    cpu_mesh = mesh.make_mesh(4, device="cpu", virtual=True)
+    if kind == "ivf_flat":
+        cpu = mesh.ShardedIVFFlatIndex(d, nlist, "l2", mesh=cpu_mesh, kmeans_iters=4,
+                                       probe_routing=True)
+    else:
+        cpu = mesh.ShardedIVFPQIndex(d, nlist, m=8 if kind == "ivf_pq" else 4, mesh=cpu_mesh,
+                                     kmeans_iters=4, pq_iters=4, refine_k_factor=4,
+                                     probe_routing=True)
+    if centroids is None:
+        cpu.train(x)
+    else:
+        cpu.centroids = torch.as_tensor(centroids)
+        cpu.lists = cpu._make_lists()
+    cpu.add(x)
+    cpu.set_nprobe(nprobe)
+    monkeypatch.setenv("DFT_MESH_DEVICES", "4")
+    monkeypatch.setenv("DFT_MESH_VIRTUAL", "1")
+    on_card = type(cpu).from_state_dict(cpu.state_dict(), device="cuda")
+    assert on_card.probe_routing and on_card.mesh.size == 4
+    return cpu, on_card
+
+
+@pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq", "ivf_pq_k2"])
+def test_routed_block_replays_the_eager_answer(card, kind, monkeypatch):
+    """A routed block on the card is one captured program: replayed, it
+    serves the op-by-op answer, with one upload and one fetch a block under
+    DFT_XFERCHECK and no other sync."""
+    from distributed_faiss_tpu_torch.utils import programs, xfercheck
+
+    rng = np.random.default_rng(91)
+    centers = rng.standard_normal((16, 64)).astype(np.float32) * 3.0
+    x = centers[rng.integers(0, 16, 4000)] + rng.standard_normal((4000, 64)).astype(np.float32)
+    q = centers[rng.integers(0, 16, 40)] + rng.standard_normal((40, 64)).astype(np.float32)
+    cpu, idx = _routed_pair(kind, card, monkeypatch, x)
+    with programs.eager():
+        want = idx.search(q, 10)
+    np.testing.assert_array_equal(want[1], cpu.search(q, 10)[1])
+    idx.search(q, 10)  # the capture
+    monkeypatch.setenv("DFT_XFERCHECK", "1")
+    xfercheck.reset()
+    try:
+        with xfercheck.guarded("routed block"):
+            got = idx.search(q, 10)
+        assert xfercheck.drain() == []
+        sites = xfercheck.syncs()
+    finally:
+        xfercheck.reset()
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    stats = idx.program_stats()
+    assert (stats["captures"], stats["replays"]) == (1, 2)
+    assert sorted(s.split(" (")[0] for s in sites) == ["program query upload",
+                                                      "program result fetch"], sites
+    assert all(n == 1 for n in sites.values()), sites
+    assert (idx.shard_launches > 0).all()
+
+
+def test_skewed_routed_index_relaunches_on_the_card(card, monkeypatch):
+    """Every row in one list, every probe on shard 0: the first search
+    relaunches at grown buckets (a program each) as the CPU index does and
+    answers as the exact scan; the next search captures nothing."""
+    rng = np.random.default_rng(92)
+    d, nlist = 32, 64
+    base = rng.standard_normal(d).astype(np.float32)
+    cents = base + 60.0 * rng.standard_normal((nlist, d)).astype(np.float32)
+    cents[::4] = base + 3.0 * rng.standard_normal((nlist // 4, d)).astype(np.float32)
+    cents[0] = base
+    x = base + 0.5 * rng.standard_normal((2000, d)).astype(np.float32)
+    q = base + 0.5 * rng.standard_normal((300, d)).astype(np.float32)
+    cpu, idx = _routed_pair("ivf_flat", card, monkeypatch, x, nlist=nlist, nprobe=8,
+                            centroids=cents)
+    want = cpu.search(q, 10)
+    got = idx.search(q, 10)
+    assert idx.launches == cpu.launches > 1 and idx._routed_slack == cpu._routed_slack > 2.0
+    captures = idx.program_stats()["captures"]
+    assert captures == idx.launches
+    np.testing.assert_array_equal(got[1], want[1])
+    dist = ((q[:, None, :].astype(np.float64) - x[None]) ** 2).sum(-1)
+    top = np.sort(dist, axis=1)[:, :11]
+    ok = (np.diff(top, axis=1) > 1e-5 * top.max(axis=1, keepdims=True)).all(axis=1)
+    assert ok.mean() > 0.75
+    np.testing.assert_array_equal(got[1][ok], np.argsort(dist, axis=1)[:, :10][ok])
+    launches = idx.launches
+    np.testing.assert_array_equal(idx.search(q, 10)[1], got[1])
+    assert idx.program_stats()["captures"] == captures
+    assert idx.launches - launches <= launches
+
+
+def test_card_captures_are_registered(card, monkeypatch):
+    """Every program the search paths capture on the card (one block and
+    one window on every model, masked and routed mesh) is a registered
+    ``utils/jitreg.py`` row."""
+    from distributed_faiss_tpu_torch.utils import compilecheck, jitreg
+
+    x, q = correlated_corpus(93, n=3000, nq=1100)
+    compilecheck.reset()
+    compilecheck.install()
+    try:
+        for kind in ("K1", "K3", "K4", "flat", "mesh"):
+            idx = _program_index(kind, card)[0]
+            idx.search(q[:100], 10)
+            idx.search(q, 10)
+        for kind in ("ivf_flat", "ivf_pq"):
+            idx = _routed_pair(kind, card, monkeypatch, x)[1]
+            idx.search(q[:100], 10)
+            idx.search(q, 10)
+        captured = compilecheck.by_entry()
+        assert compilecheck.unregistered() == []
+    finally:
+        compilecheck.uninstall()
+        compilecheck.reset()
+    assert {"ivf_flat.block", "ivf_flat.fused", "ivf_pq.block", "pq_shared.block",
+            "flat.block", "flat.fused", "sharded_ivf_flat.block", "sharded_ivf_flat.fused",
+            "sharded_ivf_flat.routed", "sharded_ivf_pq.routed"} <= set(captured)
+    for name, n in captured.items():
+        assert n <= jitreg.row_of(name)["budget"], (name, n)

@@ -45,7 +45,8 @@ _NAMED = ("distributed_faiss_tpu_torch.parallel.wire",
           "distributed_faiss_tpu_torch.utils.xfercheck",
           "distributed_faiss_tpu_torch.utils.sanitize",
           "distributed_faiss_tpu_torch.utils.compilecheck",
-          "distributed_faiss_tpu_torch.utils.programs")
+          "distributed_faiss_tpu_torch.utils.programs",
+          "distributed_faiss_tpu_torch.utils.jitreg")
 
 
 def test_port_modules_import_without_jax():

@@ -321,9 +321,17 @@ def test_mesh_shard_launches_count_replays(counted_k1):
                                        probe_routing=True)
     routed.train(x)
     routed.add(x)
+    with programs.eager():
+        routed_want = routed.search(q, K)
+        routed_shards = routed.shard_launches.copy()
+    routed.shard_launches[:] = 0
     recorded(routed)
-    routed.search(q, K)
-    assert routed.programs.captures == 0  # routed mode runs op by op
+    for _ in range(2):
+        got = routed.search(q, K)
+    # routed mode is a program a block too: captured once, then replayed
+    np.testing.assert_array_equal(got[1], routed_want[1])
+    assert (routed.programs.captures, routed.programs.replays) == (1, 2)
+    np.testing.assert_array_equal(routed.shard_launches, 3 * routed_shards)
 
 
 # ------------------------------------------------------------ witnesses

@@ -115,22 +115,41 @@ def test_routed_flat_matches_jax_routed(jm, tm, flat_data):
     assert_same(t.search(q, K), j.search(q, K))
 
 
-def test_routed_handles_skewed_ownership(tm):
-    """Every row in one list: one shard owns every pair. The exact
-    compaction needs no bucket resize and answers like brute force."""
+def test_routed_handles_skewed_ownership(jm, tm):
+    """Every row in one list, and the lists every query probes all on
+    shard 0: one shard owns every pair. The port's routed index runs the
+    JAX routed index's blocks and relaunches (each drop doubles the pair
+    bucket), ends at the same ``_routed_slack``, and both answer like
+    brute force on the tie-free queries."""
     rng = np.random.default_rng(21)
-    d = 16
-    centers = rng.standard_normal((8, d)).astype(np.float32) * 20.0
-    x = centers[0] + rng.standard_normal((1024, d)).astype(np.float32)
-    q = centers[0] + rng.standard_normal((40, d)).astype(np.float32)
-    t = tmesh.ShardedIVFFlatIndex(d, 8, "l2", mesh=tm, probe_routing=True)
-    t.centroids = torch.as_tensor(centers)
+    d, nlist = 16, 64
+    base = rng.standard_normal(d).astype(np.float32) * 5.0
+    cents = base + 60.0 * rng.standard_normal((nlist, d)).astype(np.float32)
+    cents[::S] = base + 3.0 * rng.standard_normal((nlist // S, d)).astype(np.float32)
+    cents[0] = base
+    x = base + 0.5 * rng.standard_normal((1024, d)).astype(np.float32)
+    q = base + 0.5 * rng.standard_normal((500, d)).astype(np.float32)
+    j = jmesh.ShardedIVFFlatIndex(d, nlist, "l2", mesh=jm, probe_routing=True)
+    j.centroids = jmesh._replicated(jm, cents)
+    j.lists = j._make_lists()
+    j.add(x)
+    j.set_nprobe(8)
+    t = tmesh.ShardedIVFFlatIndex(d, nlist, "l2", mesh=tm, probe_routing=True)
+    t.centroids = torch.as_tensor(cents)
     t.lists = t._make_lists()
     t.add(x)
+    t.set_nprobe(8)
     assert t.lists.sizes_host[0] == 1024
-    d_got, i_got = t.search(q, K)
-    np.testing.assert_array_equal(i_got, brute_ids(q, x, K, "l2"))
-    assert t.launches == 1
+    got, want = t.search(q, K), j.search(q, K)
+    assert (t.launches, t._routed_slack) == (j.launches, j._routed_slack) == (3, 8.0)
+    dist = ((q[:, None, :].astype(np.float64) - x[None, :, :]) ** 2).sum(-1)
+    top = np.sort(dist, axis=1)[:, :K + 1]
+    ok = (np.diff(top, axis=1) > 1e-5 * top.max(axis=1, keepdims=True)).all(axis=1)
+    assert ok.mean() > 0.75
+    brute = np.argsort(dist, axis=1)[:, :K]
+    np.testing.assert_array_equal(got[1][ok], brute[ok])
+    np.testing.assert_array_equal(want[1][ok], brute[ok])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-3, atol=1e-3)
 
 
 def test_ivf_tpu_matches_single_device_ivf_flat(tm, flat_data):
