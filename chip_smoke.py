@@ -195,11 +195,12 @@ g. Observability, the serial client, the selector loop and link faults,
 
 After phase g, its servers closed:
 
-f. Replicas: phase 3's corpus and cfg on ``REPLICA_RANKS`` (4) rank
+f. Replicas: the first ``REPLICA_N`` (250,000) rows of phase 3's corpus
+   (a depth cut) and its cfg on ``REPLICA_RANKS`` (4) rank
    processes on the card (the port's ``ServerHarness``, ``--device cuda
    --discovery``, DFT_ANTIENTROPY_INTERVAL=1), two groups of R = 2 under an
    ``IndexClient`` with ``ReplicationCfg(replication=2, write_quorum=1)``:
-   ingest in 10,000-row batches (500,000 rows a group, on both replicas),
+   ingest in 10,000-row batches (125,000 rows a group, on both replicas),
    save, recall@10 >= 0.95 on the eval queries, each replica's own top-10
    compared with its twin's, ``--nq`` queries served (QPS, p50/p99), K1
    launched on every rank (``ping()["kernels"]``). SIGKILL of one replica
@@ -219,6 +220,40 @@ f. Replicas: phase 3's corpus and cfg on ``REPLICA_RANKS`` (4) rank
    group's compaction lease (``get_health``).
 
 After phase f:
+
+k. The 65,536-list tier: the repo's own ingest configuration
+   (``scripts/idx_cfg.json``: ``IVF{centroids},SQ8`` at 65,536 centroids,
+   d = 768, train_num 1,000,000, nprobe 32, buffer_bsz 50,000), read and
+   never written:
+   1. ``TIER_N`` (1,000,000) rows of the low-rank corpus (r 64, 8192
+      latent clusters) written as an fp16 memmap under ``build/``, and
+      ``--nq`` queries from the same generator. The port's
+      ``scripts/load_data.py`` ``main`` in this process (``--cfg`` that
+      file, ``--dtype fp16 --dim 768 --bs 50000 --device cuda``) into a
+      port server on a loopback port: 50,000-row adds, the threshold
+      training on every row, the add drain, the smoke search and the
+      save; ingest, train and add seconds from the engine's state
+      changes; the model must be IVF-Flat over sq8 lists at 65,536 lists;
+      its largest list, cap and padded bytes logged. The nprobe sweep
+      from ``--nprobe-from`` to recall@10 >= 0.95 against the exact
+      FlatIndex over the rows as served; ``--nq`` queries through the
+      captured programs as in phase j (exactly 1.000 replays a window, no
+      capture in the timed window); the programs logged; save -> drop ->
+      load with the same ids. K1 must have launched on the path, K2, K3
+      and K4 not. K1 at the loaded model's shape against its plain
+      version (``k1_main_shape``: the timed calls rotate over the probe
+      groups of successive query blocks, the lists being too large to
+      copy), with its bound and the ptxas report of its sq8 d = 768
+      instantiation.
+   2. ``sharded_kmeans`` at 65,536 centroids (the random-seed branch, one
+      Lloyd step) over the phase's rows on ``MESH_SHARDS`` virtual shards:
+      finite, inside the rows' bounding box, not collapsed. A routed
+      ``ShardedIVFFlatIndex`` (fp32 lists) on those centroids over the
+      first ``TIER_MESH_N`` (200,000) rows (a depth cut) serves the
+      unsharded IVF-Flat index's top-10 ids at the cfg's nprobe (32) on
+      the tie-free queries, K1 launched on every shard.
+
+After phase k:
 
 h. The mesh (``parallel/mesh.py``), ``MESH_SHARDS`` (4) virtual shards on
    the one card (``mesh_devices=4, mesh_virtual=True`` in each cfg;
@@ -309,7 +344,9 @@ Before each of phases 3-8, a-d, each arm of j and each part of e and g
 every kernel's launch count is zeroed (phase b reads none), and it is
 read after the phase (a replay adds the launches its graph holds): K1
 must have launched on the ivfsq path, the surface index, the direct path, the ivfsq part of phase e and each ivfsq part of phase g
-(each nprobe of part 1, parts 2-4), K3 over the lists on phase g's knnlm
+(each nprobe of part 1, parts 2-4) and phase k's tier path (the
+whole of k.1, and neither K2, K3 nor K4 there; in k.2 on every shard),
+K3 over the lists on phase g's knnlm
 part, K3 on the knnlm path through
 ``adc_scan_lists`` (and neither K2 nor K4: the dispatch is fixed by the
 geometry) and on phase e's knnlm part, K2 on the K2 path, K4 on the
@@ -784,10 +821,12 @@ def check_result(D: np.ndarray, meta, nq: int, k: int, what: str) -> None:
 
 
 def recall_at_10(meta, gt_ids: np.ndarray) -> float:
-    """Share of the ground truth's ids among the served rows' ids (meta[0])."""
+    """Share of the ground truth's ids among the served rows' ids (meta[0],
+    or the metadata itself where it is the id, as ``load_data`` adds it)."""
     hits = 0
     for i, row in enumerate(meta):
-        hits += len({m[0] for m in row if m is not None} & set(gt_ids[i].tolist()))
+        ids = {m if isinstance(m, int) else m[0] for m in row if m is not None}
+        hits += len(ids & set(gt_ids[i].tolist()))
     return hits / (10 * len(meta))
 
 
@@ -1429,38 +1468,63 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
 # ---------------------------------------------------------------- phase 9
 
 
-def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray) -> dict:
-    """K1 and its plain version on the ivfsq path's own inputs: the loaded
-    index's lists and the first probe group of one query block, built by
-    the model's own helpers."""
+def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray, q_more: np.ndarray = None,
+                  what: str = "ivfsq") -> dict:
+    """K1 and its plain version on a path's own inputs: the loaded index's
+    lists and the first probe group of one query block, built by the
+    model's own helpers. The timed calls take ``l2_copies`` of them in
+    turn; with ``q_more`` (lists too large to clone, as at the 65,536-list
+    tier) they take the probe groups of successive blocks of ``q_more``
+    instead, each reading other rows of the same lists, until the sets
+    read ``L2_ROTATE_BYTES``; bound, bytes and flops are then the sets'
+    mean."""
     nprobe, nb, g = model._search_plan()
-    q = torch.from_numpy(np.ascontiguousarray(q_block[:nb])).cuda()
-    li = ivf._probe_groups(model.centroids, q, nprobe, g, model.metric)[0].contiguous()
-    sizes_g = model.lists.sizes[li.long()].contiguous()
     opts = model._scan_options()
-    args = (q, model.lists.data, model.lists.ids, li, sizes_g, opts["list_norms"],
-            opts.get("vmin"), opts.get("span"))
+    stored = opts["list_norms"] is not None
+
+    def groups(qb: np.ndarray):
+        q = torch.from_numpy(np.ascontiguousarray(qb[:nb])).cuda()
+        for li in ivf._probe_groups(model.centroids, q, nprobe, g, model.metric):
+            li = li.contiguous()
+            yield (q, model.lists.data, model.lists.ids, li,
+                   model.lists.sizes[li.long()].contiguous(), opts["list_norms"],
+                   opts.get("vmin"), opts.get("span"))
+
+    args = next(groups(q_block))
+    q, li, sizes_g = args[0], args[3], args[4]
     kw = dict(metric=model.metric, codec=model.codec, scan_bf16=opts["scan_bf16"])
     got = flat_scan.flat_list_scan(*args, **kw)
     want = flat_scan.flat_list_scan_plain(*args, **kw)
-    err = compare_scores(got, want, 1e-4, 1e-4, "K1 main-path shape")
+    err = compare_scores(got, want, 1e-4, 1e-4, f"K1 {what}-path shape")
     bound_ms, bound_by, nbytes, flops = k1_bound(q, model.lists.data, li, model.lists.sizes,
-                                                 opts["list_norms"] is not None)
-    sets = l2_copies(args, nbytes)
+                                                 stored)
+    if q_more is None:
+        sets = l2_copies(args, nbytes)
+    else:
+        sets, bounds = [], []
+        for a in (a for s in range(0, q_more.shape[0] - nb + 1, nb)
+                  for a in groups(q_more[s:s + nb])):
+            sets.append(a)
+            bounds.append(k1_bound(a[0], model.lists.data, a[3], model.lists.sizes, stored))
+            if sum(b[2] for b in bounds) >= L2_ROTATE_BYTES:
+                break
+        bound_ms, nbytes, flops = (float(np.mean([b[i] for b in bounds])) for i in (0, 2, 3))
+        bound_by = max(("bytes", "operations"), key=[b[1] for b in bounds].count)
     kernel = functools.partial(flat_scan.flat_list_scan, **kw)
     ms = time_ms(kernel, sets, iters=50)
     warm_ms = time_ms(kernel, [args], iters=50)
     call_ms = time_ms(kernel, [args], iters=50, queued=False)
     plain_ms = time_ms(functools.partial(flat_scan.flat_list_scan_plain, **kw), sets,
                        iters=10)
+    n_sets = len(sets)
     del sets
     cap = model.lists.cap
-    log(f"K1 ivfsq-path shape: nq={q.shape[0]} g={g} cap={cap} d={model.dim} "
-        f"codec={model.codec} live rows={int(sizes_g.sum())}: kernel {ms:.4f} ms "
-        f"(L2-warm back to back {warm_ms:.4f} ms; {call_ms:.4f} ms a call when the host "
-        f"issues them), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes} bytes, {flops} flops), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
-        f"max_abs_err {err:.3g}")
+    log(f"K1 {what}-path shape: nq={q.shape[0]} g={g} cap={cap} d={model.dim} "
+        f"codec={model.codec} live rows={int(sizes_g.sum())}, {n_sets} input sets: kernel "
+        f"{ms:.4f} ms (L2-warm back to back {warm_ms:.4f} ms; {call_ms:.4f} ms a call when "
+        f"the host issues them), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes:.0f} bytes, {flops:.0f} flops), "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, max_abs_err {err:.3g}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -2213,6 +2277,9 @@ def observability_phase(args, sq: dict, pq: dict, counters, card: str) -> dict:
 # the card; batches of REPLICA_BATCH rows alternate between the groups
 REPLICA_RANKS = 4
 REPLICA_BATCH = 10_000
+# rows of phase 3's corpus the replicas hold (its first rows): a depth cut
+# that makes room for phase k in the script's time limit
+REPLICA_N = 250_000
 # group 0's divergence while one replica is down: below the sweeper's
 # delta bound (DFT_ANTIENTROPY_DELTA_MAX, 1024 missing rows), so it heals by
 # delta; group 1's (FULL_ROWS new rows) above it, after an empty restart
@@ -2308,7 +2375,7 @@ def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
     from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg
 
     what = "replicas"
-    x, q_all, nprobe = sq["x"], sq["q_all"], sq["nprobe"]
+    x, q_all, nprobe = sq["x"][:REPLICA_N], sq["q_all"], sq["nprobe"]
     n, d = x.shape
     q_eval = q_all[:1000]
     rng = np.random.default_rng(args.seed + 7)
@@ -2413,8 +2480,9 @@ def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
         grp0 = sorted({m[0] for row in meta0 for m in row if m is not None
                        and (m[0] // REPLICA_BATCH) % 2 == 0})
         deleted = np.asarray(grp0[:DELTA_DELETES], np.int64)
-        upserted = [r for r in range(0, n, REPLICA_BATCH * 2)
-                    if r not in set(deleted.tolist())][:DELTA_UPSERTS]
+        dead = set(deleted.tolist())
+        upserted = [r for r in range(0, n, 1000)
+                    if (r // REPLICA_BATCH) % 2 == 0 and r not in dead][:DELTA_UPSERTS]
         if deleted.size < DELTA_DELETES:
             raise AssertionError(f"{what}: only {deleted.size} group-0 ids served to delete")
         new0 = (x[rng.integers(0, n, DELTA_ROWS)]
@@ -2546,6 +2614,260 @@ def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
             client.close()
         h.stop()
         shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase k
+
+# the repo's own ingest configuration: IVF{centroids},SQ8 at 65,536
+# centroids, d = 768, train_num 1,000,000, nprobe 32, buffer_bsz 50,000
+TIER_CFG = os.path.join(REPO, "scripts", "idx_cfg.json")
+# the tier's first shard size (engine.infer_n_centroids) and the cfg's
+# train_num; the mesh arm holds the first TIER_MESH_N of its rows
+TIER_N = 1_000_000
+TIER_MESH_N = 200_000
+TIER_BATCH = 50_000
+# K1's instantiation for sq8 rows read in 16-byte chunks, 2 chunks a lane
+# (d = 768), in nvcc's mangled kernel names
+K1_SQ8_768 = "flat_scan_kernelIhLb1ELi2ELi2E"
+
+
+def ptxas_entry(cuda_build, name: str, fragment: str) -> str:
+    """nvcc's register and spill lines for the kernel instantiation of
+    ``csrc/<name>.cu`` whose mangled name holds ``fragment``."""
+    lines = cuda_build.build_log(name).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and fragment in line:
+            return "; ".join(l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 5]
+                             if "registers" in l or "spill" in l)
+    raise AssertionError(f"no {fragment} in the ptxas report of {name}")
+
+
+def state_times(engine_of, stop: threading.Event) -> tuple:
+    """Poll an index's engine state every 20 ms until ``stop``, in a
+    thread: (the list of (perf_counter, state) of every change, in order;
+    the thread)."""
+    seen = []
+
+    def poll():
+        while not stop.is_set():
+            eng = engine_of()
+            state = getattr(eng, "state", None)
+            if state is not None and (not seen or seen[-1][1] != state):
+                seen.append((time.perf_counter(), state))
+            time.sleep(0.02)
+
+    t = threading.Thread(target=poll, name="smoke-state-poll", daemon=True)
+    t.start()
+    return seen, t
+
+
+def tier_phase(args, counters, card: str, cuda_build) -> dict:
+    """Phase k (module docstring): scripts/idx_cfg.json at the 65,536-list
+    tier through the port's load_data, served through K1's sq8 branch;
+    then the mesh's tier (k.2)."""
+    import logging
+
+    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.ops import flat_scan
+    from distributed_faiss_tpu_torch.parallel.client import IndexClient
+    from distributed_faiss_tpu_torch.scripts import load_data
+    from distributed_faiss_tpu_torch.utils import compilecheck
+    from distributed_faiss_tpu_torch.utils.state import IndexState
+
+    what, d, n, iid = "tier", 768, TIER_N, "tier"
+    with open(TIER_CFG) as f:
+        cfg = json.load(f)
+    nlist = int(cfg["centroids"])
+    if (cfg["dim"], nlist, cfg["train_num"]) != (d, 65_536, n):
+        raise AssertionError(f"{what}: {TIER_CFG} is not the 65,536-list d=768 cfg: {cfg}")
+    work = os.path.join(REPO, "build", "chip_smoke_tier")
+    rng = np.random.default_rng(args.seed + 11)
+    t0 = time.perf_counter()
+    gen = make_lowrank_corpus(rng, d, 64, 8192)
+    s = Serving(work)
+    out = {}
+    try:
+        rows = os.path.join(work, "rows.f16")
+        mm = np.memmap(rows, dtype=np.float16, mode="w+", shape=(n, d))
+        for b in range(0, n, 100_000):
+            mm[b:b + 100_000] = gen(min(100_000, n - b)).astype(np.float16)
+        mm.flush()
+        x = np.asarray(mm, np.float32)  # the rows as load_data sends them
+        del mm
+        q_all = gen(args.nq)
+        q_eval = q_all[:1000]
+        log(f"{what}: made {n} x {d} rows of the low-rank corpus (r 64, 8192 clusters) as "
+            f"an fp16 memmap of {os.path.getsize(rows)} bytes and {args.nq} queries in "
+            f"{time.perf_counter() - t0:.2f} s (seed {args.seed} + 11)")
+
+        # ---- ingest through load_data, the train and the add timed apart ----
+        zero_counts(counters)
+        stop = threading.Event()
+        seen, poller = state_times(lambda: s.server.indexes.get(iid), stop)
+        root = logging.getLogger()
+        handlers, level = list(root.handlers), root.level
+        t0 = time.perf_counter()
+        try:
+            rc = load_data.main(["--data", rows, "--dtype", "fp16", "--dim", str(d),
+                                 "--bs", str(TIER_BATCH), "--discovery", s.disc,
+                                 "--index-id", iid, "--cfg", TIER_CFG, "--device", "cuda"])
+        finally:
+            # load_data configures the root logger for its own process
+            for h in root.handlers[len(handlers):]:
+                root.removeHandler(h)
+            root.setLevel(level)
+        load_s = time.perf_counter() - t0
+        # a client that knows the index's cfg (its metric), as load_data's
+        s.client.close()
+        s.client = IndexClient(s.disc, cfg_path=TIER_CFG)
+        deadline = time.monotonic() + 300
+        while s.client.get_ntotal(iid) != n:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: ntotal {s.client.get_ntotal(iid)} != {n}")
+            time.sleep(0.2)
+        stop.set()
+        poller.join()
+        at = {}
+        for t, state in seen:
+            at.setdefault(state, t)
+        if rc != 0 or IndexState.TRAINING not in at or IndexState.ADD not in at:
+            raise AssertionError(f"{what}: load_data returned {rc}; states seen {seen}")
+        trained_after_add = [t for t, st in seen if st == IndexState.TRAINED
+                             and t > at[IndexState.ADD]]
+        ingest_s = at[IndexState.TRAINING] - t0
+        train_s = at[IndexState.ADD] - at[IndexState.TRAINING]
+        add_s = trained_after_add[0] - at[IndexState.ADD]
+        model = s.server.indexes[iid].model
+        if (type(model).__name__, model.nlist, model.codec, model.ntotal) != (
+                "IVFFlatIndex", nlist, "sq8", n):
+            raise AssertionError(f"{what}: served {type(model).__name__} nlist "
+                                 f"{model.nlist} codec {model.codec} ntotal {model.ntotal}")
+        lists = model.lists
+        padded = (lists.data.numel() * lists.data.element_size() + lists.ids.numel() * 4
+                  + (model.norm_lists.data.numel() * 4 if model.norm_lists is not None else 0))
+        out.update(load_s=load_s, ingest_s=ingest_s, train_s=train_s, add_s=add_s,
+                   cap=lists.cap, largest_list=int(lists.sizes_host.max()),
+                   empty_lists=int((lists.sizes_host == 0).sum()), padded_bytes=padded)
+        log(f"{what}: load_data (IVF{nlist},SQ8, --bs {TIER_BATCH}) returned after "
+            f"{load_s:.2f} s: ingest {ingest_s:.2f} s (until the threshold training "
+            f"started), train {train_s:.2f} s, add {add_s:.2f} s; {nlist} lists, codec "
+            f"{model.codec}, largest list {out['largest_list']} rows (mean "
+            f"{n / nlist:.1f}, {out['empty_lists']} empty), cap {lists.cap}, padded lists "
+            f"+ ids + norms {padded} bytes; {torch.cuda.memory_allocated()} bytes "
+            f"allocated on the card, peak {torch.cuda.max_memory_allocated()}")
+
+        # ---- serve ----
+        gt_ids = exact_ground_truth(x, q_eval, 10, what)
+        nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_ids, args.nprobe_from, nlist,
+                                   what)
+        before = read_counts(counters)
+        compilecheck.install()
+        try:
+            arm = graph_arm(s, iid, q_all, counters, "K1", "graphs", card, what)
+        finally:
+            compilecheck.uninstall()
+        arm.pop("D"), arm.pop("M")
+        if arm["replays_per_window"] != 1.0:
+            raise AssertionError(f"{what}: {arm['replays_per_window']} replays a window")
+        out["programs"] = log_programs(s, iid, what)
+        save_drop_load(s.client, iid, q_eval, nprobe, what)
+        after = read_counts(counters)
+        counts = {k: before[k] + after[k] for k in before}
+        if counts["K1"] <= 0 or any(counts[k] for k in ("K2", "K3", "K3 lists", "K4")):
+            raise AssertionError(f"{what}: launches on the path {counts}: K1 only expected")
+        model = s.server.indexes[iid].model
+        if model.codec != "sq8":
+            raise AssertionError(f"{what}: the loaded model's codec is {model.codec}")
+        out.update(nprobe=nprobe, recall=rec, counts=counts,
+                   serve={k: arm[k] for k in ("qps", "p50_ms", "p99_ms", "windows",
+                                              "replays_per_window", "launches")})
+        log(f"{what}: launches on the path {counts}")
+        out["k1"] = k1_main_shape(flat_scan, ivf, model, q_all, q_more=q_all, what=what)
+        out["k1"]["launches"] = counts["K1"]
+        out["k1_ptxas"] = ptxas_entry(cuda_build, "flat_scan", K1_SQ8_768)
+        log(f"{what}: ptxas for K1's sq8 d=768 instantiation ({K1_SQ8_768}): "
+            f"{out['k1_ptxas']}")
+        del model, lists
+    finally:
+        s.close()
+    torch.cuda.empty_cache()
+    out["mesh"] = tier_mesh_arm(x, q_eval, int(cfg["nprobe"]), counters, card)
+    return out
+
+
+def tier_mesh_arm(x: np.ndarray, q_eval: np.ndarray, nprobe: int, counters,
+                  card: str) -> dict:
+    """Phase k.2: ``sharded_kmeans`` at 65,536 centroids (its random-seed
+    branch, one Lloyd step) on MESH_SHARDS virtual shards, with the JAX
+    test's invariants; then a routed ShardedIVFFlatIndex on those centroids
+    over the first TIER_MESH_N rows, against the unsharded IVF-Flat index's
+    top-10 ids at ``nprobe`` (the cfg's: the arm's rows fill a list a
+    fifth as deep as the phase's) on the tie-free queries."""
+    from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex
+    from distributed_faiss_tpu_torch.parallel import mesh as tmesh
+
+    what, nlist, d = "tier mesh", 65_536, x.shape[1]
+    mesh = tmesh.make_mesh(MESH_SHARDS, device="cuda", virtual=True)
+    t0 = time.perf_counter()
+    cent = tmesh.sharded_kmeans(mesh, x, nlist, iters=1)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    c = cent.cpu().numpy()
+    lo, hi = x.min(0) - 1e-3, x.max(0) + 1e-3
+    sample = c[np.random.default_rng(1).permutation(nlist)[:4096]]
+    spread = float(np.median(np.linalg.norm(sample[:-1] - sample[1:], axis=1)))
+    if (c.shape != (nlist, d) or not np.isfinite(c).all() or (c < lo).any() or (c > hi).any()
+            or spread <= 1e-3):
+        raise AssertionError(f"{what}: sharded_kmeans centroids fail the tier's invariants "
+                             f"(median spread {spread})")
+    log(f"{what}: sharded_kmeans k={nlist} iters=1 over {x.shape[0]} rows on {MESH_SHARDS} "
+        f"shards in {km_s:.2f} s: finite, inside the rows' bounding box, median spread "
+        f"{spread:.4f}, on {card}")
+    xm, q11 = x[:TIER_MESH_N], q_eval
+    one = IVFFlatIndex(d, nlist, "l2", "f32", device="cuda")
+    one.centroids = cent.clone()
+    one.lists = one._make_lists()
+    one.add(xm)
+    one.set_nprobe(nprobe)
+    Dw, Iw = one.search(q11, 11)
+    cap_one = one.lists.cap
+    del one
+    torch.cuda.empty_cache()
+    idx = tmesh.ShardedIVFFlatIndex(d, nlist, "l2", mesh=mesh, probe_routing=True,
+                                    device="cuda")
+    idx.centroids = cent
+    idx.lists = idx._make_lists()
+    t0 = time.perf_counter()
+    idx.add(xm)
+    add_s = time.perf_counter() - t0
+    idx.set_nprobe(nprobe)
+    idx.search(q11, 11)  # warm: the routed programs' captures
+    zero_counts(counters)
+    launches0, relaunches0 = idx.launches, idx.routed_relaunches
+    shard0 = idx.shard_launches.copy()
+    t0 = time.perf_counter()
+    Dg, Ig = idx.search(q11, 11)
+    search_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    shard_k1 = (idx.shard_launches - shard0).tolist()
+    meta = [[[None if i < 0 else (int(i),) for i in row] for row in I] for I in (Ig, Iw)]
+    share = same_top10(Dg, meta[0], Dw, meta[1], f"{what}: routed {MESH_SHARDS}-shard "
+                       f"IVF-Flat against the unsharded index at nprobe={nprobe}")
+    if counts["K1"] <= 0 or min(shard_k1) <= 0:
+        raise AssertionError(f"{what}: K1 launches {counts['K1']}, by shard {shard_k1}")
+    out = dict(kmeans_s=km_s, spread=spread, add_s=add_s, search_s=search_s, tie_free=share,
+               cap=idx.lists.cap, cap_unsharded=cap_one, launches=counts["K1"],
+               shard_launches=shard_k1, blocks=idx.launches - launches0,
+               relaunches=idx.routed_relaunches - relaunches0, programs=idx.program_stats())
+    log(f"{what}: routed ShardedIVFFlatIndex over {TIER_MESH_N} rows (cap {idx.lists.cap}, "
+        f"unsharded cap {cap_one}), added in {add_s:.2f} s; {q11.shape[0]} queries in "
+        f"{search_s * 1e3:.3f} ms after a warm search, {out['blocks']} routed blocks "
+        f"({out['relaunches']} relaunches), K1 "
+        f"{counts['K1']} launches, shards' K1 {shard_k1}, programs "
+        f"{json.dumps(out['programs'])}")
+    del idx
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3711,6 +4033,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     replica_phase(args, sq_out, card)
     log(f"replica phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tier_out = tier_phase(args, counters, card, cuda_build)
+    log(f"tier phase: {time.perf_counter() - t0:.1f} s")
+    log("tier phase readings: " + json.dumps(tier_out))
     t0 = time.perf_counter()
     mesh_out = mesh_phase(args, sq_out, outs, counters, card)
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")

@@ -1436,3 +1436,127 @@ def test_card_captures_are_registered(card, monkeypatch):
             "sharded_ivf_flat.routed", "sharded_ivf_pq.routed"} <= set(captured)
     for name, n in captured.items():
         assert n <= jitreg.row_of(name)["budget"], (name, n)
+
+
+# ------------------------------------------------ the 65,536-list tier
+
+
+TIER_LISTS = 65_536
+
+
+@pytest.mark.parametrize("stored", [True, False], ids=["stored", "recomputed"])
+def test_flat_scan_sq8_at_d768_over_65536_lists(card, stored):
+    """K1's sq8 branch at the tier's width: 65,536 lists of d = 768 uint8
+    rows at cap 64 (3.2 GB, so the last lists start past 2**31 bytes),
+    sizes from 0 to the cap, about 5% -1 ids, 256 queries x 2 probes with
+    the first and the last list among them: identical -inf masks, scores
+    within rtol/atol 1e-4 of the plain version."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    nlist, cap, d, nq, g = TIER_LISTS, 64, 768, 256, 2
+    data = torch.randint(0, 256, (nlist, cap, d), dtype=torch.uint8, device=card, generator=gen)
+    ids = torch.arange(nlist * cap, dtype=torch.int32, device=card).reshape(nlist, cap)
+    ids[torch.rand((nlist, cap), device=card, generator=gen) < 0.05] = -1
+    sizes = torch.randint(0, cap + 1, (nlist,), dtype=torch.int32, device=card, generator=gen)
+    sizes[-1] = cap
+    vmin = torch.randn(d, device=card, generator=gen)
+    span = torch.rand(d, device=card, generator=gen) + 0.5
+    # the scan reads the stored norms as they are: any values test it
+    norms = (torch.rand((nlist, cap), device=card, generator=gen) * 1e3 if stored else None)
+    q = torch.randn((nq, d), device=card, generator=gen)
+    li = torch.randint(0, nlist, (nq, g), dtype=torch.int32, device=card, generator=gen)
+    li[0, 0], li[1, 0], li[2, 1] = 0, nlist - 1, nlist - 1
+    args = (q, data, ids, li, sizes[li.long()].contiguous(), norms, vmin, span)
+    before = flat_scan.flat_list_scan.launches
+    got = flat_scan.flat_list_scan(*args, metric="l2", codec="sq8")
+    torch.cuda.synchronize()
+    assert flat_scan.flat_list_scan.launches == before + 1
+    want = flat_scan.flat_list_scan_plain(*args, metric="l2", codec="sq8")
+    # the last list is full: finite exactly where its ids are live
+    assert torch.equal(torch.isfinite(got[1, 0]), ids[nlist - 1] >= 0)
+    assert_scores_match(got, want, 1e-4, 1e-4)
+
+
+def _tier_rows(seed, n=TIER_LISTS + 8_192, d=8):
+    return np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+
+
+def _tier_invariants(cent: np.ndarray, x: np.ndarray):
+    """The JAX tier tests' checks: finite, inside the rows' bounding box,
+    not collapsed onto one point."""
+    assert cent.shape == (TIER_LISTS, x.shape[1]) and np.isfinite(cent).all()
+    assert (cent >= x.min(0) - 1e-3).all() and (cent <= x.max(0) + 1e-3).all()
+    sample = cent[np.random.default_rng(1).permutation(TIER_LISTS)[:4096]]
+    assert np.median(np.linalg.norm(sample[:-1] - sample[1:], axis=1)) > 1e-3
+
+
+def _mostly_equal(got: np.ndarray, want: np.ndarray):
+    """One Lloyd step from the same seeds on the card and on the CPU: the
+    same fp32 sums in another order, except where a row sits on a
+    distance tie between two centroids and the two argmins part."""
+    same = np.abs(got - want).max(1) <= 1e-4
+    assert same.mean() >= 0.999, (~same).sum()
+
+
+def test_kmeans_at_the_65536_tier_on_the_card(card):
+    """``ops.kmeans.kmeans`` at 65,536 centroids on the card (the random-
+    seed branch, one 2048-row chunk at a time): its Lloyd step from its
+    own seeds agrees with the CPU's from the same seeds."""
+    from distributed_faiss_tpu_torch.ops import kmeans
+
+    x = _tier_rows(0)
+    seeds = kmeans.kmeans(torch.as_tensor(x, device=card), TIER_LISTS, iters=0)
+    cent = kmeans.kmeans(torch.as_tensor(x, device=card), TIER_LISTS, iters=1).cpu().numpy()
+    _tier_invariants(cent, x)
+    chunk = kmeans.auto_chunk(TIER_LISTS)
+    assert chunk == 2048
+    npad = -(-x.shape[0] // chunk) * chunk
+    xp = np.zeros((npad, x.shape[1]), np.float32)
+    xp[:x.shape[0]] = x
+    w = (np.arange(npad) < x.shape[0]).astype(np.float32)
+    sums, counts = kmeans.accumulate_clusters(
+        torch.as_tensor(xp).reshape(-1, chunk, x.shape[1]),
+        torch.as_tensor(w).reshape(-1, chunk), seeds.cpu(), TIER_LISTS)
+    want = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1.0)[:, None], seeds.cpu())
+    _mostly_equal(cent, want.numpy())
+
+
+def test_sharded_kmeans_at_the_65536_tier_on_the_card(card):
+    """``sharded_kmeans`` at 65,536 centroids on 4 virtual shards of the
+    card: the seeds equal the CPU mesh's (numpy draws), and one sharded
+    Lloyd step agrees with the CPU's."""
+    from distributed_faiss_tpu_torch.parallel import mesh as tmesh
+
+    x = _tier_rows(1)
+    on_card = tmesh.make_mesh(4, device="cuda", virtual=True)
+    on_cpu = tmesh.make_mesh(4, device="cpu", virtual=True)
+    np.testing.assert_array_equal(
+        tmesh.sharded_kmeans(on_card, x, TIER_LISTS, iters=0).cpu().numpy(),
+        tmesh.sharded_kmeans(on_cpu, x, TIER_LISTS, iters=0).numpy())
+    got = tmesh.sharded_kmeans(on_card, x, TIER_LISTS, iters=1).cpu().numpy()
+    _tier_invariants(got, x)
+    _mostly_equal(got, tmesh.sharded_kmeans(on_cpu, x, TIER_LISTS, iters=1).numpy())
+
+
+def test_ivf_sq8_at_65536_lists_on_the_card_serves_the_cpu_ids(card):
+    """An IVF65536,SQ8 model trained on the CPU (one Lloyd step), moved to
+    the card through its state: the card's captured programs serve the
+    CPU's top-10 ids on the tie-free queries, launching K1."""
+    x = _tier_rows(2)
+    rng = np.random.default_rng(3)
+    q = x[:64] + 0.01 * rng.standard_normal((64, x.shape[1])).astype(np.float32)
+    cpu = IVFFlatIndex(x.shape[1], TIER_LISTS, "l2", "sq8", kmeans_iters=1, device="cpu")
+    cpu.train(x)
+    cpu.add(x)
+    cpu.set_nprobe(64)
+    on_card = factory.index_from_state_dict(cpu.state_dict(), device="cuda")
+    on_card.set_nprobe(64)
+    before = flat_scan.flat_list_scan.launches
+    Dg, Ig = on_card.search(q, 11)
+    assert flat_scan.flat_list_scan.launches > before
+    Dc, Ic = cpu.search(q, 11)
+    scale = np.abs(Dc).max(1, keepdims=True)
+    ok = (np.diff(Dc, axis=1) > 1e-5 * scale).all(1) & (np.diff(Dg, axis=1) > 1e-5 * scale).all(1)
+    assert ok.mean() >= 0.9
+    np.testing.assert_array_equal(Ig[ok, :10], Ic[ok, :10])
+    np.testing.assert_allclose(Dg[ok, :10], Dc[ok, :10], rtol=1e-3, atol=1e-3)
