@@ -218,8 +218,47 @@ f. Replicas: the first ``REPLICA_N`` (250,000) rows of phase 3's corpus
    ids (the delta-healed one its twin's where the healthy twins agreed),
    K1 launches rising; ``--nq`` queries served healed; who holds each
    group's compaction lease (``get_health``).
+   f.3, SIGKILL mid-compaction, on the same four ranks before they close:
+   ``save_index``, then ``remove_ids`` of ``F3_DELETE_SHARE`` (30%) of group
+   0's live ids (drawn from ``--seed``); one replica of group 0 SIGKILLed
+   and restarted with its storage under DFT_COMPACT_TEST_DELAY_S =
+   ``F3_DELAY_S`` (4), DFT_COMPACT=0 and DFT_SHARD_GROUP=0, its tombstones
+   restored. Under a storm of ``F3_STORM_THREADS`` (8) ``QueryStorm``
+   threads, each with a 50-row query block of its own at top-11 and group
+   0's reads pinned on the victim, ``compact_index`` is sent to it and the
+   rank SIGKILLed half the delay later, inside the rebuild: no storm
+   request fails, none serves a deleted id, and each result is its own
+   block's pre-kill answer from one of the two replicas (the same top-10
+   ids and distances within 1e-3 on the answer's tie-free rows), so no
+   result crossed callers; the victim's newest generation is still the
+   pre-compaction one. Restarted with its storage: ``compactions`` 0 and
+   the pre-kill ``live_fraction``, its own pre-kill top-10 ids on the
+   tie-free eval queries, its twin's ids on at least the share of queries
+   they agreed on before the kill, no deleted id, K1 launches rising
+   (``ping``). ``compact_index`` on both replicas then leaves no tombstone
+   (a replica whose watcher compacted first answers False) and each
+   serves its pre-compaction top-10 ids on the tie-free queries. The
+   seconds of each step are logged.
 
 After phase f:
+
+l. The snapshot kill-9 sweep on the card: ``SAVER_TRIALS`` (5) children
+   of this script (``--saver-child``), started together, each load phase
+   3's kept ``ivfsq`` snapshot from a fresh link of it (``keep_for_witness``)
+   on the card and loop: add ``SAVER_BATCH`` (10,000) new rows of phase
+   3's generator (its own seed a trial), wait for the drain, save, print
+   the generation committed. The parent SIGKILLs each one at a share,
+   drawn from ``--seed``, of its first loop's seconds after its first new
+   generation committed. Then, for each trial, the port's
+   ``Index.from_storage_dir(..., device="cuda")`` must load the dir, at a
+   generation at least the last one the child reported, with ``ntotal``
+   equal to the metadata count, an empty buffer and whole batches of new
+   rows; the files it quarantined are logged; the 1000 eval queries at
+   phase 3's nprobe serve only ids of that generation's rows, at
+   recall@10 >= 0.95 against the exact FlatIndex over those rows (phase
+   3's and the child's, regenerated), and K1 launches.
+
+After phase l:
 
 k. The 65,536-list tier: the repo's own ingest configuration
    (``scripts/idx_cfg.json``: ``IVF{centroids},SQ8`` at 65,536 centroids,
@@ -359,7 +398,8 @@ model's ``shard_launches``: K1 on the ``ivf_tpu`` arms (on every shard of
 the sharded ones), K3 over the lists on every shard of the ``knnlm`` arms
 (and neither K2 nor K4). Phase i's first child zeroes its own counts
 before each index's witnessed serve and reads them after: K1 on the
-``ivfsq`` serve, K3 over the lists on the ``knnlm`` one.
+``ivfsq`` serve, K3 over the lists on the ``knnlm`` one. Phase l zeroes
+them before each trial's load and reads them after its search: K1.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without
 CUDA, or outside a checkout of the repo, the script exits nonzero before
@@ -1061,7 +1101,7 @@ def ivfsq_path(args, counters, card: str) -> dict:
         s.close()
         raise
     out.update(q_block=q_all[:256], serving=s, iid=iid, nprobe=nprobe, q_all=q_all,
-               x_head=x[:HNSW_N], x=x, gt=gt_ids)
+               x_head=x[:HNSW_N], x=x, gt=gt_ids, centers=centers)
     log(f"{what}: launches {out['counts']}")
     return out
 
@@ -2366,6 +2406,192 @@ def same_share(ids_a: list, ids_b: list) -> float:
     return sum(set(a) == set(b) for a, b in zip(ids_a, ids_b)) / max(1, len(ids_a))
 
 
+# f.3: the victim's widened rebuild window (DFT_COMPACT_TEST_DELAY_S), the
+# share of group 0's live ids deleted before it, and the storm: one thread a
+# query block of its own, so a result crossed between callers shows
+F3_DELAY_S = 4.0
+F3_DELETE_SHARE = 0.3
+F3_STORM_THREADS = 8
+F3_STORM_ROWS = 50
+
+
+def top10_ids(meta) -> list:
+    return [[m[0] if m is not None else -1 for m in row[:10]] for row in meta]
+
+
+def storm_matches(D: np.ndarray, meta, goldens: list) -> bool:
+    """A top-11 answer of one query block agrees with one of ``goldens``
+    ((D, meta) answers of the same block): on every row tie-free in that
+    golden, the same top-10 ids and distances within 1e-3."""
+    got = top10_ids(meta)
+    for Dg, Mg in goldens:
+        want = top10_ids(Mg)
+        rows = np.flatnonzero(tie_free_rows(Dg))
+        if all(got[i] == want[i] for i in rows) and np.allclose(
+                D[rows, :10], Dg[rows, :10], rtol=1e-3, atol=1e-3):
+            return True
+    return False
+
+
+def rank_top11(client, pos_of, rank: int, iid: str, q: np.ndarray):
+    """One rank's own top-11 (distances, metadata) for ``q``."""
+    D, meta, _e = rank_call(client, pos_of, rank, "search", iid, q, 11, False)
+    return np.asarray(D), meta
+
+
+def compaction_kill_arm(h, client, pos_of, groups, iid: str, q_all: np.ndarray, store: str,
+                        rng) -> dict:
+    """f.3: SIGKILL of a group-0 rank inside its compaction's rebuild under a
+    storm, its restart on the pre-compaction generation, then compaction on
+    both replicas (see the module docstring)."""
+    from distributed_faiss_tpu_torch.testing.chaos import QueryStorm
+    from distributed_faiss_tpu_torch.utils import serialization
+
+    what = "replicas f.3"
+    victim, twin = groups[0]
+    steps = {}
+    t_arm = t = time.perf_counter()
+    client.save_index(iid)
+    live0 = sorted(rank_call(client, pos_of, twin, "get_ids", iid))
+    doomed = sorted(int(i) for i in rng.choice(live0, int(F3_DELETE_SHARE * len(live0)),
+                                               replace=False))
+    dead = set(doomed)
+    removed = client.remove_ids(iid, doomed)
+    if removed != len(doomed):
+        raise AssertionError(f"{what}: remove_ids removed {removed} of {len(doomed)}")
+    steps["save_and_delete"] = time.perf_counter() - t
+
+    # restart the victim with its storage, the rebuild window widened
+    t = time.perf_counter()
+    h.kill(victim)
+    env0 = {"DFT_SHARD_GROUP": "0", "DFT_COMPACT": "0"}
+    h.restart(victim, load_index=True,
+              extra_env=dict(env0, DFT_COMPACT_TEST_DELAY_S=str(F3_DELAY_S)))
+    h.wait_port(victim, timeout=300)
+    wait_answers(client, pos_of, victim)
+    mu0 = rank_call(client, pos_of, victim, "get_perf_stats")["mutation"][iid]
+    if mu0["tombstoned_rows"] < len(doomed):
+        raise AssertionError(f"{what}: rank {victim} restarted without its tombstones: {mu0}")
+    steps["restart_with_delay"] = time.perf_counter() - t
+    victim_dir = os.path.join(store, iid, str(victim))
+    gen_pre = serialization.list_generations(victim_dir)[0][0]
+    q_eval = q_all[:1000]
+    pre = {r: rank_top11(client, pos_of, r, iid, q_eval) for r in (victim, twin)}
+    if any(served_ids(m) & dead for _d, m in pre.values()):
+        raise AssertionError(f"{what}: a deleted id served before the compaction")
+    blocks = [q_all[1000 + i * F3_STORM_ROWS:1000 + (i + 1) * F3_STORM_ROWS]
+              for i in range(F3_STORM_THREADS)]
+    goldens = {}
+    for r in (twin, victim):  # left pinned on the victim
+        with client._lock:
+            client._preferred[0] = pos_of[r]
+        goldens[r] = [client.search(b, 11, iid) for b in blocks]
+
+    # ---- the storm, compact_index on the victim, SIGKILL inside the rebuild
+    t = time.perf_counter()
+    storms = [QueryStorm(client, iid, b, 11, threads=1).start() for b in blocks]
+    time.sleep(1.0)
+    called = {}
+
+    def trigger():
+        try:
+            called["result"] = rank_call(client, pos_of, victim, "compact_index", iid,
+                                         timeout=60.0)
+        except Exception as e:  # the kill lands mid-call
+            called["error"] = e
+
+    caller = threading.Thread(target=trigger, name="smoke-compact", daemon=True)
+    t_call = time.perf_counter()
+    caller.start()
+    time.sleep(F3_DELAY_S / 2)
+    h.kill(victim)
+    kill_after = time.perf_counter() - t_call
+    time.sleep(2.0)  # the storm runs on against the outage
+    outcomes = [st.stop() for st in storms]
+    caller.join(timeout=60)
+    steps["storm_and_kill"] = time.perf_counter() - t
+    if "result" in called:
+        raise AssertionError(f"{what}: compact_index returned {called['result']} before the "
+                             "kill")
+    errors = [e for _r, errs in outcomes for e in errs]
+    if errors:
+        raise AssertionError(f"{what}: {len(errors)} storm requests failed, first "
+                             f"{errors[0]!r}")
+    n_req = 0
+    for i, (results, _e) in enumerate(outcomes):
+        for D, meta in results:
+            check_result(D, meta, F3_STORM_ROWS, 11, f"{what} storm search")
+            if served_ids(meta) & dead:
+                raise AssertionError(f"{what}: the storm served a deleted id")
+            if not storm_matches(D, meta, [goldens[victim][i], goldens[twin][i]]):
+                raise AssertionError(f"{what}: a storm result of block {i} is neither "
+                                     "replica's pre-kill answer for it")
+        n_req += len(results)
+        if not results:
+            raise AssertionError(f"{what}: storm thread {i} got no answer")
+    gen_post = serialization.list_generations(victim_dir)[0][0]
+    if gen_post != gen_pre:
+        raise AssertionError(f"{what}: the killed compaction committed generation {gen_post} "
+                             f"(pre-compaction {gen_pre})")
+    log(f"{what}: {len(doomed)} of group 0's {len(live0)} live ids deleted; rank {victim} "
+        f"restarted with DFT_COMPACT_TEST_DELAY_S={F3_DELAY_S:g}, compact_index sent and "
+        f"the rank SIGKILLed {kill_after:.2f} s later inside the rebuild ({called['error']!r}); "
+        f"{n_req} storm requests from {F3_STORM_THREADS} threads answered, 0 failed, no "
+        f"deleted id, each its own block's pre-kill answer; newest generation still "
+        f"{gen_pre}")
+
+    # ---- restart from storage: the pre-compaction generation and tombstones
+    t = time.perf_counter()
+    h.restart(victim, load_index=True, extra_env=env0)
+    h.wait_port(victim, timeout=300)
+    wait_answers(client, pos_of, victim)
+    k1_before = rank_call(client, pos_of, victim, "ping")["kernels"]["flat_list_scan"]
+    D_v, M_v = rank_top11(client, pos_of, victim, iid, q_eval)
+    steps["restart_to_serving"] = time.perf_counter() - t
+    mu1 = rank_call(client, pos_of, victim, "get_perf_stats")["mutation"][iid]
+    if mu1["compactions"] != 0 or mu1["live_fraction"] != mu0["live_fraction"]:
+        raise AssertionError(f"{what}: rank {victim} did not restart pre-compaction: {mu1} "
+                             f"(before the kill {mu0})")
+    if served_ids(M_v) & dead:
+        raise AssertionError(f"{what}: the restarted rank served a deleted id")
+    same_top10(D_v, M_v, *pre[victim], f"{what} restarted rank {victim} vs its pre-kill answers")
+    twin_share = same_share(top10_ids(M_v), top10_ids(pre[twin][1]))
+    pre_share = same_share(top10_ids(pre[victim][1]), top10_ids(pre[twin][1]))
+    if twin_share < pre_share:
+        raise AssertionError(f"{what}: restarted rank {victim} agrees with its twin on "
+                             f"{twin_share:.3f} of the queries, {pre_share:.3f} before the kill")
+    k1_after = rank_call(client, pos_of, victim, "ping")["kernels"]["flat_list_scan"]
+    if k1_after <= k1_before:
+        raise AssertionError(f"{what}: K1 launches did not rise on the restarted rank: "
+                             f"{k1_before} -> {k1_after}")
+    log(f"{what}: rank {victim} back on generation {gen_pre} with {mu1['tombstoned_rows']} "
+        f"tombstones, compactions 0, live_fraction {mu1['live_fraction']:.4f} (before the "
+        f"kill {mu0['live_fraction']:.4f}), serving {steps['restart_to_serving']:.2f} s after "
+        f"its restart; share of queries with its twin's ids {twin_share:.3f} "
+        f"({pre_share:.3f} before the kill); K1 launches {k1_before} -> {k1_after}")
+
+    # ---- compaction on both replicas commits and serves the same ids
+    t = time.perf_counter()
+    done = {r: rank_call(client, pos_of, r, "compact_index", iid, timeout=600.0)
+            for r in (victim, twin)}
+    steps["compaction"] = time.perf_counter() - t
+    for r in (victim, twin):
+        mu = rank_call(client, pos_of, r, "get_perf_stats")["mutation"][iid]
+        if mu["compactions"] < 1 or mu["tombstoned_rows"] != 0:
+            raise AssertionError(f"{what}: rank {r} did not compact: {done[r]}, {mu}")
+        D_c, M_c = rank_top11(client, pos_of, r, iid, q_eval)
+        if served_ids(M_c) & dead:
+            raise AssertionError(f"{what}: rank {r} served a deleted id after compacting")
+        same_top10(D_c, M_c, *pre[r], f"{what} rank {r} compacted vs before")
+    if serialization.list_generations(victim_dir)[0][0] <= gen_pre:
+        raise AssertionError(f"{what}: the victim's compaction committed no generation")
+    steps["arm"] = time.perf_counter() - t_arm
+    log(f"{what}: compact_index {done} (a False: that rank's watcher had compacted); step "
+        "seconds " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return dict(steps_s=steps, storm_requests=n_req, deleted=len(doomed),
+                kill_after_s=kill_after, twin_share=twin_share, k1=[k1_before, k1_after])
+
+
 def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
     """Phase f: phase 3's corpus on four rank processes in two groups of
     R = 2 (``ServerHarness``), a SIGKILL under a query storm, a delta heal
@@ -2609,12 +2835,205 @@ def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
             f"{time.perf_counter() - t_phase:.1f} s")
         out.update(recall_healed=rec1, same_ids=same, qps_healed=qps_r, p50_healed_ms=p50_r,
                    p99_healed_ms=p99_r, k1_end=k1_end, lease=lease)
+        out["f3"] = compaction_kill_arm(h, client, pos_of, groups, iid, q_all, store, rng)
     finally:
         if client is not None:
             client.close()
         h.stop()
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------- phase l
+
+# the savers' work dir, their row batch and trial count; the kill lands at
+# a share, drawn from --seed, of a save loop's first iteration after the
+# first new generation committed
+SAVER_DIR = os.path.join(REPO, "build", "chip_smoke_saver")
+SAVER_BATCH = 10_000
+SAVER_TRIALS = 5
+SAVER_FIRST_LIMIT_S = 300.0
+
+
+def saver_rows(seed: int, trial: int, centers: np.ndarray, batches: int) -> np.ndarray:
+    """The rows a trial's saver adds in its first ``batches`` loops."""
+    rng = np.random.default_rng(seed + 1000 + trial)
+    d = centers.shape[1]
+    return np.concatenate([make_corpus(rng, SAVER_BATCH, d, centers) for _ in range(batches)]
+                          or [np.zeros((0, d), np.float32)])
+
+
+def saver_child(args) -> int:
+    """The entry of a phase l child (``--saver-child DIR``): load the linked
+    snapshot in DIR on the card, then add SAVER_BATCH rows of phase 3's
+    generator, wait for the drain and save, in a loop, printing each
+    committed generation, until it is killed."""
+    sys.path.insert(0, REPO)
+    from distributed_faiss_tpu_torch.engine import Index
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+    from distributed_faiss_tpu_torch.utils.device import resolve_device
+    from distributed_faiss_tpu_torch.utils.state import IndexState
+
+    resolve_device("cuda")
+    storage = args.saver_child
+    centers = np.load(os.path.join(SAVER_DIR, "centers.npy"))
+    cfg = IndexCfg.from_json(os.path.join(storage, "cfg.json"))
+    cfg.index_storage_dir = storage
+    t0 = time.perf_counter()
+    idx = Index.from_storage_dir(storage, cfg=cfg, device="cuda")
+    rows = idx.model.ntotal
+    print(f"SAVER_READY {idx.current_generation()} {rows} {time.perf_counter() - t0:.3f}",
+          flush=True)
+    rng = np.random.default_rng(args.seed + 1000 + args.trial)
+    while True:
+        t0 = time.perf_counter()
+        x = make_corpus(rng, SAVER_BATCH, centers.shape[1], centers)
+        idx.add_batch(x, [(rows + i,) for i in range(SAVER_BATCH)])
+        rows += SAVER_BATCH
+        while not (idx.get_state() == IndexState.TRAINED
+                   and idx.get_idx_data_num() == (0, rows)):
+            time.sleep(0.005)
+        if not idx.save():
+            raise RuntimeError(f"save at {rows} rows committed no generation")
+        print(f"SAVER_COMMITTED {idx.current_generation()} {rows} "
+              f"{time.perf_counter() - t0:.3f}", flush=True)
+
+
+def read_saver(proc, lines: list, first: threading.Event) -> None:
+    for line in proc.stdout:
+        lines.append(line.rstrip("\n"))
+        if line.startswith("SAVER_COMMITTED"):
+            first.set()
+
+
+def snapshot_kill_phase(args, sq: dict, counters, card: str) -> dict:
+    """Phase l: the snapshot kill-9 sweep on the card (module docstring)."""
+    from distributed_faiss_tpu_torch.engine import Index
+    from distributed_faiss_tpu_torch.utils.config import IndexCfg
+
+    what = "phase l"
+    src = os.path.join(WITNESS_DIR, "ivfsq")
+    with open(os.path.join(src, "path.json")) as f:
+        spec = json.load(f)
+    iid, nprobe = spec["iid"], spec["nprobe"]
+    x, q_eval, centers = sq["x"], sq["q_all"][:1000], sq["centers"]
+    shutil.rmtree(SAVER_DIR, ignore_errors=True)
+    os.makedirs(SAVER_DIR)
+    np.save(os.path.join(SAVER_DIR, "centers.npy"), centers)
+    kill_rng = np.random.default_rng(args.seed + 11)
+    shares = kill_rng.uniform(0.0, 1.0, SAVER_TRIALS)
+    dirs, procs, lines, first = [], [], [], []
+    trials = []
+    t_phase = time.perf_counter()
+    try:
+        # every trial's saver starts at once, each on a fresh link of the
+        # snapshot; each is killed at its own drawn moment
+        for trial in range(SAVER_TRIALS):
+            # the rank-0 shard of the one-server store
+            d = os.path.join(SAVER_DIR, f"trial{trial}", iid, "0")
+            shutil.copytree(os.path.join(src, "store", iid, "0"), d,
+                            copy_function=_link_or_copy)
+            dirs.append(d)
+            cmd = [sys.executable, os.path.abspath(__file__), "--saver-child", d,
+                   "--trial", str(trial), "--seed", str(args.seed)]
+            procs.append(subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, text=True))
+            lines.append([])
+            first.append(threading.Event())
+            threading.Thread(target=read_saver, args=(procs[-1], lines[-1], first[-1]),
+                             name=f"smoke-saver-{trial}", daemon=True).start()
+
+        killed_at = [None] * SAVER_TRIALS
+
+        def kill_when_due(trial: int) -> None:
+            deadline = time.monotonic() + SAVER_FIRST_LIMIT_S
+            while not first[trial].wait(0.2):
+                if procs[trial].poll() is not None or time.monotonic() > deadline:
+                    procs[trial].kill()  # checked below: no generation committed
+                    return
+            loop_s = float(next(ln for ln in lines[trial]
+                                if ln.startswith("SAVER_COMMITTED")).split()[3])
+            time.sleep(shares[trial] * loop_s)
+            procs[trial].kill()
+            killed_at[trial] = time.perf_counter() - t_phase
+
+        killers = [threading.Thread(target=kill_when_due, args=(t,), daemon=True)
+                   for t in range(SAVER_TRIALS)]
+        for k in killers:
+            k.start()
+        n0 = x.shape[0]
+        # each dir is loaded as soon as its saver is dead, the others
+        # running on meanwhile
+        for trial, d in enumerate(dirs):
+            killers[trial].join(SAVER_FIRST_LIMIT_S + 120)
+            procs[trial].wait(timeout=60)
+            ready = [ln for ln in lines[trial] if ln.startswith("SAVER_READY")]
+            committed = [ln.split() for ln in lines[trial] if ln.startswith("SAVER_COMMITTED")]
+            if procs[trial].returncode != -9 or not ready or not committed:
+                raise AssertionError(f"{what} trial {trial}: the saver exited "
+                                     f"{procs[trial].returncode} with {len(committed)} "
+                                     f"generations committed: {lines[trial][-3:]}")
+            last_gen = int(committed[-1][1])
+            cfg = IndexCfg.from_json(os.path.join(d, "cfg.json"))
+            cfg.index_storage_dir = d
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            loaded = Index.from_storage_dir(d, cfg=cfg, device="cuda")
+            load_s = time.perf_counter() - t0
+            try:
+                if loaded is None:
+                    raise AssertionError(f"{what} trial {trial}: nothing loadable")
+                gen, n = loaded.current_generation(), loaded.model.ntotal
+                extra = n - n0
+                qdir = os.path.join(d, "quarantine")
+                orphans = sorted(os.listdir(qdir)) if os.path.isdir(qdir) else []
+                if (gen < last_gen or len(loaded.id_to_metadata) != n
+                        or extra < SAVER_BATCH or extra % SAVER_BATCH
+                        or loaded.get_idx_data_num() != (0, n)):
+                    raise AssertionError(
+                        f"{what} trial {trial}: generation {gen} (last committed "
+                        f"{last_gen}), ntotal {n}, metadata {len(loaded.id_to_metadata)}, "
+                        f"buffer and index {loaded.get_idx_data_num()}")
+                loaded.set_nprobe(nprobe)
+                D, meta, _e = loaded.search(q_eval, 10)
+                check_result(D, meta, q_eval.shape[0], 10, f"{what} trial {trial} search")
+                ids = served_ids(meta)
+                if min(ids) < 0 or max(ids) >= n:
+                    raise AssertionError(f"{what} trial {trial}: served ids outside the "
+                                         f"{n} rows of generation {gen}")
+                counts = read_counts(counters)
+            finally:
+                if loaded is not None:
+                    loaded.retire()
+                del loaded
+                torch.cuda.empty_cache()
+            x_all = np.concatenate([x, saver_rows(args.seed, trial, centers,
+                                                  extra // SAVER_BATCH)])
+            gt = exact_ground_truth(x_all, q_eval, 10, f"{what} trial {trial}")
+            rec = recall_at_10(meta, gt)
+            if rec < 0.95 or counts["K1"] <= 0:
+                raise AssertionError(f"{what} trial {trial}: recall@10 {rec:.4f}, K1 "
+                                     f"launches {counts['K1']}")
+            log(f"{what} trial {trial}: saver killed at {shares[trial]:.3f} of a save loop, "
+                f"{killed_at[trial]:.1f} s into the phase, after {len(committed)} "
+                f"generation(s) committed (last {last_gen}); loaded "
+                f"generation {gen} in {load_s:.2f} s ({extra} of its {n} rows added by the "
+                f"saver), {len(orphans)} file(s) quarantined {orphans}; recall@10 {rec:.4f} "
+                f"at nprobe {nprobe} against the exact FlatIndex over those rows; K1 "
+                f"launches {counts['K1']}")
+            trials.append(dict(trial=trial, generation=gen, last_committed=last_gen,
+                               rows=n, orphans=len(orphans), load_s=load_s, recall=rec,
+                               k1=counts["K1"], committed=len(committed),
+                               killed_at_s=killed_at[trial],
+                               saver_load_s=float(ready[0].split()[3])))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(SAVER_DIR, ignore_errors=True)
+    log(f"{what}: {SAVER_TRIALS} of {SAVER_TRIALS} killed savers loadable; phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return dict(trials=trials)
 
 
 # ---------------------------------------------------------------- phase k
@@ -2896,7 +3315,7 @@ def same_top10(Da, Ma, Db, Mb, what: str, min_share: float = 0.9) -> float:
     share = float(ok.mean())
     if share < min_share:
         raise AssertionError(f"{what}: only {share:.3f} of the queries are tie-free")
-    ids = [[[m[0] if m is not None else -1 for m in row[:10]] for row in M] for M in (Ma, Mb)]
+    ids = [top10_ids(M) for M in (Ma, Mb)]
     bad = [i for i in np.flatnonzero(ok) if ids[0][i] != ids[1][i]]
     if bad:
         raise AssertionError(f"{what}: {len(bad)} of {int(ok.sum())} tie-free queries differ "
@@ -3919,8 +4338,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also serve 2000 queries on the ivfsq, knnlm and flat-PQ paths "
                          "under torch.profiler and print where the device time goes")
-    # phase i's child processes (run by the script itself)
+    # phase i's and phase l's child processes (run by the script itself)
     ap.add_argument("--witness-child", choices=("checks", "readings"), help=argparse.SUPPRESS)
+    ap.add_argument("--saver-child", help=argparse.SUPPRESS)
+    ap.add_argument("--trial", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.nq < 1000:
         ap.error("--nq must be >= 1000 (the recall sweeps use the first 1000)")
@@ -3936,6 +4357,8 @@ def main(argv=None) -> int:
         return 2
     if args.witness_child:
         return witness_child(args)
+    if args.saver_child:
+        return saver_child(args)
     sys.path.insert(0, REPO)
     from distributed_faiss_tpu_torch.models import hnsw, ivf
     from distributed_faiss_tpu_torch.ops import adc_scan, cuda_build, distance, flat_scan
@@ -4031,8 +4454,13 @@ def main(argv=None) -> int:
         o.pop("model", None)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    replica_phase(args, sq_out, card)
+    replica_out = replica_phase(args, sq_out, card)
     log(f"replica phase: {time.perf_counter() - t0:.1f} s")
+    log("replica phase f.3 readings: " + json.dumps(replica_out["f3"]))
+    t0 = time.perf_counter()
+    saver_out = snapshot_kill_phase(args, sq_out, counters, card)
+    log(f"snapshot kill phase: {time.perf_counter() - t0:.1f} s")
+    log("snapshot kill phase readings: " + json.dumps(saver_out))
     t0 = time.perf_counter()
     tier_out = tier_phase(args, counters, card, cuda_build)
     log(f"tier phase: {time.perf_counter() - t0:.1f} s")

@@ -76,7 +76,7 @@ from distributed_faiss_tpu_torch.mutation import tombstones as _tombstones
 from distributed_faiss_tpu_torch.mutation import versions as _versions
 from distributed_faiss_tpu_torch.mutation.tombstones import TombstoneSet
 from distributed_faiss_tpu_torch.observability import spans as obs_spans
-from distributed_faiss_tpu_torch.utils import lockdep, serialization, xfercheck
+from distributed_faiss_tpu_torch.utils import envutil, lockdep, serialization, xfercheck
 from distributed_faiss_tpu_torch.utils.batching import SearchBatcher
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, MutationCfg, VersioningCfg
 from distributed_faiss_tpu_torch.utils.device import resolve_device
@@ -896,6 +896,11 @@ class Index:
                 return False
             state = self.model.state_dict()
 
+        delay = envutil.env_float("DFT_COMPACT_TEST_DELAY_S", 0.0)
+        if delay:
+            # chaos-test hook: widen the mid-rebuild window so a SIGKILL
+            # gate can land inside an uncommitted rebuild, serving live
+            time.sleep(delay)
         keep = np.ones(n0, bool)
         keep[dead0] = False
         try:
