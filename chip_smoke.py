@@ -5,6 +5,11 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--nq 10000]
                           [--nprobe-from 1] [--profile]
+    python3 chip_smoke.py --list-probe [--seed 0]
+
+``--list-probe`` runs none of the phases below: it measures how phase m's
+lists grow with the rows of the 262,144-list tier's smallest shard
+(``list_probe``) and prints the readings as JSON on its last line.
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -242,7 +247,7 @@ f. Replicas: the first ``REPLICA_N`` (250,000) rows of phase 3's corpus
 
 After phase f:
 
-l. The snapshot kill-9 sweep on the card: ``SAVER_TRIALS`` (5) children
+l. The snapshot kill-9 sweep on the card: ``SAVER_TRIALS`` (3) children
    of this script (``--saver-child``), started together, each load phase
    3's kept ``ivfsq`` snapshot from a fresh link of it (``keep_for_witness``)
    on the card and loop: add ``SAVER_BATCH`` (10,000) new rows of phase
@@ -258,19 +263,25 @@ l. The snapshot kill-9 sweep on the card: ``SAVER_TRIALS`` (5) children
    recall@10 >= 0.95 against the exact FlatIndex over those rows (phase
    3's and the child's, regenerated), and K1 launches.
 
-After phase l:
+After phase l, phase m's rows are made: ``BIG_N`` (2,000,000) rows of
+the low-rank corpus (r 64, 8192 latent clusters; the map and centers
+from ``--seed`` + 11, the draws on the card from a torch generator with
+the same seed) written in ``BIG_CHUNK``-row pieces as an fp16 memmap
+under ``build/chip_smoke_big/``, and ``--nq`` queries from the same
+generator. Phases k and m serve them, and the memmap is removed after m.
 
 k. The 65,536-list tier: the repo's own ingest configuration
    (``scripts/idx_cfg.json``: ``IVF{centroids},SQ8`` at 65,536 centroids,
    d = 768, train_num 1,000,000, nprobe 32, buffer_bsz 50,000), read and
    never written:
-   1. ``TIER_N`` (1,000,000) rows of the low-rank corpus (r 64, 8192
-      latent clusters) written as an fp16 memmap under ``build/``, and
-      ``--nq`` queries from the same generator. The port's
+   1. The first ``TIER_N`` (250,000; a depth cut for phase m's room)
+      rows of phase m's memmap and its queries. The port's
       ``scripts/load_data.py`` ``main`` in this process (``--cfg`` that
-      file, ``--dtype fp16 --dim 768 --bs 50000 --device cuda``) into a
-      port server on a loopback port: 50,000-row adds, the threshold
-      training on every row, the add drain, the smoke search and the
+      file, ``--dtype fp16 --dim 768 --num-rows 250000 --bs 50000
+      --device cuda``) into a
+      port server on a loopback port: 50,000-row adds, the training on
+      every row at load_data's ``sync_train`` (train_num is past the
+      rows), the add drain, the smoke search and the
       save; ingest, train and add seconds from the engine's state
       changes; the model must be IVF-Flat over sq8 lists at 65,536 lists;
       its largest list, cap and padded bytes logged. The nprobe sweep
@@ -292,7 +303,30 @@ k. The 65,536-list tier: the repo's own ingest configuration
       unsharded IVF-Flat index's top-10 ids at the cfg's nprobe (32) on
       the tie-free queries, K1 launched on every shard.
 
-After phase k:
+m. The 262,144-list tier (``BIG_NLIST``, ``engine.infer_n_centroids`` of
+   a 1e7-row shard), every earlier server closed: the ingest cfg with
+   one field changed, ``centroids`` 262,144, written under
+   ``build/chip_smoke_big/``. The exact top-10 of the 1000 eval queries
+   over the memmap's ``BIG_N`` rows first, while the card is empty (the
+   port's FlatIndex). Then the port's
+   ``load_data`` ``main`` over all ``BIG_N`` rows as in k.1: the training
+   on the first 1,000,000 buffered rows, the rest waiting in the engine's
+   buffer, the add drain in 50,000-row chunks, the smoke search and the
+   final save; ingest, train and add seconds from the engine's state
+   changes, the ``save_index`` calls and the final save's seconds (the
+   server's slowest); the model must be IVF-Flat over sq8 at 262,144
+   lists with ``ntotal`` ``BIG_N``; its cap, largest, p99 and empty lists,
+   padded bytes and the card's peak allocation logged. The nprobe sweep
+   from ``--nprobe-from`` to recall@10 >= 0.95 (failing at 262,144),
+   ``--nq`` queries through the captured programs (exactly 1.000 replays
+   a window, no capture in the timed window), the programs and their
+   pool logged, ``--profile``'s window on the cell; K1 and no other
+   kernel launched on the path; K1 at the served model's shape against
+   its plain version and its bound (``k1_main_shape`` rotating over
+   probe groups), and the ptxas line of its sq8 d = 768 instantiation.
+   No save -> drop -> load at this size (k.1 and l keep that check).
+
+After phase m:
 
 h. The mesh (``parallel/mesh.py``), ``MESH_SHARDS`` (4) virtual shards on
    the one card (``mesh_devices=4, mesh_virtual=True`` in each cfg;
@@ -384,7 +418,8 @@ every kernel's launch count is zeroed (phase b reads none), and it is
 read after the phase (a replay adds the launches its graph holds): K1
 must have launched on the ivfsq path, the surface index, the direct path, the ivfsq part of phase e and each ivfsq part of phase g
 (each nprobe of part 1, parts 2-4) and phase k's tier path (the
-whole of k.1, and neither K2, K3 nor K4 there; in k.2 on every shard),
+whole of k.1, and neither K2, K3 nor K4 there; in k.2 on every shard)
+and phase m's path (the sweep and the serve, K1 only),
 K3 over the lists on phase g's knnlm
 part, K3 on the knnlm path through
 ``adc_scan_lists`` (and neither K2 nor K4: the dispatch is fixed by the
@@ -409,6 +444,7 @@ printing any result.
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import os
 import re
@@ -849,6 +885,27 @@ def make_lowrank_corpus(rng, d: int, r: int, n_latent_clusters: int,
     return gen
 
 
+def lowrank_rows(seed: int, d: int, r: int = 64, n_latent_clusters: int = 8192,
+                 ambient_sigma: float = 0.05):
+    """make_lowrank_corpus's mixture with its draws on the card (10M rows
+    in seconds, where numpy takes minutes): the map and centers from numpy
+    with ``seed``, the rows from a torch generator with the same seed.
+    Returns gen(n) -> an (n, d) fp32 card tensor."""
+    rng = np.random.default_rng(seed)
+    W = np.linalg.qr(rng.standard_normal((d, r)))[0].T.astype(np.float32)
+    centers_z = rng.standard_normal((n_latent_clusters, r)).astype(np.float32) * 4.0
+    W, centers_z = torch.from_numpy(W).cuda(), torch.from_numpy(centers_z).cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def gen(nn):
+        a = torch.randint(0, n_latent_clusters, (nn,), generator=g, device="cuda")
+        z = centers_z[a] + torch.randn((nn, r), generator=g, device="cuda")
+        return z @ W + ambient_sigma * torch.randn((nn, d), generator=g, device="cuda")
+
+    return gen
+
+
 def check_result(D: np.ndarray, meta, nq: int, k: int, what: str) -> None:
     """(nq, k) l2 distances, ascending, finite where a row was found and
     +inf where fewer than k candidates were live (metadata None)."""
@@ -943,6 +1000,10 @@ class Serving:
             self.client.close()
         self.server.stop()
         self.thread.join(timeout=10)
+        # stop() retires the engines but keeps them: drop them, so their
+        # models leave the card once this object's cycles are collected
+        with self.server.indexes_lock:
+            self.server.indexes.clear()
         shutil.rmtree(self.work, ignore_errors=True)
 
     def __enter__(self):
@@ -1457,9 +1518,10 @@ def host_stats(client) -> dict:
     return out
 
 
-def profile_window(client, q: np.ndarray, index_id: str) -> None:
+def profile_window(client, q: np.ndarray, index_id: str) -> dict:
     """--profile: serve ``q`` once more under torch.profiler and print the
-    device's busy share of the window and its kernel time by name."""
+    device's busy share of the window and its kernel time by name; returns
+    both (None when the profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
@@ -1482,7 +1544,7 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         log(f"profile[{index_id}]: the profiler recorded no device activity: not measured")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, (cur_s, cur_e) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -1500,9 +1562,13 @@ def profile_window(client, q: np.ndarray, index_id: str) -> None:
     log(f"profile[{index_id}]: {q.shape[0]} queries in {wall * 1e3:.3f} ms of host time; "
         f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.1f}% of the "
         f"window), {len(kernels)} kernel launches")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    for name, (n, t) in top:
         log(f"profile[{index_id}]:   {t / 1e3:9.3f} ms {100 * t / total_us:5.1f}% {n:6d}x "
             f"{name[:90]}")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy_us / 1e3, busy_share=busy_us / 1e6 / wall,
+                kernels=[dict(name=name[:90], launches=n, ms=t / 1e3, share=t / total_us)
+                         for name, (n, t) in top])
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2851,7 +2917,7 @@ def replica_phase(args, sq: dict, card: str, device: str = "cuda") -> dict:
 # first new generation committed
 SAVER_DIR = os.path.join(REPO, "build", "chip_smoke_saver")
 SAVER_BATCH = 10_000
-SAVER_TRIALS = 5
+SAVER_TRIALS = 3
 SAVER_FIRST_LIMIT_S = 300.0
 
 
@@ -3041,9 +3107,11 @@ def snapshot_kill_phase(args, sq: dict, counters, card: str) -> dict:
 # the repo's own ingest configuration: IVF{centroids},SQ8 at 65,536
 # centroids, d = 768, train_num 1,000,000, nprobe 32, buffer_bsz 50,000
 TIER_CFG = os.path.join(REPO, "scripts", "idx_cfg.json")
-# the tier's first shard size (engine.infer_n_centroids) and the cfg's
-# train_num; the mesh arm holds the first TIER_MESH_N of its rows
-TIER_N = 1_000_000
+# a quarter of the tier's first shard size (engine.infer_n_centroids), a
+# depth cut for phase m's room: fewer rows than the cfg's train_num, so
+# load_data's sync_train trains on them all; the mesh arm holds the first
+# TIER_MESH_N of them
+TIER_N = 250_000
 TIER_MESH_N = 200_000
 TIER_BATCH = 50_000
 # K1's instantiation for sq8 rows read in 16-byte chunks, 2 chunks a lane
@@ -3081,10 +3149,11 @@ def state_times(engine_of, stop: threading.Event) -> tuple:
     return seen, t
 
 
-def tier_phase(args, counters, card: str, cuda_build) -> dict:
+def tier_phase(args, big: dict, counters, card: str, cuda_build) -> dict:
     """Phase k (module docstring): scripts/idx_cfg.json at the 65,536-list
-    tier through the port's load_data, served through K1's sq8 branch;
-    then the mesh's tier (k.2)."""
+    tier through the port's load_data over the first TIER_N rows of phase
+    m's memmap (``big``), served through K1's sq8 branch; then the mesh's
+    tier (k.2)."""
     import logging
 
     from distributed_faiss_tpu_torch.models import ivf
@@ -3098,27 +3167,16 @@ def tier_phase(args, counters, card: str, cuda_build) -> dict:
     with open(TIER_CFG) as f:
         cfg = json.load(f)
     nlist = int(cfg["centroids"])
-    if (cfg["dim"], nlist, cfg["train_num"]) != (d, 65_536, n):
+    if (cfg["dim"], nlist, cfg["train_num"]) != (d, 65_536, 1_000_000):
         raise AssertionError(f"{what}: {TIER_CFG} is not the 65,536-list d=768 cfg: {cfg}")
     work = os.path.join(REPO, "build", "chip_smoke_tier")
-    rng = np.random.default_rng(args.seed + 11)
-    t0 = time.perf_counter()
-    gen = make_lowrank_corpus(rng, d, 64, 8192)
     s = Serving(work)
     out = {}
     try:
-        rows = os.path.join(work, "rows.f16")
-        mm = np.memmap(rows, dtype=np.float16, mode="w+", shape=(n, d))
-        for b in range(0, n, 100_000):
-            mm[b:b + 100_000] = gen(min(100_000, n - b)).astype(np.float16)
-        mm.flush()
-        x = np.asarray(mm, np.float32)  # the rows as load_data sends them
-        del mm
-        q_all = gen(args.nq)
+        rows, q_all = big["path"], big["q_all"]
+        # the rows as load_data sends them
+        x = np.asarray(np.memmap(rows, dtype=np.float16, mode="r", shape=(n, d)), np.float32)
         q_eval = q_all[:1000]
-        log(f"{what}: made {n} x {d} rows of the low-rank corpus (r 64, 8192 clusters) as "
-            f"an fp16 memmap of {os.path.getsize(rows)} bytes and {args.nq} queries in "
-            f"{time.perf_counter() - t0:.2f} s (seed {args.seed} + 11)")
 
         # ---- ingest through load_data, the train and the add timed apart ----
         zero_counts(counters)
@@ -3129,7 +3187,8 @@ def tier_phase(args, counters, card: str, cuda_build) -> dict:
         t0 = time.perf_counter()
         try:
             rc = load_data.main(["--data", rows, "--dtype", "fp16", "--dim", str(d),
-                                 "--bs", str(TIER_BATCH), "--discovery", s.disc,
+                                 "--num-rows", str(n), "--bs", str(TIER_BATCH),
+                                 "--discovery", s.disc,
                                  "--index-id", iid, "--cfg", TIER_CFG, "--device", "cuda"])
         finally:
             # load_data configures the root logger for its own process
@@ -3169,7 +3228,7 @@ def tier_phase(args, counters, card: str, cuda_build) -> dict:
                    cap=lists.cap, largest_list=int(lists.sizes_host.max()),
                    empty_lists=int((lists.sizes_host == 0).sum()), padded_bytes=padded)
         log(f"{what}: load_data (IVF{nlist},SQ8, --bs {TIER_BATCH}) returned after "
-            f"{load_s:.2f} s: ingest {ingest_s:.2f} s (until the threshold training "
+            f"{load_s:.2f} s: ingest {ingest_s:.2f} s (until the training "
             f"started), train {train_s:.2f} s, add {add_s:.2f} s; {nlist} lists, codec "
             f"{model.codec}, largest list {out['largest_list']} rows (mean "
             f"{n / nlist:.1f}, {out['empty_lists']} empty), cap {lists.cap}, padded lists "
@@ -3189,6 +3248,8 @@ def tier_phase(args, counters, card: str, cuda_build) -> dict:
         arm.pop("D"), arm.pop("M")
         if arm["replays_per_window"] != 1.0:
             raise AssertionError(f"{what}: {arm['replays_per_window']} replays a window")
+        if args.profile:
+            out["profile"] = profile_window(s.client, q_all[:2000], iid)
         out["programs"] = log_programs(s, iid, what)
         save_drop_load(s.client, iid, q_eval, nprobe, what)
         after = read_counts(counters)
@@ -3286,6 +3347,273 @@ def tier_mesh_arm(x: np.ndarray, q_eval: np.ndarray, nprobe: int, counters,
         f"{counts['K1']} launches, shards' K1 {shard_k1}, programs "
         f"{json.dumps(out['programs'])}")
     del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase m
+
+# the 262,144-list tier: engine.infer_n_centroids gives 262,144 lists to
+# 1e7 rows and up. Its smallest shard, 10,000,000 rows, puts 956 rows in
+# its largest list (cap 1024: 206 GB of padded sq8 lists on an 80 GB
+# card); BIG_N is the largest whole million whose largest list stays at
+# or under 256 (cap 256, 51.5 GB): a depth cut forced by one card
+BIG_NLIST = 262_144
+BIG_N = 2_000_000
+BIG_DIR = os.path.join(REPO, "build", "chip_smoke_big")
+BIG_CHUNK = 500_000
+# load_data's bound (about 160 s at BIG_N on an H100)
+BIG_LOAD_LIMIT_S = 600
+
+
+def big_corpus(args) -> dict:
+    """Phase m's rows, made before phase k (which serves the first of
+    them): BIG_N rows of the low-rank generator (r 64, 8192 clusters,
+    seeded with ``--seed`` + 11), drawn on the card by ``lowrank_rows`` in
+    BIG_CHUNK-row pieces and written as the fp16 memmap load_data reads;
+    ``--nq`` more draws as the queries."""
+    what, d = "big tier", 768
+    shutil.rmtree(BIG_DIR, ignore_errors=True)
+    os.makedirs(BIG_DIR)
+    path = os.path.join(BIG_DIR, "rows.f16")
+    t0 = time.perf_counter()
+    gen = lowrank_rows(args.seed + 11, d)
+    mm = np.memmap(path, dtype=np.float16, mode="w+", shape=(BIG_N, d))
+    for s in range(0, BIG_N, BIG_CHUNK):
+        mm[s:s + BIG_CHUNK] = gen(min(BIG_CHUNK, BIG_N - s)).half().cpu().numpy()
+    mm.flush()
+    del mm
+    q_all = gen(args.nq).cpu().numpy()
+    torch.cuda.empty_cache()
+    log(f"{what}: made {BIG_N} x {d} rows of the low-rank corpus (r 64, 8192 clusters) on "
+        f"the card as an fp16 memmap of {os.path.getsize(path)} bytes under build/, and "
+        f"{args.nq} queries, in {time.perf_counter() - t0:.2f} s (seed {args.seed} + 11)")
+    return dict(path=path, q_all=q_all, d=d)
+
+
+# --list-probe: the tier's smallest shard, and the largest list a card holds
+PROBE_N = 10_000_000
+PROBE_MAX_CAP = 256
+
+
+def list_probe(args) -> int:
+    """--list-probe: how the 262,144-list tier's padded lists grow with the
+    rows of phase m's corpus (``lowrank_rows``, seeded and drawn in
+    BIG_CHUNK pieces as ``big_corpus`` draws them, so its first BIG_N rows
+    are phase m's) up to PROBE_N rows, each row through fp16 as load_data
+    sends it. ``IVFFlatIndex`` (sq8, 10 Lloyd iterations) trains on the
+    first 1,000,000 rows in the engine's sample order; then every row is
+    assigned in TIER_BATCH-row batches, and appended while the largest
+    list stays at or under PROBE_MAX_CAP. Logs the largest list, the p99
+    and the empty lists at each million rows, each grow with the card's
+    peak allocation, and the seconds of each step."""
+    from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex
+    from distributed_faiss_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    d, nlist, train_num = 768, BIG_NLIST, 1_000_000
+    card = nvidia_smi_line()
+    out = dict(card=card, mem_get_info=torch.cuda.mem_get_info(),
+               host_mem_available=int(open("/proc/meminfo").read().split("MemAvailable:")[1]
+                                      .split()[0]) * 1024,
+               build_free=shutil.disk_usage(os.path.join(REPO, "build")
+                                            if os.path.isdir(os.path.join(REPO, "build"))
+                                            else REPO).free)
+    log(f"list probe on {card}: {json.dumps(out)}")
+    gen = lowrank_rows(args.seed + 11, d)
+    t0 = time.perf_counter()
+    first = [gen(BIG_CHUNK).half() for _ in range(train_num // BIG_CHUNK)]
+    x = torch.cat(first).float().cpu().numpy()
+    x = x[np.random.default_rng(0).permutation(train_num)]  # the engine's sample order
+    out["draw_s"] = time.perf_counter() - t0
+    model = IVFFlatIndex(d, nlist, "l2", "sq8", kmeans_iters=10, device="cuda")
+    t0 = time.perf_counter()
+    model.train(x)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    del x
+    log(f"list probe: {train_num} rows drawn in {out['draw_s']:.2f} s, "
+        f"{nlist} lists trained in {out['train_s']:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    counts = np.zeros(nlist, np.int64)
+    hist, grows, appending, assign_s, append_s = [], [], True, 0.0, 0.0
+    for piece_at in range(0, PROBE_N, BIG_CHUNK):
+        piece = first.pop(0) if first else gen(BIG_CHUNK).half()
+        for b in range(0, BIG_CHUNK, TIER_BATCH):
+            xt, done = piece[b:b + TIER_BATCH].float(), piece_at + b + TIER_BATCH
+            t = time.perf_counter()
+            a_t = model._assign(xt)
+            a = a_t.cpu().numpy()
+            assign_s += time.perf_counter() - t
+            counts += np.bincount(a, minlength=nlist)
+            if appending and counts.max() > PROBE_MAX_CAP:
+                appending = False
+                log(f"list probe: largest list {counts.max()} > {PROBE_MAX_CAP} at {done} "
+                    f"rows: assigning only from here")
+            if appending:
+                cap0, t = model.lists.cap, time.perf_counter()
+                gids = np.arange(done - TIER_BATCH, done, dtype=np.int64)
+                rows = model._encode(xt, a_t)
+                model.lists.append(a, rows, gids)
+                model._append_extra(xt, a, gids, rows)
+                torch.cuda.synchronize()
+                append_s += time.perf_counter() - t
+                if model.lists.cap != cap0:
+                    grows.append(dict(rows=done, cap_from=cap0, cap_to=model.lists.cap,
+                                      s=time.perf_counter() - t,
+                                      peak=torch.cuda.max_memory_allocated()))
+                    log(f"list probe: grow {json.dumps(grows[-1])}")
+            if done % 1_000_000 == 0:
+                hist.append(dict(rows=done, largest=int(counts.max()),
+                                 p99=float(np.percentile(counts, 99)),
+                                 empty=int((counts == 0).sum()), assign_s=assign_s,
+                                 append_s=append_s))
+                log(f"list probe: {json.dumps(hist[-1])}")
+    out.update(hist=hist, grows=grows, peak=torch.cuda.max_memory_allocated(),
+               largest_million_at_max_cap=max(
+                   [h["rows"] for h in hist if h["largest"] <= PROBE_MAX_CAP], default=0))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def big_tier_phase(args, big: dict, counters, card: str, cuda_build) -> dict:
+    """Phase m (module docstring): the 262,144-list tier's smallest shard
+    through the port's load_data, served through K1's sq8 branch."""
+    import logging
+
+    from distributed_faiss_tpu_torch.models import ivf
+    from distributed_faiss_tpu_torch.ops import flat_scan
+    from distributed_faiss_tpu_torch.parallel.client import IndexClient
+    from distributed_faiss_tpu_torch.scripts import load_data
+    from distributed_faiss_tpu_torch.utils import compilecheck
+    from distributed_faiss_tpu_torch.utils.state import IndexState
+
+    what, d, n, iid, nlist = "big tier", big["d"], BIG_N, "big", BIG_NLIST
+    gc.collect()  # the closed servers of earlier phases sit in reference cycles
+    torch.cuda.empty_cache()
+    with open(TIER_CFG) as f:
+        cfg = json.load(f)
+    if (cfg["dim"], cfg["train_num"], cfg["nprobe"], cfg["buffer_bsz"]) != (
+            d, 1_000_000, 32, TIER_BATCH):
+        raise AssertionError(f"{what}: {TIER_CFG} is not the d=768 ingest cfg: {cfg}")
+    cfg["centroids"] = nlist  # the one field changed
+    cfg_path = os.path.join(BIG_DIR, "idx_cfg_262144.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    q_all = big["q_all"]
+    q_eval = q_all[:1000]
+    free, total = torch.cuda.mem_get_info()
+    log(f"{what}: {free} of the card's {total} bytes free, {torch.cuda.memory_allocated()} "
+        f"allocated by this process, before the phase")
+    # the exact top-10, while the card is empty
+    gt_ids = exact_ground_truth(
+        np.asarray(np.memmap(big["path"], dtype=np.float16, mode="r", shape=(n, d)),
+                   np.float32), q_eval, 10, what)
+    s = Serving(os.path.join(REPO, "build", "chip_smoke_big_serve"))
+    out = {}
+    try:
+        # ---- ingest through load_data: the train, the add and the save ----
+        zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        stop = threading.Event()
+        seen, poller = state_times(lambda: s.server.indexes.get(iid), stop)
+        root = logging.getLogger()
+        handlers, level = list(root.handlers), root.level
+        t0 = time.perf_counter()
+        argv = ["--data", big["path"], "--dtype", "fp16", "--dim", str(d), "--num-rows",
+                str(n), "--bs", str(TIER_BATCH), "--discovery", s.disc, "--index-id", iid,
+                "--cfg", cfg_path, "--device", "cuda"]
+        # load_data waits for TRAINED without a bound, and an add worker
+        # that raised (out of memory) leaves the engine in ADD: bounded here
+        result = {}
+        loader = threading.Thread(target=lambda: result.update(rc=load_data.main(argv)),
+                                  name="smoke-load-data", daemon=True)
+        try:
+            loader.start()
+            loader.join(timeout=BIG_LOAD_LIMIT_S)
+        finally:
+            for h in root.handlers[len(handlers):]:
+                root.removeHandler(h)
+            root.setLevel(level)
+        if loader.is_alive():
+            raise AssertionError(f"{what}: load_data still running after {BIG_LOAD_LIMIT_S} s "
+                                 f"(engine state {s.server.indexes[iid].get_state()})")
+        rc = result.get("rc")
+        load_s = time.perf_counter() - t0
+        stop.set()
+        poller.join()
+        s.client.close()
+        s.client = IndexClient(s.disc, cfg_path=cfg_path)
+        if s.client.get_ntotal(iid) != n:
+            raise AssertionError(f"{what}: ntotal {s.client.get_ntotal(iid)} != {n} after "
+                                 f"load_data")
+        at = {}
+        for t, state in seen:
+            at.setdefault(state, t)
+        if rc != 0 or IndexState.TRAINING not in at or IndexState.ADD not in at:
+            raise AssertionError(f"{what}: load_data returned {rc}; states seen {seen}")
+        # load_data waits for TRAINED once every row is sent: the drain's
+        # last TRAINED closes the add
+        drained = [t for t, st in seen if st == IndexState.TRAINED and t > at[IndexState.ADD]]
+        saves = s.server.perf.summary().get("save_index", {})
+        out.update(load_s=load_s, ingest_s=at[IndexState.TRAINING] - t0,
+                   train_s=at[IndexState.ADD] - at[IndexState.TRAINING],
+                   add_s=drained[-1] - at[IndexState.ADD], saves=saves.get("count", 0),
+                   final_save_s=saves.get("max_s"), peak_bytes=torch.cuda.max_memory_allocated())
+        model = s.server.indexes[iid].model
+        if (type(model).__name__, model.nlist, model.codec, model.ntotal) != (
+                "IVFFlatIndex", nlist, "sq8", n):
+            raise AssertionError(f"{what}: served {type(model).__name__} nlist "
+                                 f"{model.nlist} codec {model.codec} ntotal {model.ntotal}")
+        lists = model.lists
+        padded = (lists.data.numel() * lists.data.element_size() + lists.ids.numel() * 4
+                  + model.norm_lists.data.numel() * 4)
+        sizes = lists.sizes_host
+        out.update(cap=lists.cap, largest_list=int(sizes.max()),
+                   p99_list=float(np.percentile(sizes, 99)), empty_lists=int((sizes == 0).sum()),
+                   padded_bytes=padded)
+        log(f"{what}: load_data (IVF{nlist},SQ8, --bs {TIER_BATCH}) of {n} rows returned "
+            f"after {load_s:.2f} s: ingest {out['ingest_s']:.2f} s (until the threshold "
+            f"training started), train {out['train_s']:.2f} s, add {out['add_s']:.2f} s, "
+            f"{out['saves']} save_index call(s), the final save {out['final_save_s']:.2f} s; "
+            f"{nlist} lists, codec {model.codec}, largest list {out['largest_list']} rows "
+            f"(mean {n / nlist:.1f}, p99 {out['p99_list']:.0f}, {out['empty_lists']} empty), "
+            f"cap {lists.cap}, padded lists + ids + norms {padded} bytes; "
+            f"{torch.cuda.memory_allocated()} bytes allocated on the card, peak "
+            f"{out['peak_bytes']}, on {card}")
+
+        # ---- serve ----
+        nprobe, rec = sweep_nprobe(s.client, iid, q_eval, gt_ids, args.nprobe_from, nlist,
+                                   what)
+        before = read_counts(counters)  # graph_arm zeroes them
+        compilecheck.install()
+        try:
+            arm = graph_arm(s, iid, q_all, counters, "K1", "graphs", card, what)
+        finally:
+            compilecheck.uninstall()
+        arm.pop("D"), arm.pop("M")
+        if arm["replays_per_window"] != 1.0:
+            raise AssertionError(f"{what}: {arm['replays_per_window']} replays a window")
+        if args.profile:
+            out["profile"] = profile_window(s.client, q_all[:2000], iid)
+        out["programs"] = log_programs(s, iid, what)
+        after = read_counts(counters)
+        counts = {k: before[k] + after[k] for k in before}
+        if counts["K1"] <= 0 or any(counts[k] for k in ("K2", "K3", "K3 lists", "K4")):
+            raise AssertionError(f"{what}: launches on the path {counts}: K1 only expected")
+        out.update(nprobe=nprobe, recall=rec, counts=counts,
+                   serve={k: arm[k] for k in ("qps", "p50_ms", "p99_ms", "windows",
+                                              "replays_per_window", "launches")})
+        log(f"{what}: launches on the path {counts}")
+        out["k1"] = k1_main_shape(flat_scan, ivf, model, q_all, q_more=q_all, what=what)
+        out["k1"]["launches"] = counts["K1"]
+        out["k1_ptxas"] = ptxas_entry(cuda_build, "flat_scan", K1_SQ8_768)
+        log(f"{what}: ptxas for K1's sq8 d=768 instantiation ({K1_SQ8_768}): "
+            f"{out['k1_ptxas']}")
+        del model, lists
+    finally:
+        s.close()
+        shutil.rmtree(BIG_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
 
@@ -4335,6 +4663,9 @@ def main(argv=None) -> int:
     ap.add_argument("--nprobe-from", type=int, default=1,
                     help="first nprobe of the ivfsq and knnlm recall sweeps (both cfgs "
                          "say 32)")
+    ap.add_argument("--list-probe", action="store_true",
+                    help="run no phase: measure how phase m's lists grow with the rows of "
+                         "the 262,144-list tier's smallest shard (10,000,000) and exit")
     ap.add_argument("--profile", action="store_true",
                     help="also serve 2000 queries on the ivfsq, knnlm and flat-PQ paths "
                          "under torch.profiler and print where the device time goes")
@@ -4359,6 +4690,9 @@ def main(argv=None) -> int:
         return witness_child(args)
     if args.saver_child:
         return saver_child(args)
+    if args.list_probe:
+        sys.path.insert(0, REPO)
+        return list_probe(args)
     sys.path.insert(0, REPO)
     from distributed_faiss_tpu_torch.models import hnsw, ivf
     from distributed_faiss_tpu_torch.ops import adc_scan, cuda_build, distance, flat_scan
@@ -4462,9 +4796,19 @@ def main(argv=None) -> int:
     log(f"snapshot kill phase: {time.perf_counter() - t0:.1f} s")
     log("snapshot kill phase readings: " + json.dumps(saver_out))
     t0 = time.perf_counter()
-    tier_out = tier_phase(args, counters, card, cuda_build)
-    log(f"tier phase: {time.perf_counter() - t0:.1f} s")
-    log("tier phase readings: " + json.dumps(tier_out))
+    try:
+        big = big_corpus(args)
+        log(f"big tier corpus: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tier_out = tier_phase(args, big, counters, card, cuda_build)
+        log(f"tier phase: {time.perf_counter() - t0:.1f} s")
+        log("tier phase readings: " + json.dumps(tier_out))
+        t0 = time.perf_counter()
+        big_out = big_tier_phase(args, big, counters, card, cuda_build)
+        log(f"big tier phase: {time.perf_counter() - t0:.1f} s")
+        log("big tier phase readings: " + json.dumps(big_out))
+    finally:
+        shutil.rmtree(BIG_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     mesh_out = mesh_phase(args, sq_out, outs, counters, card)
     log(f"mesh phase: {time.perf_counter() - t0:.1f} s")

@@ -9,10 +9,12 @@ of distributed_faiss_tpu/models/base.py).
   device tensors with a per-list fill count. Capacity starts at
   ``MIN_CAP`` = 64 and doubles when the fullest list would overflow, as in
   the JAX package, so both packages place every row in the same
-  (list, slot). The ids plane starts at -1, so every never-written slot is
-  masked by ``id < 0`` in the scan, and so is every cell ``mask_cells``
-  tombstones. Appends are planned on the host (``plan_append``) and land
-  as one scatter.
+  (list, slot). Where a card cannot hold the doubled planes beside the
+  old ones, the old ones wait on the host while the doubled ones are
+  made. The ids plane starts at -1, so every never-written slot
+  is masked by ``id < 0`` in the scan, and so is every cell
+  ``mask_cells`` tombstones. Appends are planned on the host
+  (``plan_append``) and land as one scatter.
 
 Searches run through ``blocked_search``, the JAX package's block loop:
 query blocks padded to their pow2 bucket, and a batch of several blocks
@@ -30,6 +32,8 @@ Convention: models speak FAISS-style at their boundary — ``search`` returns
 int64, missing results are id -1.
 """
 
+import logging
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,6 +43,15 @@ from distributed_faiss_tpu_torch.ops import distance
 from distributed_faiss_tpu_torch.utils import programs as programs_mod
 from distributed_faiss_tpu_torch.utils import xfercheck
 from distributed_faiss_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger()
+
+# _grow copies the old planes into the doubled ones this many bytes at a
+# time (a piece from the host passes through a contiguous device buffer)
+GROW_CHUNK_BYTES = 1 << 30
+# the card memory _grow leaves free beside the doubled planes (the chunk
+# buffer, and whatever runs beside the add)
+GROW_HEADROOM_BYTES = 2 << 30
 
 row_norms_f32 = distance.row_norms_f32
 
@@ -151,15 +164,54 @@ class PaddedLists:
         return int(self.sizes_host.sum())
 
     def _grow(self, needed_cap: int) -> None:
+        """Double the capacity until ``needed_cap`` fits, copying the old
+        planes in list by list, GROW_CHUNK_BYTES at a time. Where the card
+        cannot hold the doubled planes beside the old ones, the old ones
+        wait on the host meanwhile (``_grow_waits_on``). If the doubled
+        planes cannot be made, the old ones are put back as they were and
+        the error is raised."""
         newcap = _next_pow2(needed_cap, self.cap)
         if newcap == self.cap:
             return
-        data = torch.zeros((self.nlist, newcap) + self.payload_shape, dtype=self.dtype,
-                           device=self.device)
-        data[:, : self.cap] = self.data
-        ids = torch.full((self.nlist, newcap), -1, dtype=torch.int32, device=self.device)
-        ids[:, : self.cap] = self.ids
+        t0 = time.perf_counter()
+        slot_bytes = (int(np.prod(self.payload_shape, dtype=np.int64)) * self.data.element_size()
+                      + 4)
+        waits_on = self._grow_waits_on(self.nlist * newcap * slot_bytes)
+        old_data, old_ids = self.data.to(waits_on), self.ids.to(waits_on)
+        self.data = self.ids = None
+        data = ids = None
+        try:
+            data = torch.zeros((self.nlist, newcap) + self.payload_shape, dtype=self.dtype,
+                               device=self.device)
+            ids = torch.full((self.nlist, newcap), -1, dtype=torch.int32, device=self.device)
+            step = max(1, GROW_CHUNK_BYTES // (self.cap * slot_bytes))
+            for s in range(0, self.nlist, step):
+                data[s:s + step, : self.cap] = old_data[s:s + step]
+                ids[s:s + step, : self.cap] = old_ids[s:s + step]
+        except BaseException:
+            data = ids = None
+            self.data, self.ids = old_data.to(self.device), old_ids.to(self.device)
+            raise
         self.data, self.ids, self.cap = data, ids, newcap
+        if self.device.type == "cuda":  # the copies done, for the time logged
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        logger.info("padded lists %s grown to cap %d in %.3f s, the old planes waiting on %s",
+                    tuple(data.shape), newcap, time.perf_counter() - t0, waits_on)
+
+    def _grow_waits_on(self, new_bytes: int) -> torch.device:
+        """Where the old planes wait while ``new_bytes`` of doubled ones are
+        made: on the device, unless it is a card whose driver reports less
+        free memory than those bytes and GROW_HEADROOM_BYTES; then on the
+        host. (At 262,144 lists of 768 sq8 bytes the step from cap 128 to
+        256 would hold 77.3 GB on the card.)"""
+        if self.device.type != "cuda":
+            return self.device
+        free, _ = torch.cuda.mem_get_info(self.device)
+        if free >= new_bytes + GROW_HEADROOM_BYTES:
+            return self.device
+        return torch.device("cpu")
 
     def slot_of(self, l):
         """Global list id -> the list's slot in the padded layout (the list

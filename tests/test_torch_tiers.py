@@ -9,6 +9,12 @@ over 65,536 rows (73,728), so one Lloyd step and one add take seconds on
 the CPU. The JAX side runs on the suite's 8 virtual CPU devices, the
 port's mesh on ``make_mesh(8, device="cpu", virtual=True)``.
 
+The 262,144-list tier (``infer_n_centroids`` of 1e7 rows and up, the
+cfg of chip_smoke.py's phase m): the cfg read and built alike, the
+inferred count, and a JAX index at 262,144 lists (seeds only, over just
+over 262,144 rows of d = 8, 16,384 of them added) carried into the port,
+served and grown by appends as the JAX package grows it.
+
 Tolerances: ids exactly on the tie-free queries (their top-11 distances
 all apart by more than 1e-5 of the row's scale), distances within rtol /
 atol 1e-3 (what the JAX package holds its own kernel to); centroids after
@@ -235,6 +241,182 @@ def test_int32_guard_refuses_a_million_lists_before_any_allocation(jm, tm, monke
         tmesh.ShardedPaddedLists(1_048_576, (2,), torch.float32, tm, min_cap=4096)
     assert not allocated
     assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
+
+
+# ------------------------------------------------- the 262,144-list tier
+
+K_BIG = 262_144
+N_BIG, N_BIG_ADD = K_BIG + 8_192, 16_384
+
+
+def _big_cfg(tmp_path) -> pathlib.Path:
+    """scripts/idx_cfg.json with one field changed, ``centroids`` 262,144
+    (``infer_n_centroids`` of a 1e7-row shard), as chip_smoke.py's phase
+    m writes it; the repo's file is read, never written."""
+    raw = json.loads(IDX_CFG.read_text())
+    raw["centroids"] = K_BIG
+    path = tmp_path / "idx_cfg_262144.json"
+    path.write_text(json.dumps(raw))
+    return path
+
+
+def _init_both(tcfg, jcfg, rows: int):
+    """The model each package's engine builds for a shard of ``rows``."""
+    eng, jeng = tengine.Index(tcfg, device="cpu"), jengine.Index(jcfg)
+    try:
+        return eng._init_index(rows), jeng._init_index(rows)
+    finally:
+        eng.retire()
+        jeng.retire()
+
+
+@pytest.fixture(scope="module")
+def big_tier():
+    """A JAX IVF-SQ8 index at 262,144 lists: seeds only (no Lloyd step)
+    over N_BIG rows of d = 8, then the first N_BIG_ADD rows added, nprobe
+    512; with near-duplicate queries of the added rows."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((N_BIG, D_TIER)).astype(np.float32)
+    ref = JIVF(D_TIER, K_BIG, "l2", codec="sq8", kmeans_iters=0)
+    ref.train(x)
+    ref.add(x[:N_BIG_ADD])
+    ref.set_nprobe(512)  # a list holds 1/16 row on average: 32 rows probed
+    q = x[:64] + 0.01 * rng.standard_normal((64, D_TIER)).astype(np.float32)
+    return ref, q
+
+
+def test_the_phase_m_cfg_reads_alike_and_builds_ivf_sq8_at_262144(tmp_path):
+    """The ingest cfg at 262,144 centroids: the same fields in both
+    packages, and both engines build IVF-Flat over sq8 at 262,144 lists,
+    no refine, 10 Lloyd iterations, nothing allocated before train."""
+    path = _big_cfg(tmp_path)
+    t, j = IndexCfg.from_json(str(path)), JCfg.from_json(str(path))
+    assert vars(t) == vars(j)
+    assert (t.faiss_factory, t.centroids, t.infer_centroids, t.train_num, t.nprobe,
+            t.buffer_bsz) == ("IVF{centroids},SQ8", K_BIG, False, 1_000_000, 32, 50_000)
+    model, ref = _init_both(t, j, 10_000_000)
+    assert isinstance(model, TIVF) and isinstance(ref, JIVF)
+    assert (model.nlist, model.codec, model.refine_k_factor, model.kmeans_iters) == (
+        ref.nlist, ref.codec, ref.refine_k_factor, ref.kmeans_iters) == (K_BIG, "sq8", 0, 10)
+    assert model.lists is None and ref.lists is None
+
+
+def test_inferred_centroids_at_ten_million_rows_are_262144_in_both():
+    """``infer_centroids`` true: a 10,000,000-row shard gets 262,144 lists
+    from both engines, whatever the cfg's own count."""
+    t, j = IndexCfg.from_json(str(IDX_CFG)), JCfg.from_json(str(IDX_CFG))
+    t.infer_centroids = j.infer_centroids = True
+    model, ref = _init_both(t, j, 10_000_000)
+    assert model.nlist == ref.nlist == t.centroids == j.centroids == K_BIG
+
+
+def test_ivf_sq8_at_262144_lists_serves_the_jax_ids(big_tier):
+    """The JAX package's 262,144-list index carried over: the same top-10
+    ids and distances at nprobe 512, the same sizes, and the JAX plan."""
+    from distributed_faiss_tpu.models import base as jbase
+    from distributed_faiss_tpu.models import ivf as jivf
+
+    ref, q = big_tier
+    port = interop.from_jax_state(ref.state_dict(), device="cpu")
+    assert (port.nlist, port.codec, port.ntotal, port.nprobe) == (K_BIG, "sq8", N_BIG_ADD, 512)
+    assert port.lists.cap == ref.lists.cap == 64
+    np.testing.assert_array_equal(port.lists.sizes_host, ref.lists.sizes_host)
+    want = ref.search(q, 11)
+    assert_same_top10(port.search(q, 11), want)
+    assert (want[1][:, 0] == np.arange(q.shape[0])).mean() >= 0.9
+    port.set_nprobe(32)
+    block = jbase.pick_query_block(64 * D_TIER * 4)
+    assert port._search_plan() == (32, block, jivf.probe_group_size(32, block * 64 * D_TIER * 4))
+
+
+def test_appends_at_262144_lists_grow_the_lists_as_jax_does(big_tier, monkeypatch):
+    """Two batches that feed one list near-duplicates of its centroid grow
+    the padded layout 64 -> 128 -> 256 (``PaddedLists._grow`` once each,
+    copying the old planes in pieces of a few thousand lists);
+    after each batch the cap, the sizes, the ids plane and the data equal the
+    JAX package's, and the stored norms within 1e-6, appending the same
+    rows to a copy of the same index."""
+    from distributed_faiss_tpu_torch.models import base as tbase
+
+    ref0, _q = big_tier
+    ref = jfactory.index_from_state_dict(ref0.state_dict())
+    port = interop.from_jax_state(ref0.state_dict(), device="cpu")
+    # the old planes copied in a few dozen pieces of lists, not one
+    monkeypatch.setattr(tbase, "GROW_CHUNK_BYTES", 4096 * 64 * (D_TIER + 4))
+    rng = np.random.default_rng(4)
+    sizes = np.asarray(ref.lists.sizes_host)
+    c = int(np.argmax(sizes))
+    cent = np.asarray(ref.centroids)[c]
+    caps = []
+    # batches of one size: the JAX package compiles one assignment
+    for n_dup, n_other in ((100, 0), (60, 40)):
+        dups = cent + 1e-4 * rng.standard_normal((n_dup, D_TIER)).astype(np.float32)
+        other = rng.standard_normal((n_other, D_TIER)).astype(np.float32)
+        batch = np.concatenate([dups, other])
+        ref.add(batch)
+        port.add(batch)
+        caps.append(port.lists.cap)
+        assert port.lists.cap == ref.lists.cap
+        assert port.ntotal == ref.ntotal
+        np.testing.assert_array_equal(port.lists.sizes_host, ref.lists.sizes_host)
+        # whole planes of up to 537 MB: counted mismatches, not a diff
+        for plane in ("ids", "data"):
+            got, want = getattr(port.lists, plane).numpy(), np.asarray(getattr(ref.lists, plane))
+            assert got.shape == want.shape and (got != want).sum() == 0, plane
+        # the same fp32 squares summed in another order
+        got, want = port.norm_lists.data.numpy(), np.asarray(ref.norm_lists.data)
+        assert (np.abs(got - want) > 1e-6 * np.abs(want)).sum() == 0
+    assert caps == [128, 256]
+    assert port.lists.sizes_host[c] >= sizes[c] + 160
+
+
+def test_a_grow_that_cannot_allocate_leaves_the_lists_as_they_were(big_tier, monkeypatch):
+    """``PaddedLists._grow`` whose doubled planes cannot be made (the card
+    out of memory) raises and leaves the cap, sizes, ids and data as they
+    were, and the index serves the JAX ids; the next grow succeeds."""
+    ref, q = big_tier
+    port = interop.from_jax_state(ref.state_dict(), device="cpu")
+    lists = port.lists
+    sizes, ids, data = lists.sizes_host.copy(), lists.ids.clone(), lists.data.clone()
+
+    def out_of_memory(*a, **k):
+        raise RuntimeError("CUDA out of memory")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "full", out_of_memory)  # after the data plane is made
+        with pytest.raises(RuntimeError, match="out of memory"):
+            lists._grow(128)
+    assert lists.cap == 64
+    np.testing.assert_array_equal(lists.sizes_host, sizes)
+    assert torch.equal(lists.ids, ids) and torch.equal(lists.data, data)
+    assert_same_top10(port.search(q, 11), ref.search(q, 11))
+    lists._grow(128)
+    assert lists.cap == 128
+    assert torch.equal(lists.ids[:, :64], ids) and torch.equal(lists.data[:, :64], data)
+    assert (lists.ids[:, 64:] == -1).all() and (lists.data[:, 64:] == 0).all()
+
+
+def test_a_grow_waits_on_the_host_only_where_the_card_lacks_room(monkeypatch):
+    """The old planes stay where they are on the CPU; on a card they wait on
+    the host only when the driver's free memory cannot hold the doubled
+    planes and GROW_HEADROOM_BYTES beside them. The tier's step from cap
+    128 to 256 (51.8 GB) fits an 80 GB card beside the 25.9 GB of cap-128
+    planes alone, not with 10 GB more in use; a grow of the ivfsq cell's
+    1024 lists always fits."""
+    from distributed_faiss_tpu_torch.models import base as tbase
+
+    lists = tbase.PaddedLists(4, (3,), torch.uint8, "cpu")
+    assert lists._grow_waits_on(1 << 50) == torch.device("cpu")
+    lists.device = torch.device("cuda")
+    card, gb = 85_017_493_504, 10**9
+    tier_256 = K_BIG * 256 * (768 + 4)
+    for free, new_bytes, want in ((card - 27 * gb, tier_256, "cuda"),
+                                  (card - 37 * gb, tier_256, "cpu"),
+                                  (card - 37 * gb, 1024 * 1024 * (128 + 4), "cuda"),
+                                  (tier_256 + tbase.GROW_HEADROOM_BYTES - 1, tier_256, "cpu"),
+                                  (tier_256 + tbase.GROW_HEADROOM_BYTES, tier_256, "cuda")):
+        monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free, card))
+        assert lists._grow_waits_on(new_bytes).type == want, (free, new_bytes)
 
 
 # ------------------------------------------------- load_data at the tier
