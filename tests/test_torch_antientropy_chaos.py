@@ -10,7 +10,6 @@ mid-heal must fall back cleanly (no torn generation); and the compaction
 lease must sit on exactly one replica of the group."""
 
 import os
-import socket
 import time
 
 import numpy as np
@@ -23,6 +22,8 @@ from distributed_faiss_tpu_torch.utils import serialization
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
+from netutil import free_base
+
 pytestmark = [pytest.mark.antientropy, pytest.mark.chaos, pytest.mark.slow]
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,14 +34,6 @@ ENV = {"PYTHONPATH": REPO_ROOT,
        "DFT_ANTIENTROPY_INTERVAL": "0.5", "DFT_COMPACT": "0"}
 
 DIM = 16
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def flat_cfg():
@@ -114,7 +107,7 @@ def test_sweeper_converges_dropped_repairs_under_storm_gate(tmp_path):
     """
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
-    with ServerHarness(2, disc, storage, base_port=free_port(), env=ENV,
+    with ServerHarness(2, disc, storage, base_port=free_base(2), env=ENV,
                        device="cpu") as h:
         client = IndexClient(
             disc, replication_cfg=ReplicationCfg(

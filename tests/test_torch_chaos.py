@@ -18,6 +18,8 @@ from distributed_faiss_tpu_torch.testing.chaos import ChaosProxy, Fault
 from distributed_faiss_tpu_torch.utils.config import AntiEntropyCfg, IndexCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
+from netutil import free_port
+
 D = 16
 
 
@@ -156,10 +158,7 @@ def test_drop_kind_swallows_digests_while_search_flows(serving, tmp_path):
     proxy = ChaosProxy("localhost", pb).start()
     proxy.set_fault(Fault(Fault.DROP_KIND, direction="up", drop_kinds={rpc.KIND_DIGEST}))
     try:
-        pa = socket.socket()
-        pa.bind(("", 0))
-        port_a = pa.getsockname()[1]
-        pa.close()
+        port_a = free_port()
         disc = tmp_path / "disc.txt"
         disc.write_text(f"2\nlocalhost,{port_a}\nlocalhost,{proxy.port}\n")
         a = IndexServer(0, str(tmp_path / "a"), device="cpu", discovery_path=str(disc),

@@ -833,20 +833,16 @@ def test_delta_heal_between_two_card_ranks(card, tmp_path, monkeypatch):
     full transfer, then rows and deletes land on the other only and its
     sweep pulls them as a delta; the digests end equal, no deleted id is
     served, and the healed rank's searches launch K1."""
-    import socket
     import threading
 
     from distributed_faiss_tpu_torch.parallel.server import IndexServer
     from distributed_faiss_tpu_torch.utils.config import AntiEntropyCfg
+    from netutil import free_base
 
     monkeypatch.setenv("DFT_COMPACT", "0")
     monkeypatch.setenv("DFT_SHARD_GROUP", "0")
-    ports = []
-    for _ in range(2):
-        s = socket.socket()
-        s.bind(("", 0))
-        ports.append(s.getsockname()[1])
-        s.close()
+    base = free_base(2)
+    ports = [base, base + 1]
     disc = tmp_path / "disc.txt"
     disc.write_text("2\n" + "".join(f"localhost,{p}\n" for p in ports))
     servers = []

@@ -18,7 +18,6 @@ same rows as it does in the port.
 
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -33,18 +32,12 @@ from distributed_faiss_tpu_torch.utils import serialization
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
+from netutil import free_base, read_line
+
 pytestmark = [pytest.mark.chaos]
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {"PYTHONPATH": REPO_ROOT}
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def flat_cfg(**kw):
@@ -73,7 +66,7 @@ def wait_drained(client, index_id, n, timeout=120):
 def test_search_survives_kill_and_restart(tmp_path):
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
-    with ServerHarness(3, disc, storage, base_port=free_port(), env=ENV,
+    with ServerHarness(3, disc, storage, base_port=free_base(3), env=ENV,
                        device="cpu") as h:
         client = IndexClient(disc)
         client.create_index("cidx", flat_cfg())
@@ -120,7 +113,7 @@ def test_ingest_rank_death_zero_acked_batch_loss(tmp_path):
     was ACKNOWLEDGED is present in get_ids()."""
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
-    with ServerHarness(3, disc, storage, base_port=free_port(), env=ENV,
+    with ServerHarness(3, disc, storage, base_port=free_base(3), env=ENV,
                        device="cpu") as h:
         client = IndexClient(disc)
         client.create_index("zidx", flat_cfg())
@@ -213,11 +206,13 @@ def kill_saver(tmp_path, name, kill_rng, env=None, extra=None, first_timeout=60)
     saver = tmp_path / f"{name}.py"
     saver.write_text(SAVER.format(repo=REPO_ROOT, extra=extra or {}))
     storage = str(tmp_path / name)
-    proc = subprocess.Popen([sys.executable, str(saver), storage],
-                            stdout=subprocess.PIPE, text=True,
-                            env={**os.environ, **ENV, **(env or {})})
+    err = tmp_path / f"{name}.err"
+    with open(err, "w") as err_file:
+        proc = subprocess.Popen([sys.executable, str(saver), storage],
+                                stdout=subprocess.PIPE, stderr=err_file, text=True,
+                                env={**os.environ, **ENV, **(env or {})})
     try:
-        assert proc.stdout.readline().strip() == "READY"
+        assert read_line(proc, err).strip() == "READY"
         # wait until at least one generation has COMMITTED, then SIGKILL at
         # a random later moment — each trial lands at a different byte
         # offset of some in-flight save

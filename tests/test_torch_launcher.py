@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 
 from distributed_faiss_tpu.parallel import launcher as jlauncher
-from distributed_faiss_tpu_torch.parallel import launcher
+from distributed_faiss_tpu_torch.parallel import launcher, replication
 from distributed_faiss_tpu_torch.parallel.client import IndexClient
 from distributed_faiss_tpu_torch.parallel.server import IndexServer
 from distributed_faiss_tpu_torch.scripts import load_data, server_launcher
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
+
+from netutil import free_base
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -103,18 +105,13 @@ def _wait_ntotal(client, iid, n, timeout=60):
     return False
 
 
-def test_slurm_task_body_via_fake_srun(tmp_path):
+def start_fake_srun(tmp_path, base_port, num_servers=2):
     """One process per task with srun's rank variables: each rebuilds (rank,
     port) through a JobEnvironment reading them, as launch_slurm's task
     does, and runs the port's run_server on the CPU, registering itself by
-    host name; the client then drives the cluster from the discovery
-    file the tasks filled."""
+    host name. Returns the discovery file, the processes and their stderr
+    files."""
     disc, storage = str(tmp_path / "disc.txt"), str(tmp_path / "storage")
-    probe = socket.socket()
-    probe.bind(("", 0))
-    base_port = probe.getsockname()[1]
-    probe.close()
-    num_servers = 2
     launcher.write_discovery_header(disc, num_servers)
     worker = tmp_path / "slurm_task.py"
     worker.write_text(
@@ -131,16 +128,47 @@ def test_slurm_task_body_via_fake_srun(tmp_path):
         "env = submitit.JobEnvironment()\n"
         f"run_server(env.global_rank, {base_port} + env.local_rank, {disc!r}, {storage!r}, "
         "False, device='cpu')\n")
-    procs = []
-    client = None
-    try:
-        for rank in range(num_servers):
+    procs, errs = [], []
+    for rank in range(num_servers):
+        errs.append(tmp_path / f"rank{rank}.err")
+        with open(errs[-1], "w") as err:
             procs.append(subprocess.Popen(
                 [sys.executable, str(worker)],
                 env={**os.environ, "PYTHONPATH": REPO, "SLURM_PROCID": str(rank),
                      "SLURM_LOCALID": str(rank), "SLURM_NTASKS": str(num_servers),
                      "SLURM_NODEID": "0", "DFT_ANTIENTROPY": "0"},
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+                stdout=subprocess.DEVNULL, stderr=err))
+    return disc, procs, errs
+
+
+def wait_for_ranks(disc, procs, errs, timeout=60.0):
+    """Until the discovery file lists every rank. A rank that exits first,
+    or a deadline that passes, fails with the ranks' stderr: the client's
+    own wait for a rank that never registers is two hours long."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(disc) as f:
+            num_servers, entries = replication.parse_discovery_lines(f)
+        if len(entries) >= num_servers:
+            return
+        for rank, p in enumerate(procs):
+            if p.poll() is not None:
+                raise AssertionError(f"rank {rank} exited with code {p.returncode} before it "
+                                     f"registered; its stderr:\n{errs[rank].read_text()}")
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"{len(entries)} of {num_servers} ranks registered within {timeout} s:\n"
+                + "\n".join(f"rank {r} stderr:\n{e.read_text()}" for r, e in enumerate(errs)))
+        time.sleep(0.1)
+
+
+def drive_fake_srun(tmp_path, base_port):
+    """The client drives the cluster of fake-srun tasks from the discovery
+    file they filled, once both ranks are up."""
+    disc, procs, errs = start_fake_srun(tmp_path, base_port)
+    client = None
+    try:
+        wait_for_ranks(disc, procs, errs)
         client = IndexClient(disc)
         assert sorted(s.port for s in client.sub_indexes) == [base_port, base_port + 1]
         assert sorted(stub.get_rank() for stub in client.sub_indexes) == [0, 1]
@@ -159,6 +187,25 @@ def test_slurm_task_body_via_fake_srun(tmp_path):
         for p in procs:
             p.kill()
             p.wait(timeout=10)
+
+
+def test_slurm_task_body_via_fake_srun(tmp_path):
+    drive_fake_srun(tmp_path, free_base(2))
+
+
+def test_fake_srun_rank_that_cannot_bind_fails_within_a_minute(tmp_path, monkeypatch):
+    """Rank 1's port is held by a listening socket: its bind fails, the
+    rank exits, and the launch fails at once with the rank's error instead
+    of waiting in read_server_list; no client is ever built."""
+    built = []
+    monkeypatch.setattr(sys.modules[__name__], "IndexClient", lambda *a, **k: built.append(a))
+    base_port = free_base(2)
+    t0 = time.monotonic()
+    with socket.create_server(("", base_port + 1)):
+        with pytest.raises(AssertionError, match="Address already in use"):
+            drive_fake_srun(tmp_path, base_port)
+    assert time.monotonic() - t0 < 60
+    assert built == []
 
 
 def test_server_launcher_arguments(tmp_path, monkeypatch):

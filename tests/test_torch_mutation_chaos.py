@@ -29,7 +29,6 @@ port's top-k also equals a freshly built exact index over the survivors.
 
 import os
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -46,6 +45,8 @@ from distributed_faiss_tpu_torch.utils import serialization
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
+from netutil import free_base, read_line
+
 pytestmark = [pytest.mark.mutation]
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,14 +56,6 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {"PYTHONPATH": REPO_ROOT, "DFT_COMPACT": "0", "DFT_COMPACT_TEST_DELAY_S": "4.0"}
 
 DIM = 16
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def flat_cfg():
@@ -100,7 +93,7 @@ def test_sigkill_mid_compaction_under_storm_gate(tmp_path):
     """
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
-    with ServerHarness(4, disc, storage, base_port=free_port(), env=ENV,
+    with ServerHarness(4, disc, storage, base_port=free_base(4), env=ENV,
                        device="cpu") as h:
         client = IndexClient(
             disc, replication_cfg=ReplicationCfg(replication=2,
@@ -218,7 +211,7 @@ def test_compaction_commits_and_serves_identically_under_storm(tmp_path):
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
     env = dict(ENV, DFT_COMPACT_TEST_DELAY_S="0.5")
-    with ServerHarness(2, disc, storage, base_port=free_port(), env=env,
+    with ServerHarness(2, disc, storage, base_port=free_base(2), env=env,
                        device="cpu"):
         client = IndexClient(disc, replication_cfg=ReplicationCfg())
         client.create_index("cidx", flat_cfg())
@@ -307,22 +300,29 @@ def test_compact_test_delay_is_honoured_with_serving_live(tmp_path, monkeypatch)
     delay = 2.0
     monkeypatch.setenv("DFT_COMPACT_TEST_DELAY_S", str(delay))
     done = {}
-    t = threading.Thread(target=lambda: done.update(ok=idx.compact(), t=time.perf_counter()))
+    t = threading.Thread(target=lambda: done.update(ok=idx.compact(), t=time.perf_counter()),
+                         daemon=True)
     t0 = time.perf_counter()
     t.start()
     served, slowest = 0, 0.0
     while t.is_alive():
+        assert time.perf_counter() - t0 < 60, "the compaction never finished"
         t1 = time.perf_counter()
         scores, meta, _ = idx.search(q, K)
+        gen = idx.current_generation()
+        # the commit comes after the delay's sleep, and the thread lives on
+        # a moment past the commit: before the delay is up, no commit
+        if time.perf_counter() - t0 < delay:
+            assert gen == gen0
         if t.is_alive():
-            assert idx.current_generation() == gen0
             served += 1
             slowest = max(slowest, time.perf_counter() - t1)
         np.testing.assert_array_equal(scores, golden[0])
         assert meta == golden[1]
         assert not any(m[0] in DOOMED for row in meta for m in row)
         time.sleep(0.01)
-    t.join()
+    t.join(timeout=60)
+    assert not t.is_alive()
     assert done["ok"] and done["t"] - t0 >= delay
     # searches answered during the delay, none held for it
     assert served >= 2 and slowest < delay / 2, (served, slowest)
@@ -393,10 +393,12 @@ def run_window(tmp_path, builder, window):
                                    doomed=DOOMED, late=LATE_ID))
     delay = "30.0" if window == "rebuild" else "1.0"
     env = {**os.environ, "DFT_COMPACT": "0", "DFT_COMPACT_TEST_DELAY_S": delay}
-    proc = subprocess.Popen([sys.executable, str(script), storage, window], env=env,
-                            stdout=subprocess.PIPE, text=True)
+    err = tmp_path / f"child-{builder}-{window}.err"
+    with open(err, "w") as err_file:
+        proc = subprocess.Popen([sys.executable, str(script), storage, window], env=env,
+                                stdout=subprocess.PIPE, stderr=err_file, text=True)
     try:
-        assert proc.stdout.readline().strip() == "COMPACTING"
+        assert read_line(proc, err).strip() == "COMPACTING"
         gen_before = serialization.list_generations(storage)[0][0]
         if window == "rebuild":
             time.sleep(0.5)  # the rebuild sleeps 30 s: the kill lands inside it

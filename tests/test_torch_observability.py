@@ -33,15 +33,9 @@ from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg, T
 from distributed_faiss_tpu_torch.utils.state import IndexState
 from distributed_faiss_tpu_torch.utils.tracing import LatencyStats, bucket_bounds
 
+from netutil import free_port
+
 STAGES = ("server.queue", "server.device", "server.write")
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def wait_until(pred, timeout=10.0):

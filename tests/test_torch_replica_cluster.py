@@ -11,7 +11,6 @@ never bring back a deleted id or a dropped index, the compaction lease,
 port's ``ServerHarness`` with ``--device cpu`` ranks."""
 
 import os
-import socket
 import threading
 import time
 
@@ -31,6 +30,8 @@ from distributed_faiss_tpu_torch.parallel.client import IndexClient, QuorumError
 from distributed_faiss_tpu_torch.parallel.server import IndexServer
 from distributed_faiss_tpu_torch.utils.config import AntiEntropyCfg, IndexCfg, ReplicationCfg
 
+from netutil import free_base, free_port
+
 D = 16
 
 
@@ -38,27 +39,6 @@ D = 16
 def _quiet(monkeypatch):
     monkeypatch.setenv("DFT_COMPACT", "0")
     monkeypatch.delenv("DFT_SHARD_GROUP", raising=False)
-
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def free_base(n: int) -> int:
-    """A base port below the ephemeral range whose next ``n`` ports bind now."""
-    rng = np.random.default_rng()
-    while True:
-        base = int(rng.integers(20000, 29000))
-        try:
-            for p in range(base, base + n):
-                socket.create_server(("", p)).close()
-            return base
-        except OSError:
-            continue
 
 
 def wait_until(pred, timeout=60.0, msg="condition never held"):

@@ -8,7 +8,6 @@ rejoin via MANIFEST shard transfer and serve again WITHOUT a client
 restart."""
 
 import os
-import socket
 import time
 
 import numpy as np
@@ -20,18 +19,12 @@ from distributed_faiss_tpu_torch.utils import serialization
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
+from netutil import free_base
+
 pytestmark = [pytest.mark.replication, pytest.mark.slow]
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {"PYTHONPATH": REPO_ROOT}
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def flat_cfg(**kw):
@@ -78,7 +71,7 @@ def test_sigkill_any_rank_under_storm_stays_golden(tmp_path, victim_pos):
     """
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
-    with ServerHarness(4, disc, storage, base_port=free_port(), env=ENV,
+    with ServerHarness(4, disc, storage, base_port=free_base(4), env=ENV,
                        device="cpu") as h:
         client = IndexClient(disc, replication_cfg=repl_cfg())
         client.create_index("gidx", flat_cfg())
@@ -192,7 +185,7 @@ def test_quorum_majority_blocks_writes_to_dead_group(tmp_path):
 
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
-    with ServerHarness(2, disc, storage, base_port=free_port(), env=ENV,
+    with ServerHarness(2, disc, storage, base_port=free_base(2), env=ENV,
                        device="cpu") as h:
         client = IndexClient(
             disc, replication_cfg=ReplicationCfg(replication=2))

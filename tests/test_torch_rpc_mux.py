@@ -35,17 +35,11 @@ from distributed_faiss_tpu_torch import (
 )
 from distributed_faiss_tpu_torch.parallel import rpc
 
+from netutil import free_base, free_port
+
 pytestmark = pytest.mark.rpcmux
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def wait_listening(port, timeout=10.0):
@@ -113,11 +107,11 @@ class _LegacyServer:
 
     def __init__(self):
         self.calls = 0
-        self.port = free_port()
         self._lsock = socket.socket()
         self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._lsock.bind(("", self.port))
+        self._lsock.bind(("", 0))
         self._lsock.listen(5)
+        self.port = self._lsock.getsockname()[1]
         threading.Thread(target=self._accept, daemon=True).start()
 
     def _accept(self):
@@ -163,11 +157,12 @@ def test_mux_client_against_legacy_server_degrades_to_fifo():
             if got != ("echo", ((i, j),)):
                 bad.append((i, j, got))  # pragma: no cover
 
-    ts = [threading.Thread(target=worker, args=(i,)) for i in range(6)]
+    ts = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(6)]
     for t in ts:
         t.start()
     for t in ts:
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive()
     assert not bad, bad[:3]
     assert srv.calls == 60
     c.close()
@@ -228,13 +223,14 @@ def test_out_of_order_completion_on_real_server(tmp_path):
             events.append("search")
             search_done.set()
 
-        t = threading.Thread(target=do_search)
+        t = threading.Thread(target=do_search, daemon=True)
         t.start()
         time.sleep(0.2)  # search is in flight on the wire
         assert c.generic_fun("get_rank", ()) == 0
         events.append("get_rank")
         assert not search_done.is_set()  # answered while search in flight
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive()
         assert events == ["get_rank", "search"]
         c.close()
     finally:
@@ -274,11 +270,12 @@ def test_single_client_window_coalesces_with_identical_results(
         except Exception as e:  # pragma: no cover
             errors.append((tid, e))
 
-    ts = [threading.Thread(target=caller, args=(t,)) for t in range(8)]
+    ts = [threading.Thread(target=caller, args=(t,), daemon=True) for t in range(8)]
     for t in ts:
         t.start()
     for t in ts:
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive()
     assert not errors, errors[:2]
     for tid in range(8):
         g_scores, g_meta = golden[tid]
@@ -463,7 +460,7 @@ def test_sigkill_with_mux_window_bounded_and_reroutes(tmp_path):
     index_id = "chaos_mux"
     disc = str(tmp_path / "disc.txt")
     harness = ServerHarness(2, disc, str(tmp_path / "storage"),
-                            base_port=free_port(), env={"PYTHONPATH": REPO_ROOT},
+                            base_port=free_base(2), env={"PYTHONPATH": REPO_ROOT},
                             device="cpu")
     with harness:
         client = IndexClient(disc)

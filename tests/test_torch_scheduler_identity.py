@@ -41,17 +41,11 @@ from distributed_faiss_tpu_torch import (
 )
 from distributed_faiss_tpu_torch.parallel import rpc
 
+from netutil import free_base, free_port
+
 pytestmark = pytest.mark.scheduler
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def wait_listening(port, timeout=10.0):
@@ -506,7 +500,7 @@ def test_rank_sigkill_mid_batch_never_crosses_results(tmp_path):
     index_id = "chaos"
     disc = str(tmp_path / "disc.txt")
     harness = ServerHarness(1, disc, str(tmp_path / "storage"),
-                            base_port=free_port(), env={"PYTHONPATH": REPO_ROOT},
+                            base_port=free_base(1), env={"PYTHONPATH": REPO_ROOT},
                             device="cpu")
     with harness:
         admin = fill_and_train(disc, index_id, x, meta)

@@ -19,6 +19,8 @@ from distributed_faiss_tpu_torch.utils import racecheck
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
+from netutil import free_port
+
 D = 16
 
 
@@ -279,15 +281,10 @@ def test_scheduler_coalesces_and_sheds():
 def jax_client(tmp_path):
     """One JAX IndexServer on a loopback port and a JAX IndexClient; both
     stopped in teardown."""
-    import socket
-
     from distributed_faiss_tpu.parallel.client import IndexClient as JClient
     from distributed_faiss_tpu.parallel.server import IndexServer as JServer
 
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
+    port = free_port()
     srv = JServer(0, str(tmp_path / "jax_store"))
     threading.Thread(target=srv.start_blocking, args=(port,), daemon=True).start()
     disc = tmp_path / "jax_discovery.txt"

@@ -14,7 +14,6 @@ cluster then serves ``search_at_generation`` against the PRE-mutation
 retained generations."""
 
 import os
-import socket
 import time
 
 import numpy as np
@@ -26,6 +25,8 @@ from distributed_faiss_tpu_torch.testing.chaos import QueryStorm, ServerHarness
 from distributed_faiss_tpu_torch.utils.config import IndexCfg, ReplicationCfg
 from distributed_faiss_tpu_torch.utils.state import IndexState
 
+from netutil import free_base
+
 pytestmark = [pytest.mark.versions, pytest.mark.chaos, pytest.mark.slow]
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,14 +36,6 @@ ENV = {"PYTHONPATH": REPO_ROOT,
        "DFT_ANTIENTROPY_INTERVAL": "0.5", "DFT_COMPACT": "0"}
 
 DIM = 16
-
-
-def free_port():
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def flat_cfg():
@@ -112,7 +105,7 @@ def test_upsert_vs_delete_storm_converges_to_last_writer_gate(tmp_path):
     """
     disc = str(tmp_path / "disc.txt")
     storage = str(tmp_path / "storage")
-    with ServerHarness(2, disc, storage, base_port=free_port(), env=ENV,
+    with ServerHarness(2, disc, storage, base_port=free_base(2), env=ENV,
                        device="cpu") as h:
         client = IndexClient(
             disc, replication_cfg=ReplicationCfg(

@@ -19,12 +19,15 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
 
 from distributed_faiss_tpu.utils import lockdep as jax_lockdep
 from distributed_faiss_tpu_torch.utils import lockdep
+
+from netutil import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLUGIN = "distributed_faiss_tpu_torch.testing.pytest_witness"
@@ -398,17 +401,11 @@ def test_engine_locks_are_instrumented(monkeypatch):
 
 # ------------------------------------------------------ the union of the graphs
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _serve_workload(server, client_cls, cfg_cls, tmp_path, name):
     """A flat index on one in-process rank; 4 threads x 10 concurrent
     searches through the multiplexed client (the scheduler merges them),
     plus stats and a save."""
-    port = _free_port()
+    port = free_port()
     th = threading.Thread(target=server.start_blocking, args=(port,), daemon=True)
     th.start()
     disc = tmp_path / f"disc-{name}.txt"
@@ -421,6 +418,12 @@ def _serve_workload(server, client_cls, cfg_cls, tmp_path, name):
                                          train_num=10))
         client.add_index_data("u", x, [(i,) for i in range(300)])
         client.sync_train("u")
+        # both packages drain the add buffer on a thread after training and
+        # refuse searches until it is done
+        deadline = time.monotonic() + 60
+        while client.get_state("u").name != "TRAINED" or client.get_buffer_depth("u"):
+            assert time.monotonic() < deadline, "the add buffer never drained"
+            time.sleep(0.05)
         errors = []
 
         def worker():
