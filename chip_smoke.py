@@ -90,7 +90,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    call that computes the same sums (``embedding_bag``; for K2 and K3 over
    one flattened table of every pair's LUT, per-pair offsets in its index,
    the index and table built and timed apart) is timed as a yardstick
-   (``library_ms``); the port never calls it.
+   (``library_ms``); the port never calls it. On an IVF-Flat path at
+   k <= 256, K1 runs with its select epilogue over the block's every
+   probe: its scores against the plain version's, and each pair's ids
+   among the plain version's best k + 8 at a score within twice the
+   tolerance; K1b (``topk_select``) then merges that output to the
+   block's (nq, k), held to its plain version exactly (scores and ids in
+   order) and timed beside the library top-k it replaced (``torch.topk``
+   and a gather of the ids), with its own row in the kernels line.
 
 After phase 8, the rest of one rank's serving surface:
 
@@ -471,6 +478,11 @@ SLEEP_CYCLES_PER_S = 2e9
 
 K1_REPLACES = "distributed_faiss_tpu/ops/flat_pallas.py:113"
 K1_SOURCE = "distributed_faiss_tpu_torch/csrc/flat_scan.cu"
+K1B_REPLACES = "none: the JAX package selects with lax.top_k"
+K1B_SOURCE = "distributed_faiss_tpu_torch/csrc/topk_select.cu"
+# the plain version's extra places in K1's select check: near-ties may
+# cross the k-th place when the kernel sums in another order
+SELECT_SLACK = 8
 K2_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:139"
 K3_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:209"
 K4_REPLACES = "distributed_faiss_tpu/ops/adc_pallas.py:110"
@@ -549,14 +561,15 @@ def time_ms(call, arg_sets: list, warmup: int = 3, iters: int = 20,
     return start.elapsed_time(end) / iters
 
 
-def k1_bound(q, list_data, li, list_sizes, stored_norms: bool):
+def k1_bound(q, list_data, li, list_sizes, stored_norms: bool, k: int = 0):
     """(bound_ms, bound_by, bytes, flops) of one K1 call on these inputs.
     Bytes: each input byte the call needs read once — the live rows
     (payload + id + stored norm) of every distinct probed list, the query
-    block, the probe indices and their fill counts — and the (nq, g, cap)
-    fp32 scores written once. Operations: 2*d flops (the dot) for each
-    (query, probe, live row) triple; decode and the l2 combine add a few
-    more per row, which are left out."""
+    block, the probe indices and their fill counts — and the output written
+    once: the (nq, g, cap) fp32 scores, or with the select epilogue (k) the
+    (nq, g, k) scores and ids. Operations: 2*d flops (the dot) for each
+    (query, probe, live row) triple; decode, the l2 combine and the select
+    add a few more per row, which are left out."""
     nq, d = q.shape
     g = li.shape[1]
     cap = list_data.shape[1]
@@ -564,7 +577,8 @@ def k1_bound(q, list_data, li, list_sizes, stored_norms: bool):
     unique_live = int(sizes[torch.unique(li.long())].sum().item())
     pair_live = int(sizes[li.long()].sum().item())
     row_bytes = d * list_data.element_size() + 4 + (4 if stored_norms else 0)
-    nbytes = unique_live * row_bytes + nq * g * cap * 4 + nq * d * 4 + 2 * nq * g * 4
+    out_bytes = nq * g * (k * 8 if k else cap * 4)
+    nbytes = unique_live * row_bytes + out_bytes + nq * d * 4 + 2 * nq * g * 4
     flops = pair_live * 2 * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
@@ -643,8 +657,13 @@ def compare_scores(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: flo
 
 
 def launch_counters(flat_scan, adc):
-    """name -> the wrapper that counts that kernel's launches."""
-    return {"K1": flat_scan.flat_list_scan, "K2": adc.adc_scan, "K3": adc.adc_scan_nibble,
+    """name -> the wrapper that counts that kernel's launches. "K1 select"
+    counts the K1 launches with the select epilogue (also in "K1"), "K1b"
+    the ``topk_select`` merges of their candidates."""
+    from distributed_faiss_tpu_torch.ops import topk
+
+    return {"K1": flat_scan.flat_list_scan, "K1 select": flat_scan.flat_list_scan_select,
+            "K1b": topk.topk_select, "K2": adc.adc_scan, "K3": adc.adc_scan_nibble,
             "K3 lists": adc.adc_scan_lists, "K4": adc.adc_scan_shared}
 
 
@@ -1575,18 +1594,25 @@ def profile_window(client, q: np.ndarray, index_id: str) -> dict:
 
 
 def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray, q_more: np.ndarray = None,
-                  what: str = "ivfsq") -> dict:
-    """K1 and its plain version on a path's own inputs: the loaded index's
-    lists and the first probe group of one query block, built by the
-    model's own helpers. The timed calls take ``l2_copies`` of them in
-    turn; with ``q_more`` (lists too large to clone, as at the 65,536-list
-    tier) they take the probe groups of successive blocks of ``q_more``
-    instead, each reading other rows of the same lists, until the sets
-    read ``L2_ROTATE_BYTES``; bound, bytes and flops are then the sets'
-    mean."""
-    nprobe, nb, g = model._search_plan()
+                  what: str = "ivfsq", k: int = 10) -> dict:
+    """K1 as a top-``k`` search runs it, and its plain version, on a path's
+    own inputs: the loaded index's lists and the first probe group of one
+    query block by the model's plan, built by the model's own helpers;
+    with the select epilogue (the scan's k <= 256) the group is the
+    block's every probe and K1 returns each pair's best k. The timed calls
+    take ``l2_copies`` of them in turn; with ``q_more`` (lists too large to
+    clone, as at the 65,536-list tier) they take the probe groups of
+    successive blocks of ``q_more`` instead, each reading other rows of
+    the same lists, until the sets read ``L2_ROTATE_BYTES``; bound, bytes
+    and flops are then the sets' mean."""
+    from distributed_faiss_tpu_torch.ops import topk
+
+    nprobe, nb, g = model._search_plan(k)
+    scan_k = model._scan_k(k)
+    select = scan_k <= topk.SELECT_MAX_K
     opts = model._scan_options()
     stored = opts["list_norms"] is not None
+    out_k = scan_k if select else 0
 
     def groups(qb: np.ndarray):
         q = torch.from_numpy(np.ascontiguousarray(qb[:nb])).cuda()
@@ -1599,11 +1625,19 @@ def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray, q_more: np.ndarray
     args = next(groups(q_block))
     q, li, sizes_g = args[0], args[3], args[4]
     kw = dict(metric=model.metric, codec=model.codec, scan_bf16=opts["scan_bf16"])
-    got = flat_scan.flat_list_scan(*args, **kw)
-    want = flat_scan.flat_list_scan_plain(*args, **kw)
+    if select:
+        kw["k"] = scan_k
+        kernel_fn, plain_fn = flat_scan.flat_list_scan_select, flat_scan.flat_list_scan_select_plain
+        picked = kernel_fn(*args, **kw)
+        wide = plain_fn(*args, **dict(kw, k=scan_k + SELECT_SLACK))
+        got, want = picked[0], wide[0][..., :scan_k]
+        compare_select_ids(picked, wide, 1e-4, 1e-4, f"K1 {what}-path shape")
+    else:
+        kernel_fn, plain_fn = flat_scan.flat_list_scan, flat_scan.flat_list_scan_plain
+        got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
     err = compare_scores(got, want, 1e-4, 1e-4, f"K1 {what}-path shape")
     bound_ms, bound_by, nbytes, flops = k1_bound(q, model.lists.data, li, model.lists.sizes,
-                                                 stored)
+                                                 stored, out_k)
     if q_more is None:
         sets = l2_copies(args, nbytes)
     else:
@@ -1611,28 +1645,89 @@ def k1_main_shape(flat_scan, ivf, model, q_block: np.ndarray, q_more: np.ndarray
         for a in (a for s in range(0, q_more.shape[0] - nb + 1, nb)
                   for a in groups(q_more[s:s + nb])):
             sets.append(a)
-            bounds.append(k1_bound(a[0], model.lists.data, a[3], model.lists.sizes, stored))
+            bounds.append(k1_bound(a[0], model.lists.data, a[3], model.lists.sizes, stored,
+                                   out_k))
             if sum(b[2] for b in bounds) >= L2_ROTATE_BYTES:
                 break
         bound_ms, nbytes, flops = (float(np.mean([b[i] for b in bounds])) for i in (0, 2, 3))
         bound_by = max(("bytes", "operations"), key=[b[1] for b in bounds].count)
-    kernel = functools.partial(flat_scan.flat_list_scan, **kw)
+    kernel = functools.partial(kernel_fn, **kw)
     ms = time_ms(kernel, sets, iters=50)
     warm_ms = time_ms(kernel, [args], iters=50)
     call_ms = time_ms(kernel, [args], iters=50, queued=False)
-    plain_ms = time_ms(functools.partial(flat_scan.flat_list_scan_plain, **kw), sets,
-                       iters=10)
+    plain_ms = time_ms(functools.partial(plain_fn, **kw), sets, iters=10)
     n_sets = len(sets)
     del sets
     cap = model.lists.cap
     log(f"K1 {what}-path shape: nq={q.shape[0]} g={g} cap={cap} d={model.dim} "
-        f"codec={model.codec} live rows={int(sizes_g.sum())}, {n_sets} input sets: kernel "
+        f"codec={model.codec} select k={out_k or '-'} live rows={int(sizes_g.sum())}, "
+        f"{n_sets} input sets: kernel "
         f"{ms:.4f} ms (L2-warm back to back {warm_ms:.4f} ms; {call_ms:.4f} ms a call when "
         f"the host issues them), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes:.0f} bytes, {flops:.0f} flops), "
         f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, max_abs_err {err:.3g}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    if select:
+        out["topk_select"] = topk_main_shape(topk, *picked, scan_k, what)
+    return out
+
+
+def compare_select_ids(got, want, rtol: float, atol: float, what: str) -> None:
+    """K1's select output ``got`` ((nq, g, k) scores and ids) against its
+    plain version's best k + SELECT_SLACK (``want``): -1 in every -inf
+    slot, no id twice in a pair, and each finite slot's id among the plain
+    version's at a score within twice the tolerance (the kernel sums in
+    another order, so near-ties may swap, also across the k-th place)."""
+    gv, gi = got
+    wv, wi = want
+    f = torch.isfinite(gv)
+    if not bool((gi[~f] == -1).all()):
+        raise AssertionError(f"{what}: an -inf slot holds an id")
+    same = (gi[..., :, None] == gi[..., None, :]) & f[..., :, None]
+    if not bool((same.sum(-1)[f] == 1).all()):
+        raise AssertionError(f"{what}: an id twice in a pair")
+    tol = 2 * (atol + rtol * gv.abs())
+    close = (gv[..., :, None] - wv[..., None, :]).abs() <= tol[..., :, None]
+    found = ((gi[..., :, None] == wi[..., None, :]) & close).any(-1)
+    if not bool(found[f].all()):
+        raise AssertionError(f"{what}: {int((~found[f]).sum())} ids not among the plain "
+                             f"version's best {gv.shape[-1]} + {SELECT_SLACK}")
+
+
+def topk_main_shape(topk, vals, ids, k: int, what: str) -> dict:
+    """K1b (``topk_select``) on a path's own candidates: K1's select output
+    for one query block, (nq, g * k) scores and ids, merged into (nq, k).
+    Held to its plain version exactly (the same scores and ids, in order);
+    timed beside it and beside the library top-k it replaced
+    (``torch.topk`` of the scores and a gather of the ids, ``library_ms``)
+    over ``l2_copies``. Bound: the candidates read once and the result
+    written once, over HBM."""
+    nq = vals.shape[0]
+    v, i = vals.reshape(nq, -1).contiguous(), ids.reshape(nq, -1).contiguous()
+    got, want = topk.topk_select(v, i, k), topk.topk_select_plain(v, i, k)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        bad = int(((got[0] != want[0]) | (got[1] != want[1])).sum().item())
+        raise AssertionError(f"topk_select {what}-path shape: {bad} of {got[1].numel()} "
+                             f"slots differ from the plain version")
+    nbytes = v.numel() * 8 + nq * k * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sets = l2_copies((v, i), nbytes)
+
+    def library(a, b):
+        best, pos = torch.topk(a, k, dim=1)
+        return best, torch.gather(b, 1, pos)
+
+    ms = time_ms(lambda a, b: topk.topk_select(a, b, k), sets, iters=50)
+    plain_ms = time_ms(lambda a, b: topk.topk_select_plain(a, b, k), sets, iters=10)
+    library_ms = time_ms(library, sets, iters=50)
+    del sets
+    log(f"K1b topk_select {what}-path shape: nq={nq} w={v.shape[1]} k={k}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk + gather {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms (bytes: {nbytes}); the plain version's scores and ids "
+        f"exactly")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=library_ms)
 
 
 def adc_main_shape(adc, ivf, model, q_block: np.ndarray, what: str) -> dict:
@@ -3115,8 +3210,9 @@ TIER_N = 250_000
 TIER_MESH_N = 200_000
 TIER_BATCH = 50_000
 # K1's instantiation for sq8 rows read in 16-byte chunks, 2 chunks a lane
-# (d = 768), in nvcc's mangled kernel names
-K1_SQ8_768 = "flat_scan_kernelIhLb1ELi2ELi2E"
+# (d = 768), with the select epilogue the search runs, in nvcc's mangled
+# kernel names
+K1_SQ8_768 = "flat_scan_kernelIhLb1ELi2ELi2ELb1E"
 
 
 def ptxas_entry(cuda_build, name: str, fragment: str) -> str:
@@ -3669,7 +3765,9 @@ def shard_kernel_checks(model, q_block: np.ndarray, kernel: str) -> list:
     from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
     from distributed_faiss_tpu_torch.parallel import mesh
 
-    nprobe, nb, g = model._search_plan()
+    # the mesh's plan: its IVF-Flat scans write (nq, g, cap) scores at every k
+    plan = model._score_plan if kernel == "K1" else model._search_plan
+    nprobe, nb, g = plan()
     q = torch.from_numpy(np.ascontiguousarray(q_block[:nb])).cuda()
     li = ivf._probe_groups(model.centroids, q, nprobe, g, model.metric)[0].contiguous()
     S, cap = model.mesh.size, model.lists.cap
@@ -4763,6 +4861,7 @@ def main(argv=None) -> int:
             log(f"{name} phase: {time.perf_counter() - t0:.1f} s")
 
         k1 = k1_main_shape(flat_scan, ivf, sq_out["model"], sq_out["q_block"])
+        k1b = k1.pop("topk_select")
         k3 = adc_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"], "knnlm")
         k3_lists = lists_main_shape(adc_scan, ivf, pq_out["model"], pq_out["q_block"])
         k2 = adc_main_shape(adc_scan, ivf, k2_out["model"], k2_out["q_block"],
@@ -4823,6 +4922,8 @@ def main(argv=None) -> int:
     kernels = [
         dict(name="flat_list_scan", route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
              launches=sq_out["counts"]["K1"], **k1, library_ms=None),
+        dict(name="topk_select", route="cuda", source=K1B_SOURCE, replaces=K1B_REPLACES,
+             launches=sq_out["counts"]["K1b"], **k1b),
         dict(name="adc_scan", route="cuda", source=ADC_SOURCE, replaces=K2_REPLACES,
              launches=k2_out["counts"]["K2"], **k2),
         # K3's counter counts both of its entries; this row is the gathered

@@ -17,6 +17,11 @@
 //     out[i, j, pos] = score if pos < sizes_g[i, j] and ids[l, pos] >= 0
 //                      else -inf
 //
+// With k (1..256), the select epilogue: out[i, j, :k] and out_ids[i, j, :k]
+// are instead the pair's best k valid rows, by score and then by lower
+// id, with ids[l, pos]; slots past the valid rows are (-inf, -1). The IVF
+// search takes this form (models/ivf.py), the mesh the first.
+//
 // What bounds it. Each gathered row is used by exactly one (query, probe)
 // pair and meets one query vector: about 2 flops per element read, i.e.
 // ~1 flop/byte for fp16 rows and ~0.25 for fp32. The card does ~20 fp32
@@ -60,10 +65,39 @@
 //     unaligned address, take the same loop with element loads.
 // Blocks run in any order: nothing carries across them.
 //
-// Left for later: fusing the per-group top-k (the (nq, g, cap) scores are
-// a fifth of the bytes at the ivfsq shape, and their -inf padding most of
-// the stores), and grouping the queries that share a list into one
-// tensor-core GEMM (which would lift the arithmetic intensity).
+// The select epilogue. Without it a pair's (cap,) scores go to device
+// memory, mostly -inf padding (a probed ivfsq list holds about an
+// eighth of its capacity), and a library top-k reads them back group by
+// group: at the ivfsq shape that chain took 2.4x the scan's device time
+// and about 15 graph nodes a probe group. What bounds the select: each
+// pair's rows arrive in 256-row tiles over the block's lifetime, and
+// the block has 8 warps and a few KB of shared memory to keep its best
+// k. What the design does about it:
+//   * One block owns a pair and walks its live tiles only (grid.y 1); no
+//     row past the size is visited and nothing is stored for it.
+//   * Each tile's 256 (score, id) pairs go to shared memory, not to
+//     device memory; the block merges them into the pair's running top-k
+//     there (block_topk.cuh): a compare against the current k-th score
+//     rejects most rows after the first tile, and only the survivors are
+//     sorted and merged. The merge runs after the tile's scan loop, so
+//     its few registers sit beside the q slice and not beside the loads.
+//   * A pair of at most 32 rows (kShortSelect: most pairs of the sq8
+//     tiers, 4-8 live rows a list on average, one block an SM) skips the
+//     merge: after its one tile, warp 0 sorts the rows in registers with
+//     shuffles behind one barrier (topk_store_short). The merge's dozen
+//     barriers over a few rows made the epilogue cost as much as the
+//     scan there, with no other block on the SM to hide them.
+//   * k is a run-time argument up to 256; the shared buffers are sized
+//     for 256 (6.2 KB a block, no limit on 3 blocks an SM). A template
+//     parameter per power-of-two bucket of k multiplied the kernel's
+//     instantiations by five and the kernels' build on an H100 from 28 s
+//     to 52-57 s, for no register or occupancy the card counts.
+//   * The ids are read in the scan (they mask tombstones anyway) and
+//     written with the scores: (nq, g, k) of each, no gather after it.
+// The merge of a block's (nq, g * k) candidates into its final (nq, k)
+// is a second kernel (topk_select.cu). Left for later: grouping the
+// queries that share a list into one tensor-core GEMM (which would lift
+// the arithmetic intensity and read each list once a request).
 //
 // Built by distributed_faiss_tpu_torch/ops/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -77,13 +111,15 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "block_topk.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kSelectThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileRows = 256;    // live rows a block scans: one tile
+static_assert(kTileRows == kSelectTile, "the select merges one scanned tile at a time");
 constexpr int kLoadsPerLane = 4;  // R * C: loads a lane issues before decoding
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -161,8 +197,10 @@ struct ScanArgs {
   const float* norms;     // (nlist, cap), or null: recompute
   const float* vmin;      // (d,) sq8
   const float* span;      // (d,) sq8
-  float* out;             // (nq, g, cap)
+  float* out;             // (nq, g, cap), or (nq, g, k) with k
+  int32_t* out_ids;       // (nq, g, k) with k
   int g, cap, d;
+  int k;                  // 0, or the select's k (1..kSelectMaxK)
   int units;              // load units a row: d / N (VEC) or d
   int lanes_per_row;      // power of two <= 32
   int metric_l2, scan_bf16;
@@ -171,8 +209,9 @@ struct ScanArgs {
 // The register budget is cut for 3 blocks an SM (at most 85 registers a
 // thread, 24 warps to hide the loads' latency), except for sq8 rows read
 // in 16-byte chunks, whose three q planes need the registers and spill
-// under it.
-template <typename T, bool VEC, int C, int R>
+// under it. kSelect: the select epilogue (one block a pair, grid.y 1)
+// keeps the pair's best k of every tile in shared memory (block_topk.cuh).
+template <typename T, bool VEC, int C, int R, bool kSelect>
 __global__ void __launch_bounds__(kThreads, (VEC && sizeof(T) == 1) ? 1 : 3)
 flat_scan_kernel(const ScanArgs a) {
   using U = Unit<T, VEC>;
@@ -183,14 +222,21 @@ flat_scan_kernel(const ScanArgs a) {
   const int size = max(0, min(a.sizes_g[pair], cap));
   const size_t list_base = static_cast<size_t>(a.li[pair]) * cap;
   float* pair_out = a.out + static_cast<size_t>(pair) * cap;
+  __shared__ std::conditional_t<kSelect, TopKShared, char> top;
 
-  // this block's share of the dead rows [size, cap), a multiple of 4 rows
-  // so that every share but the first starts as aligned as the first
-  const int share = ((cap - size + static_cast<int>(gridDim.y) - 1) / gridDim.y + 3) & ~3;
-  const int dead0 = min(cap, size + static_cast<int>(blockIdx.y) * share);
-  fill_neg_inf(pair_out + dead0, min(cap - dead0, share));
   const int first = blockIdx.y * kTileRows;
-  if (first >= size) return;
+  // a pair of at most kShortSelect rows is sorted by one warp at the end
+  const bool short_pair = kSelect && size <= kShortSelect;
+  if constexpr (kSelect) {
+    if (!short_pair) topk_init(top, a.k, nullptr, nullptr);
+  } else {
+    // this block's share of the dead rows [size, cap), a multiple of 4
+    // rows so that every share but the first starts as aligned as the first
+    const int share = ((cap - size + static_cast<int>(gridDim.y) - 1) / gridDim.y + 3) & ~3;
+    const int dead0 = min(cap, size + static_cast<int>(blockIdx.y) * share);
+    fill_neg_inf(pair_out + dead0, min(cap - dead0, share));
+    if (first >= size) return;
+  }
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -328,9 +374,25 @@ flat_scan_kernel(const ScanArgs a) {
           } else {
             s = -(qn - 2.0f * ip[r] + (recompute ? xn[r] : bn[r]));
           }
-          pair_out[row] = s;
+          if constexpr (kSelect) {
+            top.tile_s[row - t0] = s;
+            top.tile_i[row - t0] = id[r];
+          } else {
+            pair_out[row] = s;
+          }
         }
       }
+    }
+    if constexpr (kSelect) {
+      if (!short_pair) topk_merge_tile(top, a.k, t1 - t0);
+    }
+  }
+  if constexpr (kSelect) {
+    const size_t at = static_cast<size_t>(pair) * a.k;
+    if (short_pair) {
+      topk_store_short(top, a.k, size, a.out + at, a.out_ids + at);
+    } else {
+      topk_store(top, a.k, a.out + at, a.out_ids + at);
     }
   }
 }
@@ -338,7 +400,11 @@ flat_scan_kernel(const ScanArgs a) {
 template <typename T, bool VEC, int C>
 void launch_one(const ScanArgs& a, dim3 grid, cudaStream_t stream) {
   constexpr int R = kLoadsPerLane / C > 0 ? kLoadsPerLane / C : 1;
-  flat_scan_kernel<T, VEC, C, R><<<grid, kThreads, 0, stream>>>(a);
+  if (a.k > 0) {
+    flat_scan_kernel<T, VEC, C, R, true><<<grid, kThreads, 0, stream>>>(a);
+  } else {
+    flat_scan_kernel<T, VEC, C, R, false><<<grid, kThreads, 0, stream>>>(a);
+  }
 }
 
 // c: a power of two <= max_units_per_lane<T, VEC>()
@@ -370,7 +436,7 @@ cudaError_t launch_codec(ScanArgs a, int nq, cudaStream_t stream) {
   while (c < per_lane && c < max_c) c *= 2;
   const int pairs = nq * a.g;
   const int tiles = (a.cap + kTileRows - 1) / kTileRows;
-  const int y = std::min(tiles, 65535);
+  const int y = a.k > 0 ? 1 : std::min(tiles, 65535);
   const dim3 grid(static_cast<unsigned>(pairs), static_cast<unsigned>(y));
   if (vec) {
     launch_width<T, true>(c, a, grid, stream);
@@ -385,17 +451,21 @@ cudaError_t launch_codec(ScanArgs a, int nq, cudaStream_t stream) {
 // Plain-C entry (loaded with ctypes). Pointers are device pointers of
 // contiguous tensors: q (nq, d) f32; data (nlist, cap, d) f32/f16/u8 by
 // `codec` (0/1/2); ids (nlist, cap) i32; li, sizes_g (nq, g) i32; norms
-// (nlist, cap) f32 or NULL (recompute); vmin, span (d,) f32 (codec 2);
-// out (nq, g, cap) f32. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
+// (nlist, cap) f32 or NULL (recompute); vmin, span (d,) f32 (codec 2).
+// k 0: out (nq, g, cap) f32 scores, out_ids unused. k in [1, 256]: out
+// (nq, g, k) f32 and out_ids (nq, g, k) i32, each pair's best k rows by
+// score, ties to the lower id, then (-inf, -1). Launches on `stream` and
+// returns cudaGetLastError() (0 on success); never synchronises.
 extern "C" int dft_flat_scan(const void* q, const void* data, const void* ids,
                              const void* li, const void* sizes_g,
                              const void* norms, const void* vmin,
-                             const void* span, void* out, int nq, int g,
-                             int cap, int d, int codec, int metric_l2,
-                             int scan_bf16, void* stream) {
-  if (nq <= 0 || g <= 0 || cap <= 0) return 0;
-  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                             const void* span, void* out, void* out_ids, int nq,
+                             int g, int cap, int d, int k, int codec,
+                             int metric_l2, int scan_bf16, void* stream) {
+  if (nq <= 0 || g <= 0 || (cap <= 0 && k == 0)) return 0;
+  if (d <= 0 || k < 0 || k > kSelectMaxK || cap < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ScanArgs a;
   a.q = static_cast<const float*>(q);
   a.data = data;
@@ -406,6 +476,8 @@ extern "C" int dft_flat_scan(const void* q, const void* data, const void* ids,
   a.vmin = static_cast<const float*>(vmin);
   a.span = static_cast<const float*>(span);
   a.out = static_cast<float*>(out);
+  a.out_ids = static_cast<int32_t*>(out_ids);
+  a.k = k;
   a.g = g;
   a.cap = cap;
   a.d = d;

@@ -5,7 +5,13 @@ multi-block search programs).
 
 Search: coarse scores (nq, nlist) -> top-nprobe lists -> a loop over probe
 groups; each group's (nq, g, cap) masked score block merges into a running
-top-k. IVF-Flat scores a group with ``ops.flat_scan.flat_list_scan``,
+top-k. IVF-Flat at k <= 256 (``ops.topk.SELECT_MAX_K``) instead has K1
+select each (query, probe) pair's best k in-kernel
+(``ops.flat_scan.flat_list_scan_select``) and ``ops.topk.topk_select``
+merge a group's (nq, g * k) candidates; its groups are sized by those
+candidates, so a query block is one group: the coarse top-nprobe, one K1
+launch and one merge. Past 256, IVF-Flat scores a group with
+``ops.flat_scan.flat_list_scan``,
 IVF-PQ with a per-(query, probe) ADC lookup table and, in the
 nibble geometry (ksub 256, m % 8 == 0), ``ops.adc_scan.adc_scan_lists``,
 which reads the probed lists itself and applies the size and id mask; in
@@ -26,8 +32,10 @@ fault raises — the JAX package's first-use oracle and ``pallas_guarded``
 demotion ladder are not ported. On the CPU the same wrappers run their
 plain PyTorch versions.
 
-The probe grouping (``probe_group_size`` over ``pick_query_block``'s query
-block) is the JAX package's, so the top-k merges happen in the same order.
+The query block (``pick_query_block``) is the JAX package's, and so is
+the probe grouping (``probe_group_size``) of every path but IVF-Flat's
+in-kernel select, whose groups bound a smaller block; the sets it returns
+are the same, tied scores may come back in another order.
 
 As in the JAX package, a query block's whole search (coarse top-nprobe,
 the probe groups, the scan kernel, the merges and the exact refine) is
@@ -53,7 +61,7 @@ import numpy as np
 import torch
 
 from distributed_faiss_tpu_torch.models import base
-from distributed_faiss_tpu_torch.ops import adc_scan, distance, flat_scan, kmeans, pq, sq
+from distributed_faiss_tpu_torch.ops import adc_scan, distance, flat_scan, kmeans, pq, sq, topk
 from distributed_faiss_tpu_torch.utils import sanitize
 
 logger = logging.getLogger()
@@ -210,18 +218,31 @@ def _pq_shared_search(centroids, codebooks, list_codes, list_ids, size: int, q, 
 def _ivf_flat_search(centroids, list_data, list_ids, list_sizes, q, k: int,
                      nprobe: int, g: int, metric: str, codec: str, vmin=None,
                      span=None, list_norms=None, scan_bf16: bool = False):
-    """IVF-Flat/SQ8 probe scan of one query block -> (scores, ids int32)."""
+    """IVF-Flat/SQ8 probe scan of one query block -> (scores, ids int32).
+
+    At k <= ``topk.SELECT_MAX_K`` K1 writes each pair's best k and
+    ``topk_select`` merges the group's candidates into the carry; past it
+    each group's (nq, g, cap) scores merge through ``_merge_group``."""
     q = q.float()
     nq = q.shape[0]
-    carry = (torch.full((nq, k), distance.NEG_INF, dtype=torch.float32, device=q.device),
-             torch.full((nq, k), -1, dtype=torch.int32, device=q.device))
+    select = k <= topk.SELECT_MAX_K
+    carry = None if select else (
+        torch.full((nq, k), distance.NEG_INF, dtype=torch.float32, device=q.device),
+        torch.full((nq, k), -1, dtype=torch.int32, device=q.device))
     for li in _probe_groups(centroids, q, nprobe, g, metric):
         li = li.contiguous()
         sizes = list_sizes[li.long()].contiguous()
-        s = flat_scan.flat_list_scan(q, list_data, list_ids, li, sizes, list_norms,
-                                     vmin, span, metric=metric, codec=codec,
-                                     scan_bf16=scan_bf16)
-        carry = _merge_group(carry, s, li, list_ids, k)
+        if select:
+            s, ids = flat_scan.flat_list_scan_select(q, list_data, list_ids, li, sizes,
+                                                     list_norms, vmin, span, k=k,
+                                                     metric=metric, codec=codec,
+                                                     scan_bf16=scan_bf16)
+            carry = topk.topk_select(s.reshape(nq, -1), ids.reshape(nq, -1), k, carry)
+        else:
+            s = flat_scan.flat_list_scan(q, list_data, list_ids, li, sizes, list_norms,
+                                         vmin, span, metric=metric, codec=codec,
+                                         scan_bf16=scan_bf16)
+            carry = _merge_group(carry, s, li, list_ids, k)
     return carry
 
 
@@ -512,11 +533,29 @@ class IVFFlatIndex(_IVFBase):
                 f"({self.norm_lists.cap} != {self.lists.cap})")
         return self.norm_lists.data
 
-    def _search_plan(self):
-        """(nprobe, query block, probe group size) of a search."""
+    def _search_plan(self, k: int):
+        """(nprobe, query block, probe group size) of a search for k
+        results: with K1's select (the scan's k <= ``topk.SELECT_MAX_K``)
+        the group bounds the (nb, g, k) candidates it materializes, 8
+        bytes each; past it the search scores as ``_score_plan`` says."""
+        nprobe, nb, g = self._score_plan()
+        scan_k = self._scan_k(k)
+        if scan_k <= topk.SELECT_MAX_K:
+            return nprobe, nb, probe_group_size(nprobe, nb * scan_k * 8)
+        return nprobe, nb, g
+
+    def _score_plan(self):
+        """(nprobe, query block, probe group size) of a scan that writes
+        each group's (nb, g, cap) scores, the JAX package's: the group
+        bounds the (nb, g, cap, d) fp32 rows. The mesh's scans take it at
+        every k."""
         nprobe = min(self.nprobe, self.nlist)
         nb = base.pick_query_block(self.lists.cap * self.dim * 4)
         return nprobe, nb, probe_group_size(nprobe, nb * self.lists.cap * self.dim * 4)
+
+    def _scan_k(self, k: int) -> int:
+        """Candidates the scan keeps a query: the refine's shortlist, or k."""
+        return k * self.refine_k_factor if self.refine_k_factor else k
 
     def _scan_options(self) -> dict:
         """``flat_list_scan``'s inputs that come from the index: stored
@@ -529,9 +568,9 @@ class IVFFlatIndex(_IVFBase):
     def search(self, q: np.ndarray, k: int):
         if self._n == 0:
             return self._empty_results(q.shape[0], k)
-        nprobe, nb, g = self._search_plan()
+        nprobe, nb, g = self._search_plan(k)
         opts = self._scan_options()
-        scan_k = k * self.refine_k_factor if self.refine_k_factor else k
+        scan_k = self._scan_k(k)
         refine = self.refine_store.data if self.refine_k_factor else None
         lists = (self.centroids, self.lists.data, self.lists.ids, self.lists.sizes, refine)
 

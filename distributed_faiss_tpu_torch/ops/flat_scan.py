@@ -11,13 +11,21 @@ raises: there is no fallback. Each launch adds one to
 ``flat_list_scan.launches``, and each replay of a captured program adds
 the launches it holds (``utils/programs.py``). Under GRAFT_SANITIZE=1 the operands' shapes
 and gather bounds are checked on the host first (``utils/sanitize.py``).
+
+``flat_list_scan_select`` launches the same kernel with its select
+epilogue: each (query, probe) pair's best k rows (1 <= k <= 256) as
+(nq, g, k) scores and ids, in place of the (nq, g, cap) score block, the
+form the IVF search takes (``models/ivf.py``; ``ops/topk.py`` merges the
+pairs). Its plain version is ``flat_list_scan_select_plain``. Its
+launches count in ``flat_list_scan.launches`` (the kernel's) and in
+``flat_list_scan_select.launches``.
 """
 
 import ctypes
 
 import torch
 
-from distributed_faiss_tpu_torch.ops import cuda_build, sq
+from distributed_faiss_tpu_torch.ops import cuda_build, sq, topk
 from distributed_faiss_tpu_torch.ops.distance import NEG_INF, row_norms_f32
 from distributed_faiss_tpu_torch.utils import lockdep, programs, sanitize
 
@@ -36,6 +44,12 @@ def flat_list_scan_plain(q, list_data, list_ids, li, sizes_g, list_norms=None,
     scan_bf16 rounds q and the decoded rows to bf16 and multiplies in fp32:
     products of bf16 values are exact in fp32, so this is a bf16 dot with
     fp32 accumulation (the JAX package's ``preferred_element_type=f32``)."""
+    return _plain_scores(q, list_data, list_ids, li, sizes_g, list_norms, vmin, span,
+                         metric, codec, scan_bf16)
+
+
+def _plain_scores(q, list_data, list_ids, li, sizes_g, list_norms, vmin, span, metric,
+                  codec, scan_bf16):
     q = q.float()
     idx = li.long()
     block = list_data[idx]  # (nq, g, cap, d) storage dtype
@@ -57,6 +71,24 @@ def flat_list_scan_plain(q, list_data, list_ids, li, sizes_g, list_norms=None,
     pos = torch.arange(cap, device=q.device)
     valid = (pos[None, None, :] < sizes_g[:, :, None]) & (list_ids[idx] >= 0)
     return torch.where(valid, s, torch.full_like(s, NEG_INF))
+
+
+def flat_list_scan_select_plain(q, list_data, list_ids, li, sizes_g, list_norms=None,
+                                vmin=None, span=None, *, k: int, metric: str,
+                                codec: str = "f16", scan_bf16: bool = False):
+    """The select epilogue's function in plain PyTorch: each pair's best k
+    of ``flat_list_scan_plain``'s scores, ordered as the kernel orders them
+    (``topk.ordered_topk``). Scores one probe at a time, so the gathered
+    block is (nq, cap, d) and not (nq, g, cap, d)."""
+    vals, ids = [], []
+    for j in range(li.shape[1]):
+        lj = li[:, j:j + 1].contiguous()
+        s = _plain_scores(q, list_data, list_ids, lj, sizes_g[:, j:j + 1], list_norms, vmin,
+                          span, metric, codec, scan_bf16)[:, 0]
+        best, best_ids = topk.ordered_topk(s, list_ids[lj[:, 0].long()], k)
+        vals.append(best)
+        ids.append(best_ids)
+    return torch.stack(vals, 1), torch.stack(ids, 1)
 
 
 def flat_list_scan(q, list_data, list_ids, li, sizes_g, list_norms=None,
@@ -83,6 +115,31 @@ def flat_list_scan(q, list_data, list_ids, li, sizes_g, list_norms=None,
 
 
 flat_list_scan.launches = 0
+
+
+def flat_list_scan_select(q, list_data, list_ids, li, sizes_g, list_norms=None,
+                          vmin=None, span=None, *, k: int, metric: str, codec: str = "f16",
+                          scan_bf16: bool = False):
+    """Each (query, probe) pair's best k valid rows, 1 <= k <=
+    ``topk.SELECT_MAX_K``: ((nq, g, k) fp32 scores, (nq, g, k) int32 ids
+    ``list_ids[li[i, j], pos]``), best first (score, then lower id), (-inf,
+    -1) past the pair's valid rows. Inputs as ``flat_list_scan``."""
+    if sanitize.enabled():
+        _sanitize(q, list_data, list_ids, li, sizes_g, list_norms)
+    if q.device.type == "cpu":
+        return flat_list_scan_select_plain(q, list_data, list_ids, li, sizes_g, list_norms,
+                                           vmin, span, k=k, metric=metric, codec=codec,
+                                           scan_bf16=scan_bf16)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flat_list_scan_select: unsupported device {q.device}")
+    if not 1 <= k <= topk.SELECT_MAX_K:
+        raise ValueError(f"flat_list_scan_select: k must be in [1, {topk.SELECT_MAX_K}], "
+                         f"got {k}")
+    return _launch(q, list_data, list_ids, li, sizes_g, list_norms, vmin, span,
+                   metric, codec, scan_bf16, k=k)
+
+
+flat_list_scan_select.launches = 0
 
 
 def _sanitize(q, list_data, list_ids, li, sizes_g, list_norms):
@@ -114,8 +171,9 @@ def _ptr(t):
 
 
 def _launch(q, list_data, list_ids, li, sizes_g, list_norms, vmin, span,
-            metric, codec, scan_bf16):
-    """Check the inputs and launch the kernel."""
+            metric, codec, scan_bf16, k=0):
+    """Check the inputs and launch the kernel (k > 0: with its select
+    epilogue)."""
     if codec not in CODECS:
         raise ValueError(f"flat_list_scan: unknown codec {codec!r}")
     if metric not in ("l2", "dot"):
@@ -140,16 +198,20 @@ def _launch(q, list_data, list_ids, li, sizes_g, list_norms, vmin, span,
         _check("span", span, torch.float32, (d,), dev)
     else:
         vmin = span = None
-    out = torch.empty((nq, g, cap), dtype=torch.float32, device=dev)
+    out = torch.empty((nq, g, k or cap), dtype=torch.float32, device=dev)
+    out_ids = torch.empty((nq, g, k), dtype=torch.int32, device=dev) if k else None
     fn = cuda_build.load("flat_scan").dft_flat_scan
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(q), _ptr(list_data), _ptr(list_ids), _ptr(li), _ptr(sizes_g),
-             _ptr(norms), _ptr(vmin), _ptr(span), _ptr(out),
-             nq, g, cap, d, code, int(metric == "l2"), int(bool(scan_bf16)),
+             _ptr(norms), _ptr(vmin), _ptr(span), _ptr(out), _ptr(out_ids),
+             nq, g, cap, d, k, code, int(metric == "l2"), int(bool(scan_bf16)),
              ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {err}")
+    if k:
+        programs.count_launches(_counter_lock, flat_list_scan, flat_list_scan_select)
+        return out, out_ids
     programs.count_launches(_counter_lock, flat_list_scan)
     return out

@@ -1110,7 +1110,7 @@ class ShardedIVFFlatIndex(IVFFlatIndex):
     def search(self, q: np.ndarray, k: int):
         if self._n == 0:
             return self._empty_results(q.shape[0], k)
-        nprobe, nb, g = self._search_plan()
+        nprobe, nb, g = self._score_plan()
         norms = self._scan_norms()
         raw = _refine_data(self)
         adc_k = k * self.refine_k_factor if raw is not None else 0

@@ -63,7 +63,7 @@ import numpy as np
 from distributed_faiss_tpu_torch.engine import Index
 from distributed_faiss_tpu_torch.observability import export as obs_export
 from distributed_faiss_tpu_torch.observability import spans as obs_spans
-from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan, topk
 from distributed_faiss_tpu_torch.parallel import antientropy, rpc, wire
 from distributed_faiss_tpu_torch.serving.scheduler import (
     DeadlineExpired,
@@ -545,12 +545,17 @@ class IndexServer:
         """Liveness probe: this rank, its device, each index's state, and
         ``kernels``, each kernel wrapper's launches in this process since it
         started (0 on the CPU, where the wrappers run their plain
-        versions)."""
+        versions). ``flat_list_scan_select`` counts the K1 launches that
+        selected in-kernel (also in ``flat_list_scan``), ``topk_select``
+        the merges of their candidates: an IVF-Flat search at k <= 256
+        moves both, one past it neither."""
         with self.indexes_lock:
             snapshot = list(self.indexes.items())
         return {"rank": self.rank, "device": str(self.device),
                 "indexes": {iid: idx.get_state().name for iid, idx in snapshot},
                 "kernels": {"flat_list_scan": flat_scan.flat_list_scan.launches,
+                            "flat_list_scan_select": flat_scan.flat_list_scan_select.launches,
+                            "topk_select": topk.topk_select.launches,
                             "adc_scan": adc_scan.adc_scan.launches,
                             "adc_scan_nibble": adc_scan.adc_scan_nibble.launches,
                             "adc_scan_lists": adc_scan.adc_scan_lists.launches,

@@ -311,8 +311,9 @@ def test_ping_counts_kernel_launches_zero_on_the_cpu(tmp_path):
                           and srv.get_aggregated_ntotal("k") == 0)
         srv.search("k", x[:4], 3)
         kernels = srv.ping()["kernels"]
-        assert kernels == {"flat_list_scan": 0, "adc_scan": 0, "adc_scan_nibble": 0,
-                           "adc_scan_lists": 0, "adc_scan_shared": 0}
+        assert kernels == {"flat_list_scan": 0, "flat_list_scan_select": 0, "topk_select": 0,
+                           "adc_scan": 0, "adc_scan_nibble": 0, "adc_scan_lists": 0,
+                           "adc_scan_shared": 0}
     finally:
         srv.stop()
 

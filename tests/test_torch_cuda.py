@@ -51,7 +51,7 @@ import torch
 
 from distributed_faiss_tpu_torch.models import factory
 from distributed_faiss_tpu_torch.models.ivf import IVFFlatIndex, IVFPQIndex
-from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan
+from distributed_faiss_tpu_torch.ops import adc_scan, flat_scan, topk
 from distributed_faiss_tpu_torch.utils.config import IndexCfg
 
 pytestmark = pytest.mark.cuda
@@ -133,9 +133,10 @@ def test_flat_scan_kernel_matches_plain(card, variant, d):
 
 
 # list sizes at the flat scan's edges: empty, one row, either side of a
-# warp's 8-row batch (fp16 rows at d = 128) and of a block's 64-row step
-# and 256-row tile, one short of the capacity, full
-EDGE_SIZES = (0, 1, 7, 8, 9, 63, 64, 65, 255, 256, 257, 600, 601)
+# warp's 8-row batch (fp16 rows at d = 128), of the select's one-warp sort
+# (32 rows), of a block's 64-row step and 256-row tile, one short of the
+# capacity, full
+EDGE_SIZES = (0, 1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 255, 256, 257, 600, 601)
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -206,6 +207,186 @@ def test_ivf_flat_on_card_matches_cpu(card, codec):
     d_cpu, i_cpu = cpu.search(q, 10)
     np.testing.assert_array_equal(i_card, i_cpu)
     np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------------------- K1's select and topk_select
+
+
+def assert_select_matches(got, want, k, rtol, atol):
+    """The kernel's (nq, g, k) best rows against the plain version's best
+    k + SELECT_SLACK: the same -inf slots (id -1), scores within rtol/atol
+    slot by slot, no id twice in a pair, and each finite slot's id among
+    the plain version's with a score within twice the tolerance of the
+    kernel's (the kernel sums in another order, so near-ties may swap,
+    also across the k-th place)."""
+    gv, gi = got[0].cpu(), got[1].cpu()
+    wv, wi = want[0].cpu(), want[1].cpu()
+    assert gv.shape == gi.shape == wv[..., :k].shape and gi.dtype == torch.int32
+    assert torch.equal(torch.isneginf(gv), torch.isneginf(wv[..., :k])), "-inf slots differ"
+    assert (gi[torch.isneginf(gv)] == -1).all()
+    f = torch.isfinite(gv)
+    torch.testing.assert_close(gv[f], wv[..., :k][f], rtol=rtol, atol=atol)
+    same = (gi[..., :, None] == gi[..., None, :]) & f[..., :, None]
+    assert (same.sum(-1)[f] == 1).all(), "an id twice in a pair"
+    tol = 2 * (atol + rtol * gv.abs())
+    close = (gv[..., :, None] - wv[..., None, :]).abs() <= tol[..., :, None]
+    found = ((gi[..., :, None] == wi[..., None, :]) & close).any(-1)
+    assert found[f].all(), f"{int((~found[f]).sum())} ids not among the plain version's"
+
+
+SELECT_SLACK = 8
+
+
+def select_args(seed, codec, d, nq, g, nlist, cap, sizes, card):
+    """K1 inputs on the card: lists of random rows with about 5% -1 ids,
+    the given list sizes (a tensor over the lists), stored norms for l2,
+    each query probing g distinct lists."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    q = torch.randn((nq, d), device=card, generator=gen)
+    vmin = span = None
+    if codec == "sq8":
+        data = torch.randint(0, 256, (nlist, cap, d), dtype=torch.uint8, device=card,
+                             generator=gen)
+        vmin = torch.randn(d, device=card, generator=gen)
+        span = torch.rand(d, device=card, generator=gen) + 0.5
+        decoded = vmin + data.float() * (span / 255.0)
+    else:
+        data = torch.randn((nlist, cap, d), device=card, generator=gen).to(
+            flat_scan.CODECS[codec][1])
+        decoded = data.float()
+    norms = (decoded * decoded).sum(-1)
+    del decoded
+    ids = torch.randperm(nlist * cap, device=card, generator=gen).to(torch.int32)
+    ids = ids.reshape(nlist, cap)
+    ids[torch.rand((nlist, cap), device=card, generator=gen) < 0.05] = -1
+    li = torch.argsort(torch.rand((nq, nlist), device=card, generator=gen), dim=1)[:, :g]
+    li = li.to(torch.int32).contiguous()
+    return (q, data, ids, li, sizes.to(card)[li.long()].contiguous(), norms, vmin, span)
+
+
+@pytest.mark.parametrize("k", [1, 10, 80, 256])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("variant", VARIANTS, ids=_vid)
+def test_flat_scan_select_matches_plain(card, variant, d, k):
+    """K1 with its select epilogue over lists whose sizes sit at the
+    kernel's row edges (empty, one row, either side of a tile, of k and of
+    the one-warp sort of pairs up to 32 rows) in a capacity of 601 rows,
+    with -1 ids: the plain version's best k
+    (rtol/atol 1e-4, 5e-2/5e-1 under scan_bf16). One launch, counted in
+    both counters."""
+    codec, metric, stored, bf16 = variant
+    sizes = torch.as_tensor(EDGE_SIZES, dtype=torch.int32)
+    args = list(select_args(k + d, codec, d, 5, 6, len(EDGE_SIZES), 601, sizes, card))
+    if not (metric == "l2" and stored):
+        args[5] = None
+    kw = dict(metric=metric, codec=codec, scan_bf16=bf16)
+    before = (flat_scan.flat_list_scan.launches, flat_scan.flat_list_scan_select.launches)
+    got = flat_scan.flat_list_scan_select(*args, k=k, **kw)
+    torch.cuda.synchronize()
+    assert (flat_scan.flat_list_scan.launches, flat_scan.flat_list_scan_select.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flat_scan.flat_list_scan_select_plain(*args, k=k + SELECT_SLACK, **kw)
+    rtol, atol = (5e-2, 5e-1) if bf16 else (1e-4, 1e-4)
+    assert_select_matches(got, want, k, rtol, atol)
+
+
+@pytest.mark.parametrize("shape", ["sift", "tier"])
+def test_flat_scan_select_at_the_main_shapes(card, shape):
+    """K1's select at the IVF-Flat path's shapes: the sift shape (256
+    queries x 128 probes of 1024 fp16 lists at cap 4096, d = 128, stored
+    norms, k = 10; sizes up to 2,900 rows) and the tier shape (256 x 32 of
+    4096 sq8 lists at cap 256, d = 768, k = 80, the refine's 8 x 10; most
+    lists short of k), against the plain version."""
+    nq, g, nlist, cap, d, codec, k = {"sift": (256, 128, 1024, 4096, 128, "f16", 10),
+                                      "tier": (256, 32, 4096, 256, 768, "sq8", 80)}[shape]
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    top = 2900 if shape == "sift" else 120
+    sizes = torch.randint(0, top + 1, (nlist,), dtype=torch.int32, generator=gen)
+    sizes[0] = cap
+    args = select_args(11, codec, d, nq, g, nlist, cap, sizes, card)
+    got = flat_scan.flat_list_scan_select(*args, k=k, metric="l2", codec=codec)
+    torch.cuda.synchronize()
+    want = flat_scan.flat_list_scan_select_plain(*args, k=k + SELECT_SLACK, metric="l2",
+                                                 codec=codec)
+    assert_select_matches(got, want, k, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["fresh", "carry"])
+@pytest.mark.parametrize("w", [1, 255, 256, 257, 1280, 2560])
+@pytest.mark.parametrize("k", [1, 10, 80, 256])
+def test_topk_select_kernel_matches_plain(card, k, w, carry):
+    """``topk_select`` over (nq, w) candidates with (-inf, -1) pads, scores
+    on a coarse grid so that many tie (ordered by the lower id), alone and
+    on top of a carry: exactly the plain version's result, in order. One
+    launch."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(k * 7 + w)
+    nq = 33
+    vals = torch.round(torch.randn((nq, w), device=card, generator=gen) * 8) / 8
+    ids = torch.randperm(nq * w, device=card, generator=gen).to(torch.int32).reshape(nq, w)
+    dead = torch.rand((nq, w), device=card, generator=gen) < 0.2
+    vals[dead], ids[dead] = float("-inf"), -1
+    prior = None
+    if carry:
+        cv = torch.round(torch.randn((nq, 300), device=card, generator=gen) * 8) / 8
+        ci = (torch.randperm(nq * 300, device=card, generator=gen).to(torch.int32)
+              + nq * w).reshape(nq, 300)
+        prior = topk.topk_select_plain(cv, ci, k)
+    before = topk.topk_select.launches
+    got = topk.topk_select(vals, ids, k, prior)
+    torch.cuda.synchronize()
+    assert topk.topk_select.launches == before + 1
+    want = topk.topk_select_plain(vals, ids, k, prior)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_topk_select_refuses_bad_inputs(card):
+    vals = torch.zeros((4, 40), device=card)
+    ids = torch.zeros((4, 40), dtype=torch.int32, device=card)
+    before = topk.topk_select.launches
+    for args, match in [((vals, ids, 0), "k must be"), ((vals, ids, 257), "k must be"),
+                        ((vals, ids.long(), 10), "must be torch.int32"),
+                        ((vals.t(), ids.t(), 10), "contiguous"),
+                        ((vals, ids, 10, (vals[:, :9].contiguous(), ids[:, :10].contiguous())),
+                         "shape")]:
+        with pytest.raises(ValueError, match=match):
+            topk.topk_select(*args)
+    with pytest.raises(ValueError, match="k must be"):
+        flat_scan.flat_list_scan_select(*[None if a is None else a.to(card) for a in
+                                          flat_scan_inputs(0, "f16", "l2", True, 24)],
+                                        k=257, metric="l2", codec="f16")
+    assert topk.topk_select.launches == before
+
+
+@pytest.mark.parametrize("codec", ["f16", "sq8"])
+def test_ivf_flat_search_takes_the_select_at_k_up_to_256(card, codec):
+    """One search at k = 10 launches K1 with its select and topk_select
+    (one of each a block) and one at k = 300 neither (the (nq, g, cap)
+    scores and the per-group top-k); both serve the CPU's ids."""
+    rng = np.random.default_rng(5)
+    d, nlist = 32, 16
+    centers = rng.standard_normal((nlist, d)).astype(np.float32) * 3.0
+    x = centers[rng.integers(0, nlist, 4000)] + rng.standard_normal((4000, d)).astype(np.float32)
+    q = centers[rng.integers(0, nlist, 40)] + rng.standard_normal((40, d)).astype(np.float32)
+    cpu = IVFFlatIndex(d, nlist, "l2", codec, kmeans_iters=4, device="cpu")
+    cpu.train(x[:1000])
+    cpu.add(x)
+    cpu.set_nprobe(6)
+    on_card = IVFFlatIndex.from_state_dict(cpu.state_dict(), device=card)
+    counters = (flat_scan.flat_list_scan, flat_scan.flat_list_scan_select, topk.topk_select)
+    for k, moved in ((10, (True, True, True)), (300, (True, False, False))):
+        on_card.search(q, k)  # warm-up and capture
+        before = [fn.launches for fn in counters]
+        d_card, i_card = on_card.search(q, k)
+        delta = [fn.launches - b for fn, b in zip(counters, before)]
+        assert [n > 0 for n in delta] == list(moved), (k, delta)
+        if k == 10:
+            assert delta == [1, 1, 1]  # one block, one probe group
+        d_cpu, i_cpu = cpu.search(q, k)
+        np.testing.assert_array_equal(i_card[:, :10], i_cpu[:, :10])
+        np.testing.assert_allclose(d_card[:, :10], d_cpu[:, :10], rtol=1e-3, atol=1e-3)
 
 
 def adc_inputs(seed, P, L, m, lut_dtype, ksub=256):
@@ -752,7 +933,9 @@ def test_compacted_index_on_card_matches_plain(card, spec):
     np.testing.assert_array_equal(i_card, i_cpu)
     np.testing.assert_allclose(d_card, d_cpu, rtol=1e-3, atol=1e-3)
     qt = torch.as_tensor(q[:32], device=card)
-    nprobe, _, g = small._search_plan()
+    # the (nq, g, cap) score path's plan: the kernel below writes every row
+    plan = small._score_plan if isinstance(small, IVFFlatIndex) else small._search_plan
+    nprobe, _, g = plan()
     li = ivf._probe_groups(small.centroids, qt, nprobe, g, "l2")[0].contiguous()
     sizes = small.lists.sizes[li.long()].contiguous()
     if isinstance(small, IVFFlatIndex):
@@ -1171,17 +1354,18 @@ def test_a_host_sync_inside_a_program_raises_at_capture(card, monkeypatch):
     from distributed_faiss_tpu_torch.utils import programs
 
     idx, _, _, q = _program_index("K1", card)
-    merge = ivf._merge_group
+    probe = ivf._probe_groups
 
-    def doctored(carry, s, li, list_ids, k):
-        s.max().item()
-        return merge(carry, s, li, list_ids, k)
+    def doctored(*a):
+        groups = probe(*a)
+        groups.max().item()
+        return groups
 
-    monkeypatch.setattr(ivf, "_merge_group", doctored)
+    monkeypatch.setattr(ivf, "_probe_groups", doctored)
     with pytest.raises(RuntimeError):
         idx.search(q, 10)
     assert idx.program_stats()["replays"] == 0
-    monkeypatch.setattr(ivf, "_merge_group", merge)
+    monkeypatch.setattr(ivf, "_probe_groups", probe)
     with programs.eager():
         want = idx.search(q, 10)
     np.testing.assert_array_equal(idx.search(q, 10)[1], want[1])

@@ -116,7 +116,7 @@ def test_kernel_sources_and_build_dir():
     under a name that carries a hash of the source."""
     from distributed_faiss_tpu_torch.ops import cuda_build
 
-    assert cuda_build.sources() == ["adc_scan", "flat_scan"]
+    assert cuda_build.sources() == ["adc_scan", "flat_scan", "topk_select"]
     for name in cuda_build.sources():
         path = cuda_build.library_path(name)
         assert path.parent == REPO / "build" / "torch_kernels"

@@ -57,17 +57,24 @@ def ivf_flat(x, nlist=8, nprobe=4, **kw):
 
 @pytest.fixture
 def counted_k1(monkeypatch):
-    """K1's plain version counting a launch as the CUDA wrapper does, so the
-    CPU path shows the replay accounting."""
-    plain = flat_scan.flat_list_scan_plain
+    """K1's plain versions counting a launch as the CUDA wrapper does (the
+    selecting one in ``flat_list_scan_select`` too), so the CPU path shows
+    the replay accounting."""
+    for name, wrappers in (("flat_list_scan_plain", (flat_scan.flat_list_scan,)),
+                           ("flat_list_scan_select_plain",
+                            (flat_scan.flat_list_scan, flat_scan.flat_list_scan_select))):
+        monkeypatch.setattr(flat_scan, name, _counting(getattr(flat_scan, name), wrappers))
+    monkeypatch.setattr(flat_scan.flat_list_scan, "launches", 0)
+    monkeypatch.setattr(flat_scan.flat_list_scan_select, "launches", 0)
+    return flat_scan.flat_list_scan
 
+
+def _counting(plain, wrappers):
     def counting(*a, **kw):
-        programs.count_launches(flat_scan._counter_lock, flat_scan.flat_list_scan)
+        programs.count_launches(flat_scan._counter_lock, *wrappers)
         return plain(*a, **kw)
 
-    monkeypatch.setattr(flat_scan, "flat_list_scan_plain", counting)
-    monkeypatch.setattr(flat_scan.flat_list_scan, "launches", 0)
-    return flat_scan.flat_list_scan
+    return counting
 
 
 @pytest.fixture
@@ -265,8 +272,9 @@ def test_replayed_launches_reach_the_wrapper(counted_k1):
     replay adds them again."""
     x, q = make_data(10, 400, 20)
     idx = ivf_flat(x, nprobe=4)
-    nprobe, _, g = idx._search_plan()
-    groups = nprobe // g  # one K1 launch a probe group
+    nprobe, _, g = idx._search_plan(K)
+    groups = nprobe // g  # one K1 launch a probe group: one a block
+    assert groups == 1
     recorded(idx)
     idx.search(q, K)  # warm-up (counts), capture (recorded), replay (counts)
     assert counted_k1.launches == 2 * groups
@@ -276,6 +284,7 @@ def test_replayed_launches_reach_the_wrapper(counted_k1):
     with programs.eager():
         idx.search(q, K)
     assert counted_k1.launches == 5 * groups
+    assert flat_scan.flat_list_scan_select.launches == counted_k1.launches
 
 
 def test_tally_and_count_under_capture():
@@ -347,7 +356,7 @@ def test_compilecheck_sees_each_capture(tally):
     snap = compilecheck.snapshot()
     idx.search(q, K)
     assert compilecheck.new_since(snap) == {}
-    nb = idx._search_plan()[1]
+    nb = idx._search_plan(K)[1]
     idx.search(np.concatenate([q] * (nb // q.shape[0] + 1)), K)  # past one block
     assert compilecheck.new_since(snap) == {"capture:ivf_flat.fused": 1}
 

@@ -172,7 +172,11 @@ def test_ivf_sq8_at_65536_lists_serves_the_jax_ids(tier_data, jax_tier_index):
 def test_search_plan_at_the_tier_is_the_jax_plan(jax_tier_index):
     """Query block and probe group size at the tier, for the CPU shape and
     the card's d = 768 at caps 64-512: the port's ``pick_query_block`` and
-    ``probe_group_size`` are the JAX package's."""
+    ``probe_group_size`` are the JAX package's. The search's query block
+    is the JAX package's; its group is the JAX package's for the (nb, g,
+    cap) score path (``_score_plan``: the mesh's, and k past 256), and every probe
+    with K1's in-kernel select (k and the refine's k * 8 up to 256), whose
+    group holds (nb, g, k) candidates of 8 bytes."""
     from distributed_faiss_tpu.models import base as jbase
     from distributed_faiss_tpu.models import ivf as jivf
     from distributed_faiss_tpu_torch.models import base as tbase
@@ -189,8 +193,11 @@ def test_search_plan_at_the_tier_is_the_jax_plan(jax_tier_index):
     port.set_nprobe(32)
     cap = port.lists.cap
     block = jbase.pick_query_block(cap * D_TIER * 4)
-    assert port._search_plan() == (32, block, jivf.probe_group_size(
-        32, block * cap * D_TIER * 4))
+    jax_plan = (32, block, jivf.probe_group_size(32, block * cap * D_TIER * 4))
+    assert port._score_plan() == port._search_plan(300) == jax_plan
+    for k in (1, 10, 80, 256):
+        assert port._search_plan(k) == (32, block, tivf.probe_group_size(
+            32, block * k * 8)) == (32, block, 32)
 
 
 def test_kmeans_random_seeding_branch_at_the_tier():
@@ -326,7 +333,8 @@ def test_ivf_sq8_at_262144_lists_serves_the_jax_ids(big_tier):
     assert (want[1][:, 0] == np.arange(q.shape[0])).mean() >= 0.9
     port.set_nprobe(32)
     block = jbase.pick_query_block(64 * D_TIER * 4)
-    assert port._search_plan() == (32, block, jivf.probe_group_size(32, block * 64 * D_TIER * 4))
+    assert port._score_plan() == (32, block, jivf.probe_group_size(32, block * 64 * D_TIER * 4))
+    assert port._search_plan(11) == (32, block, 32)  # K1's select: one group
 
 
 def test_appends_at_262144_lists_grow_the_lists_as_jax_does(big_tier, monkeypatch):

@@ -86,7 +86,8 @@ def test_nvcc_builds_and_loads_are_tallied(tally, tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build.subprocess, "Popen", FakeNvcc)
     monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: types.SimpleNamespace(path=path))
     cuda_build.build()
-    assert compilecheck.counts() == {"nvcc:adc_scan": 1, "nvcc:flat_scan": 1}
+    assert compilecheck.counts() == {"nvcc:adc_scan": 1, "nvcc:flat_scan": 1,
+                                     "nvcc:topk_select": 1}
     snap = compilecheck.snapshot()
     cuda_build.build()
     assert compilecheck.new_since(snap) == {}
